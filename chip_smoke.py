@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA card.
+
+    python3 chip_smoke.py          # from the repository root, on a GPU host
+
+Phases, each printed on its own line:
+
+1. build — compile the CUDA sources of ``src/repro_torch/csrc`` for
+   ``sm_90a``; print the build time, the compiler's register report and
+   the card (``nvidia-smi`` name and power limit).
+2. kernels — each kernel against its plain PyTorch version on the same
+   CUDA inputs, bit for bit (``torch.equal`` on every output), over
+   random fronts, time ties, partial and empty fronts, empty and full
+   row masks and a finite ``t_cap``.
+3. phold — PHOLD at a GPU PDES deployment's size (917,504 LPs, one
+   message each, a 1,048,576-event queue) through
+   ``SimProgram.build(backend="device")`` on the card, then the same
+   program on the CPU for the same super-steps: state, counters,
+   word histogram and every final queue field must be bit-identical,
+   and each kernel's launch count must equal the super-step count.
+4. poc — the paper's model (16 iterations, 256 events) under ``switch``
+   and ``masked`` dispatch; the final ``sum`` must match the oracle.
+5. timing — each kernel and its plain version at the main path's shapes
+   (CUDA events over back-to-back calls), beside the least time the
+   card could take for the bytes each call must move.
+
+The second-to-last lines are the kernels' JSON record and the card's
+``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
+Any failure exits non-zero before that line.  Without a CUDA device,
+or outside a checkout of the repository, the script exits non-zero and
+prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+# PHOLD as a GPU PDES deployment: one message per LP, the pending set at
+# 87.5% of the queue, and a horizon no hop reaches within the run (the
+# population stays constant; initial times reach 458,751.5).
+PHOLD_LPS = 917_504
+PHOLD_CAPACITY = 1_048_576
+PHOLD_T_STOP = 4_194_304.0
+PHOLD_BATCHES = 4096
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+
+WINDOW_SHAPES = [(256, 4), (256, 16), (16, 4)]     # (front_cap, k)
+MERGE_SHAPES = [(256, 4), (256, 32)]               # (front_cap, R)
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def phase(name: str, **fields) -> None:
+    print(f"PHASE {name} " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def card_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        raise PhaseError(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _front(rng, F, front_n, t_hi, W=4, num_types=3):
+    import numpy as np
+
+    t = np.sort(rng.integers(0, t_hi, front_n) * 0.5).astype(np.float32)
+    ft = np.full((F,), np.inf, np.float32)
+    fy = np.full((F,), -1, np.int32)
+    fa = np.zeros((F, W), np.float32)
+    fs = np.full((F,), 2**31 - 1, np.int32)
+    ft[:front_n] = t
+    fy[:front_n] = rng.integers(0, num_types, front_n)
+    fa[:front_n] = rng.random((front_n, W))
+    fs[:front_n] = np.arange(front_n)
+    return [ft, fy, fa, fs]
+
+
+def _max_abs_err(got, want) -> float:
+    import torch
+
+    worst = 0.0
+    for g, w in zip(got, want):
+        same = g == w
+        if bool(same.all()):
+            continue
+        d = (g.double() - w.double()).abs()
+        worst = max(worst, float(torch.where(same, 0.0, d).max()))
+    return worst
+
+
+def check_kernels(device) -> dict:
+    """Bit-compare every kernel with its plain version; returns the
+    worst absolute difference per kernel (0.0 when all agree)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import queue_front as qf
+
+    def cuda(xs):
+        return [torch.as_tensor(x).to(device) for x in xs]
+
+    errs = {"window_extract": 0.0, "front_merge": 0.0}
+    cases = 0
+    la = torch.tensor([0.5, 1.0, 0.0], device=device)
+    seed = 0
+    for F, k in WINDOW_SHAPES:
+        for case in ("seed0", "seed1", "ties", "partial", "empty", "cap"):
+            seed += 1
+            rng = np.random.default_rng(seed)
+            front_n = {"partial": k // 2, "empty": 0}.get(case, F)
+            cols = cuda(_front(rng, F, front_n, 2 if case == "ties" else 8))
+            t_cap = 1.5 if case == "cap" else None
+            got = qf.window_extract_cuda(*cols, la, t_cap, k=k)
+            want = qf.window_extract_plain(*cols, la, t_cap, k=k)
+            torch.cuda.synchronize()
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+            errs["window_extract"] = max(errs["window_extract"],
+                                         _max_abs_err(got, want))
+            if not ok:
+                raise PhaseError(f"window_extract F={F} k={k} {case}: "
+                                 "kernel differs from plain version")
+            cases += 1
+    for F, R in MERGE_SHAPES:
+        for case in ("seed0", "seed1", "ties", "partial", "empty",
+                     "none_front", "all_front"):
+            seed += 1
+            rng = np.random.default_rng(seed)
+            front_n = {"partial": F // 3, "empty": 0}.get(case, F)
+            cols = _front(rng, F, front_n, 2 if case == "ties" else 8)
+            t_hi = 2 if case == "ties" else 10
+            rows = [
+                (rng.integers(0, t_hi, R) * 0.5).astype(np.float32),
+                rng.integers(0, 3, R).astype(np.int32),
+                rng.random((R, 4)).astype(np.float32),
+                (10_000 + rng.permutation(R)).astype(np.int32),
+                {"none_front": np.zeros(R, bool),
+                 "all_front": np.ones(R, bool)}.get(
+                     case, rng.random(R) < 0.6),
+            ]
+            args = cuda(cols + [np.int32(front_n)] + rows)
+            got = qf.front_merge_cuda(*args)
+            want = qf.front_merge_plain(*args)
+            torch.cuda.synchronize()
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+            errs["front_merge"] = max(errs["front_merge"],
+                                      _max_abs_err(got, want))
+            if not ok:
+                raise PhaseError(f"front_merge F={F} R={R} {case}: "
+                                 "kernel differs from plain version")
+            cases += 1
+    phase("kernels", cases=cases, bit_identical=True,
+          max_abs_err=json.dumps(errs))
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: PHOLD at full width, card against CPU
+# ---------------------------------------------------------------------------
+
+def run_phold(device_name: str):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import queue as q
+    from repro_torch.examples import phold
+    from repro_torch.kernels import queue_front as qf
+
+    t0 = time.perf_counter()
+    prog = phold.build_program(num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP,
+                               max_batch_len=4, capacity=PHOLD_CAPACITY)
+    gpu = prog.build(backend="device", device=device_name,
+                     dispatch_mode="switch")
+    setup_s = time.perf_counter() - t0
+
+    # The main path: counts are zeroed just before and read just after.
+    qf.reset_launches()
+    q.COUNTS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gpu.run(phold.initial_state(PHOLD_LPS, device_name),
+                  max_batches=PHOLD_BATCHES)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = dict(qf.LAUNCHES)
+    counts = dict(q.COUNTS)
+
+    cpu = prog.build(backend="device", device="cpu", dispatch_mode="switch")
+    t0 = time.perf_counter()
+    ref = cpu.run(phold.initial_state(PHOLD_LPS, "cpu"),
+                  max_batches=PHOLD_BATCHES)
+    cpu_s = time.perf_counter() - t0
+
+    problems = []
+    if res.batches != PHOLD_BATCHES:
+        problems.append(f"ran {res.batches} of {PHOLD_BATCHES} super-steps")
+    for name in ("events", "batches", "dropped", "emitted", "pending"):
+        if getattr(res, name) != getattr(ref, name):
+            problems.append(f"{name}: card {getattr(res, name)} "
+                            f"cpu {getattr(ref, name)}")
+    if res.dropped != 0:
+        problems.append(f"dropped {res.dropped} events")
+    if np.float32(res.final_time) != np.float32(ref.final_time):
+        problems.append(f"final_time {res.final_time} vs {ref.final_time}")
+    if not np.array_equal(res.word_counts, ref.word_counts):
+        problems.append("word_counts differ")
+    if not torch.equal(res.state["counts"].cpu(), ref.state["counts"]):
+        problems.append("per-LP counts differ")
+    if int(res.state["checksum"]) != int(ref.state["checksum"]):
+        problems.append("checksum differs")
+    got = q.tiered3_queue_to_arrays(res.raw["final_queue"])
+    want = q.tiered3_queue_to_arrays(ref.raw["final_queue"])
+    for name in want:
+        if not np.array_equal(got[name], want[name]):
+            problems.append(f"final queue field {name} differs")
+    for name, n in launches.items():
+        if n != res.batches:
+            problems.append(f"{name} launched {n} times in "
+                            f"{res.batches} super-steps")
+    if problems:
+        raise PhaseError("phold: " + "; ".join(problems))
+
+    rare = {k: v for k, v in sorted(counts.items()) if k != "host_syncs"}
+    phase("phold", lps=PHOLD_LPS, capacity=PHOLD_CAPACITY,
+          batches=res.batches, events=res.events, dropped=res.dropped,
+          final_time=res.final_time, checksum=int(res.state["checksum"]),
+          setup_s=f"{setup_s:.3f}", card_s=f"{gpu_s:.3f}",
+          cpu_s=f"{cpu_s:.3f}",
+          card_events_per_s=f"{res.events / gpu_s:.1f}",
+          card_steps_per_s=f"{res.batches / gpu_s:.1f}",
+          host_syncs_per_step=f"{counts['host_syncs'] / res.batches:.4f}",
+          rare_paths=json.dumps(rare, separators=(",", ":")),
+          launches=json.dumps(launches, separators=(",", ":")),
+          bit_identical_to_cpu=True)
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the paper's model
+# ---------------------------------------------------------------------------
+
+def run_poc(device_name: str) -> None:
+    from repro_torch.examples import poc
+    from repro_torch.kernels import queue_front as qf
+
+    iters = 16
+    evs = poc.schedule_poc_events(256, 0.3, seed=0)
+    want = poc.reference_final_sum([ty for _, ty in evs], iters)
+    for mode in ("switch", "masked"):
+        sim = poc.build_program(iters).build(
+            backend="device", device=device_name, dispatch_mode=mode)
+        qf.reset_launches()
+        res = sim.run(poc.initial_state(device_name), events=evs)
+        got = int(res.state)
+        if got != want or res.events != len(evs):
+            raise PhaseError(f"poc {mode}: sum {got} (want {want}), "
+                             f"{res.events} events")
+        if any(n != res.batches for n in qf.LAUNCHES.values()):
+            raise PhaseError(f"poc {mode}: launches {qf.LAUNCHES} for "
+                             f"{res.batches} super-steps")
+        phase("poc", mode=mode, events=res.events, batches=res.batches,
+              sum=got, oracle=want)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: timing at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def _time_ms(fn, reps: int = 300) -> float:
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def time_kernels(final_queue, lookaheads, launches, errs) -> list:
+    import torch
+
+    from repro_torch.kernels import queue_front as qf
+
+    q = final_queue
+    F, W = q.f_args.shape
+    k = 4
+    records = []
+
+    # window_extract on the run's final front tier.
+    w_in = [q.f_times, q.f_types, q.f_args, q.f_seqs, lookaheads]
+    w_out = qf.window_extract_cuda(*w_in, None, k=k)
+    ops = k * k + k * 4                      # cummin + take rule compares
+    records.append(("window_extract", 130,
+                    lambda: qf.window_extract_cuda(*w_in, None, k=k),
+                    lambda: qf.window_extract_plain(*w_in, None, k=k),
+                    _nbytes(w_in) + _nbytes(w_out), ops))
+
+    # front_merge of one PHOLD emit block (R = max_batch_len rows) bound
+    # for that front: times inside the front's span, fresh seqs.
+    R = 4
+    dev = q.f_times.device
+    t_r = q.f_times[:R] + torch.tensor([1.0, 1.5, 2.0, 4.5], device=dev)
+    m_in = [q.f_times, q.f_types, q.f_args, q.f_seqs, q.front_n,
+            t_r.contiguous(), torch.zeros(R, dtype=torch.int32, device=dev),
+            torch.zeros((R, W), device=dev),
+            q.next_seq + torch.arange(R, dtype=torch.int32, device=dev),
+            torch.ones(R, dtype=torch.bool, device=dev)]
+    m_out = qf.front_merge_cuda(*m_in)
+    ops = 5 * R * R + R * F + 2 * (F + R) * R  # rank, insertion, rebuild
+    records.append(("front_merge", 249,
+                    lambda: qf.front_merge_cuda(*m_in),
+                    lambda: qf.front_merge_plain(*m_in),
+                    _nbytes(m_in) + _nbytes(m_out), ops))
+
+    out = []
+    for name, line, kernel, plain, nbytes, ops in records:
+        ms = _time_ms(kernel)
+        plain_ms = _time_ms(plain)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/queue_front.cu",
+            "replaces": f"src/repro/kernels/queue_front.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+        })
+        phase("timing", kernel=name, F=F, bytes=nbytes, ops=ops,
+              ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+              bound_ms=f"{max(bytes_ms, ops_ms):.9f}")
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT} is not a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    t0 = time.perf_counter()
+    _build.build("queue_front")
+    build_s = time.perf_counter() - t0
+    phase("build", seconds=f"{build_s:.2f}", card=json.dumps(card),
+          torch=torch.__version__, cuda=torch.version.cuda)
+    for line in _build.BUILD_LOG.get("queue_front", "").splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    errs = check_kernels(torch.device("cuda"))
+    res, launches = run_phold("cuda")
+    run_poc("cuda")
+    lookaheads = torch.tensor([1.0], device="cuda")
+    kernels = time_kernels(res.raw["final_queue"], lookaheads, launches,
+                           errs)
+
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except PhaseError as err:
+        print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
+        sys.exit(1)

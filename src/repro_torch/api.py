@@ -1,0 +1,41 @@
+"""`repro_torch.api` — the supported way to define and run simulations
+on the PyTorch port.
+
+    from repro_torch.api import Config, SimProgram
+
+    prog = SimProgram("demo", config=Config(max_batch_len=4))
+
+    @prog.handler("TICK", lookahead=1.0)
+    def tick(state, t, arg):
+        return state + 1
+
+    prog.schedule(0.0, "TICK")
+    result = prog.build(backend="device").run(torch.tensor(0))
+
+``build(backend="device")`` runs on the CUDA card; pass ``device="cpu"``
+to run the same program on the CPU.  This is the part of
+:mod:`repro.api` the port has so far.
+"""
+
+from repro_torch.core.events import ARG_WIDTH, emits_events
+from repro_torch.core.program import (
+    EMIT_WIDTH,
+    CompiledSim,
+    Config,
+    RunResult,
+    SimProgram,
+    normalize_arg,
+    state_from_numpy,
+)
+
+__all__ = [
+    "ARG_WIDTH",
+    "EMIT_WIDTH",
+    "CompiledSim",
+    "Config",
+    "RunResult",
+    "SimProgram",
+    "emits_events",
+    "normalize_arg",
+    "state_from_numpy",
+]

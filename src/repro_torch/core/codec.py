@@ -1,0 +1,112 @@
+"""Batch-identifier codec (paper §III-A), PyTorch port.
+
+Counterpart of :mod:`repro.core.codec`'s :class:`DenseCodec`: a
+bijective base-|Σ| numbering over ν-free words up to ``max_len``.
+``id(word of length k) = offset(k) + Σ_i digit_i·|Σ|^i`` with the FIRST
+event as the least significant digit and ``offset(k) =
+Σ_{j=1..k-1}|Σ|^j``, so the ids are contiguous — directly usable as
+dispatch indices.  ``encode``/``decode`` run on the host;
+:meth:`DenseCodec.encode_torch` is the on-device Horner evaluation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+
+def geometric_sum(base: int, n: int) -> int:
+    """Σ_{i=1..n} base^i  (number of non-empty words up to length n)."""
+    if base == 1:
+        return n
+    return (base ** (n + 1) - base) // (base - 1)
+
+
+def dense_batch_count(num_types: int, max_len: int) -> int:
+    """ν-free word count: Σ_{i=1..n} |Σ|^i."""
+    return geometric_sum(num_types, max_len)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseCodec:
+    """Bijective, redundancy-free codec (paper §IV.D future work)."""
+
+    num_types: int
+    max_len: int
+
+    @property
+    def base(self) -> int:
+        return self.num_types
+
+    @property
+    def num_batches(self) -> int:
+        return dense_batch_count(self.num_types, self.max_len)
+
+    def offset(self, length: int) -> int:
+        """Start id of the length-``length`` group."""
+        return geometric_sum(self.num_types, length - 1)
+
+    def encode(self, type_ids: Sequence[int]) -> int:
+        k = len(type_ids)
+        if not 1 <= k <= self.max_len:
+            raise ValueError(f"batch length must be in [1, {self.max_len}]")
+        code = 0
+        for t in reversed(type_ids):
+            if not 0 <= t < self.num_types:
+                raise ValueError(f"type id {t} out of range")
+            code = code * self.base + t
+        return self.offset(k) + code
+
+    def decode(self, code: int) -> list[int]:
+        if not 0 <= code < self.num_batches:
+            raise ValueError(f"code {code} out of range")
+        length = 1
+        while code >= self.offset(length) + self.base ** length:
+            length += 1
+        rem = code - self.offset(length)
+        out = []
+        for _ in range(length):
+            out.append(rem % self.base)
+            rem //= self.base
+        return out
+
+    def enumerate_codes(self):
+        return range(self.num_batches)
+
+    def enumerate_words(self):
+        """Yield (code, word) for every distinct batch, in id order."""
+        for code in self.enumerate_codes():
+            yield code, self.decode(code)
+
+    def encode_torch(self, padded_types: torch.Tensor,
+                     length: torch.Tensor) -> torch.Tensor:
+        """On-device encode: i32[max_len] types + i32 length -> i32 id.
+
+        The same unrolled Horner loop as ``repro``'s ``encode_jnp``:
+        lanes ``>= length`` are skipped and the length group's offset
+        is looked up from a ``max_len + 1`` table.
+        """
+        device = padded_types.device
+        types = padded_types.to(torch.int32)
+        length = torch.as_tensor(length, dtype=torch.int32, device=device)
+        code = torch.zeros((), dtype=torch.int32, device=device)
+        for i in range(self.max_len - 1, -1, -1):
+            code = torch.where(i < length, code * self.base + types[i], code)
+        offs = torch.tensor(
+            [self.offset(k) if k >= 1 else 0 for k in range(self.max_len + 1)],
+            dtype=torch.int32, device=device,
+        )
+        return offs[length.long()] + code
+
+
+def make_codec(kind: str, num_types: int, max_len: int) -> DenseCodec:
+    if kind == "dense":
+        return DenseCodec(num_types, max_len)
+    if kind == "paper":
+        raise NotImplementedError(
+            "the paper codec serves the host schedulers, which the "
+            "PyTorch port does not have yet; use codec='dense'"
+        )
+    raise ValueError(f"unknown codec kind {kind!r}")

@@ -1,0 +1,952 @@
+"""Pending-event set on the device: the tiered3 queue (PyTorch port).
+
+Counterpart of the ``Tiered3DeviceQueue`` family of
+:mod:`repro.core.queue` (DESIGN.md §4.4): a small sorted *front* tier
+(the globally earliest events), an unsorted *staging* ring, a pool of
+fixed-size sorted *runs*, and the capacity-sized sorted *main* ring,
+with the invariant ``max(front) <= min(staging ∪ runs ∪ main)`` under
+the lexicographic ``(time, seq)`` key.  Every operation reproduces the
+JAX queue bit for bit: same fields, same values, same ghost and
+``dropped`` accounting.
+
+How the JAX control flow maps onto eager PyTorch:
+
+* Every ``lax.cond`` becomes a Python ``if`` on one host read of its
+  predicate (:func:`host_read`).  Each read is counted in
+  ``COUNTS["host_syncs"]``; each rare path counts its firings under its
+  own key, so a run can show which paths it exercised.
+* ``dynamic_slice``/``dynamic_update_slice`` clamp their start the way
+  XLA does (:func:`_update_slice`), and every index a gather sees is
+  clipped in range, as in the JAX code, so no gather can fault.
+* The staging scatters with ``mode="drop"`` write into one scratch slot
+  past the end that is then cut off (:func:`_scatter_rows`), so no
+  out-of-range index reaches the device.
+* Ties break on ``(time, seq, index)`` everywhere: all-pairs ranks where
+  JAX uses them, and two stable sorts for ``lax.sort``'s stable
+  two-key sort (:func:`_lex_order`).
+
+The per-super-step hot loops, the window extract and the front merge,
+go through :mod:`repro_torch.kernels.queue_front`, which launches the
+hand-written CUDA kernels for tensors on a CUDA device and runs their
+plain PyTorch versions on the CPU.
+
+Queue tensors are never updated in place: every operation returns new
+tensors, as the JAX functions do.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.events import ARG_WIDTH
+
+INF = float("inf")
+I32_MAX = 2**31 - 1
+_I32 = torch.int32
+
+# Rare-path firings and device-to-host reads, by name.  Plain counters:
+# callers reset them (``COUNTS.clear()``) around the run they measure.
+COUNTS: collections.Counter = collections.Counter()
+
+
+def host_read(t: torch.Tensor):
+    """Read a 0-d tensor to the host (one counted device sync)."""
+    COUNTS["host_syncs"] += 1
+    return t.item()
+
+
+def host_list(t: torch.Tensor) -> list:
+    """Read a small 1-d tensor to the host (one counted device sync)."""
+    COUNTS["host_syncs"] += 1
+    return t.tolist()
+
+
+# ---------------------------------------------------------------------------
+# Small helpers shared with the kernels' plain versions
+# ---------------------------------------------------------------------------
+
+def _arange(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=_I32, device=device)
+
+
+def _i32(x) -> torch.Tensor:
+    return x.to(_I32)
+
+
+def _take(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(col, idx, axis=0)`` for in-range indices."""
+    flat = col.index_select(0, idx.reshape(-1).long())
+    return flat.reshape(tuple(idx.shape) + tuple(col.shape[1:]))
+
+
+def _at(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``col[idx]`` for a 0-d in-range index tensor, without a sync."""
+    return col.index_select(0, idx.reshape(1).long()).reshape(
+        tuple(col.shape[1:]))
+
+
+def _update_slice(col: torch.Tensor, block: torch.Tensor,
+                  start: torch.Tensor) -> torch.Tensor:
+    """``lax.dynamic_update_slice_in_dim(col, block, start, 0)``: XLA
+    clamps the start into ``[0, len(col) - len(block)]``."""
+    n, p = block.shape[0], col.shape[0]
+    start = torch.clamp(start, 0, p - n)
+    idx = start + _arange(n, col.device)
+    return col.index_copy(0, idx.long(), block)
+
+
+def _scatter_rows(col: torch.Tensor, dest: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """``col.at[dest].set(vals, mode="drop")`` where every dropped row
+    carries ``dest == len(col)``: those rows land in a scratch slot that
+    is cut off, so no out-of-range index reaches the device."""
+    ext = torch.cat([col, col[:1]])
+    ext.index_copy_(0, dest.long(), vals)
+    return ext[:-1]
+
+
+def _small_lex_perm(ts: torch.Tensor, sq: torch.Tensor) -> torch.Tensor:
+    """Permutation sorting a tiny vector by ``(ts, sq, index)``
+    ascending, from all-pairs ranks (unique in ``[0, m)``)."""
+    m = ts.shape[0]
+    i = _arange(m, ts.device)
+    t_gt = ts[:, None] > ts[None, :]
+    t_eq = ts[:, None] == ts[None, :]
+    s_gt = sq[:, None] > sq[None, :]
+    s_eq = sq[:, None] == sq[None, :]
+    before = t_gt | (t_eq & s_gt) | (t_eq & s_eq & (i[:, None] > i[None, :]))
+    rank = before.sum(dim=1)
+    return torch.empty_like(rank).scatter_(0, rank, i.long())
+
+
+def _prefix_rank(mask: torch.Tensor) -> torch.Tensor:
+    """Rank of each position among the True positions (-1 where False
+    counts itself out)."""
+    return _i32(torch.cumsum(mask.to(_I32), 0)) - 1
+
+
+def _lex_order(ts: torch.Tensor, sq: torch.Tensor) -> torch.Tensor:
+    """Ascending ``(time, seq, index)`` permutation: the stable two-key
+    ``lax.sort`` as two stable sorts (minor key first)."""
+    p1 = torch.sort(sq, stable=True).indices
+    p2 = torch.sort(ts[p1], stable=True).indices
+    return p1[p2]
+
+
+def _f32(x) -> float:
+    """Round a host float to f32, as ``jnp.asarray(x, jnp.float32)``."""
+    return float(np.float32(x))
+
+
+def window_prefix_mask(ts, wins, valid, t_cap=None) -> torch.Tensor:
+    """Vectorized §III-B dynamic-lookahead take rule.
+
+    Over candidates sorted by ``(time, seq)``: take event ``i`` iff
+    every earlier candidate was taken and ``t_i <= min(t_cap, min over
+    j < i of wins_j)``.  An exclusive cummin plus a prefix-AND.
+    """
+    cap = INF if t_cap is None else _f32(t_cap)
+    inf1 = torch.full((1,), INF, dtype=torch.float32, device=ts.device)
+    t_max = torch.cat([inf1, torch.cummin(wins, 0).values[:-1]])
+    ok = valid & (ts <= torch.clamp(t_max, max=cap))
+    return torch.cumsum((~ok).to(_I32), 0) == 0
+
+
+def shift_left(col: torch.Tensor, fill, length: torch.Tensor,
+               k: int) -> torch.Tensor:
+    """Pop ``length <= k`` slots off the front of ``col``: pad with
+    ``k`` fill slots, then the ``dynamic_slice`` at ``length`` (start
+    clamped into ``[0, k]`` as XLA does)."""
+    F = col.shape[0]
+    pad = torch.full((k,) + tuple(col.shape[1:]), fill, dtype=col.dtype,
+                     device=col.device)
+    start = torch.clamp(length, 0, k)
+    return _take(torch.cat([col, pad]), start + _arange(F, col.device))
+
+
+def _sentinel_cols(n: int, arg_width: int, device):
+    return (
+        torch.full((n,), INF, dtype=torch.float32, device=device),
+        torch.full((n,), -1, dtype=_I32, device=device),
+        torch.zeros((n, arg_width), dtype=torch.float32, device=device),
+        torch.full((n,), I32_MAX, dtype=_I32, device=device),
+    )
+
+
+def _ring_unroll(col, fill, head, n, offset=0):
+    """Materialize a head-offset ring column's live window at physical
+    ``offset``: one gather (roll by ``head - offset``) with the dead
+    slots reset to ``fill``."""
+    P = col.shape[0]
+    i = _arange(P, col.device)
+    rolled = _take(col, torch.remainder(i - offset + head, P))
+    live = (i >= offset) & (i < offset + n)
+    mask = live if col.dim() == 1 else live[:, None]
+    return torch.where(mask, rolled, fill)
+
+
+def _host_sorted_seed(events, capacity: int, arg_width: int, seqs=None):
+    """The surviving seed events as columns sorted by ``(time, seq)``,
+    plus the logical counters: ``seq`` runs 0..N-1 (or the explicit
+    ``seqs``) and events past ``capacity`` are dropped."""
+    events = list(events)
+    n = len(events)
+    if seqs is not None:
+        if len(seqs) != n:
+            raise ValueError(f"{len(seqs)} explicit seqs for {n} seed events")
+        if n > capacity:
+            raise ValueError(
+                f"explicit-seq seed of {n} events exceeds capacity "
+                f"{capacity}: apply the overflow rule before sharding"
+            )
+    m = min(n, capacity)
+    kept = events[:m]
+    times = np.asarray([e[0] for e in kept], np.float32).reshape(m)
+    types = np.asarray([e[1] for e in kept], np.int32).reshape(m)
+    args = np.zeros((m, arg_width), np.float32)
+    for i, e in enumerate(kept):
+        if e[2] is not None:
+            args[i] = np.asarray(e[2], np.float32)
+    seq_col = (np.arange(m, dtype=np.int32) if seqs is None
+               else np.asarray(seqs, np.int32)[:m])
+    order = np.lexsort((seq_col, times))
+    return (times[order], types[order], args[order], seq_col[order], n, m)
+
+
+# ---------------------------------------------------------------------------
+# The queue
+# ---------------------------------------------------------------------------
+
+class Tiered3DeviceQueue(NamedTuple):
+    """Front / staging / run log / main, field for field the JAX
+    ``Tiered3DeviceQueue``.  ``m_*`` is physically ``capacity +
+    num_runs * stage_cap`` slots; the logical capacity excludes that
+    slack.  Scalars are 0-d int32 tensors."""
+
+    f_times: torch.Tensor   # f32[front_cap]
+    f_types: torch.Tensor   # i32[front_cap], -1 = empty
+    f_args: torch.Tensor    # f32[front_cap, ARG_WIDTH]
+    f_seqs: torch.Tensor    # i32[front_cap]
+    m_times: torch.Tensor   # f32[capacity + num_runs*stage_cap]
+    m_types: torch.Tensor
+    m_args: torch.Tensor
+    m_seqs: torch.Tensor
+    s_times: torch.Tensor   # f32[stage_cap]
+    s_types: torch.Tensor
+    s_args: torch.Tensor
+    s_seqs: torch.Tensor
+    r_times: torch.Tensor   # f32[num_runs, stage_cap]
+    r_types: torch.Tensor
+    r_args: torch.Tensor
+    r_seqs: torch.Tensor
+    r_off: torch.Tensor     # i32[num_runs], consumed prefix of each run
+    r_len: torch.Tensor     # i32[num_runs], written length of each run
+    front_n: torch.Tensor
+    main_n: torch.Tensor
+    m_head: torch.Tensor    # first logical main slot (ring)
+    stage_n: torch.Tensor
+    size: torch.Tensor      # logical pushes (incl. ghosts)
+    next_seq: torch.Tensor
+    dropped: torch.Tensor
+
+    @property
+    def main_phys(self) -> int:
+        return self.m_times.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.main_phys - self.num_runs * self.stage_cap
+
+    @property
+    def front_cap(self) -> int:
+        return self.f_times.shape[0]
+
+    @property
+    def stage_cap(self) -> int:
+        return self.s_times.shape[0]
+
+    @property
+    def num_runs(self) -> int:
+        return self.r_times.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.f_times.device
+
+
+_FLOAT_FIELDS = ("f_times", "f_args", "m_times", "m_args", "s_times",
+                 "s_args", "r_times", "r_args")
+
+
+def tiered3_queue_from_arrays(fields, device) -> Tiered3DeviceQueue:
+    """Build a queue from numpy arrays keyed by the JAX queue's field
+    names (f32 fields stay f32, every other field becomes int32)."""
+    out = {}
+    for name in Tiered3DeviceQueue._fields:
+        dtype = torch.float32 if name in _FLOAT_FIELDS else _I32
+        arr = np.asarray(fields[name])
+        arr = arr.astype(np.float32 if dtype == torch.float32 else np.int32)
+        out[name] = torch.tensor(arr, dtype=dtype, device=device)
+    return Tiered3DeviceQueue(**out)
+
+
+def tiered3_queue_to_arrays(q: Tiered3DeviceQueue) -> dict:
+    """Every field as a numpy array (f32 or int32), keyed by name."""
+    return {name: getattr(q, name).cpu().numpy() for name in q._fields}
+
+
+def tiered3_queue_init(capacity: int, *, front_cap: int = 256,
+                       stage_cap: int = 256, num_runs: int = 8,
+                       arg_width: int = ARG_WIDTH,
+                       device="cpu") -> Tiered3DeviceQueue:
+    front_cap = min(front_cap, capacity)
+    phys = capacity + num_runs * stage_cap
+    ft, fy, fa, fs = _sentinel_cols(front_cap, arg_width, device)
+    mt, my, ma, ms = _sentinel_cols(phys, arg_width, device)
+    st, sy, sa, ss = _sentinel_cols(stage_cap, arg_width, device)
+    rt, ry, ra, rs = _sentinel_cols(num_runs * stage_cap, arg_width, device)
+
+    def zero():
+        return torch.zeros((), dtype=_I32, device=device)
+
+    return Tiered3DeviceQueue(
+        f_times=ft, f_types=fy, f_args=fa, f_seqs=fs,
+        m_times=mt, m_types=my, m_args=ma, m_seqs=ms,
+        s_times=st, s_types=sy, s_args=sa, s_seqs=ss,
+        r_times=rt.reshape(num_runs, stage_cap),
+        r_types=ry.reshape(num_runs, stage_cap),
+        r_args=ra.reshape(num_runs, stage_cap, arg_width),
+        r_seqs=rs.reshape(num_runs, stage_cap),
+        r_off=torch.zeros((num_runs,), dtype=_I32, device=device),
+        r_len=torch.zeros((num_runs,), dtype=_I32, device=device),
+        front_n=zero(), main_n=zero(), m_head=zero(), stage_n=zero(),
+        size=zero(), next_seq=zero(), dropped=zero(),
+    )
+
+
+def tiered3_queue_from_host(events, capacity: int, *, front_cap: int = 256,
+                            stage_cap: int = 256, num_runs: int = 8,
+                            arg_width: int = ARG_WIDTH, seqs=None,
+                            device="cpu") -> Tiered3DeviceQueue:
+    """Host-built seed queue, one copy to ``device``: the earliest
+    ``front_cap`` events seed the front, the rest the main ring at head
+    0; runs and staging start empty."""
+    front_cap = min(front_cap, capacity)
+    phys = capacity + num_runs * stage_cap
+    times, types, args, seq_col, n, m = _host_sorted_seed(
+        events, capacity, arg_width, seqs)
+    nf = min(m, front_cap)
+    nm = m - nf
+
+    def column(n_slots, fill, dtype, src):
+        col = np.full((n_slots,) + src.shape[1:], fill, dtype)
+        col[:src.shape[0]] = src
+        return col
+
+    if seqs is None:
+        size, next_seq, dropped = n, n, n - m
+    else:
+        size = m
+        next_seq = int(seq_col.max()) + 1 if m else 0
+        dropped = 0
+    fields = dict(
+        f_times=column(front_cap, np.inf, np.float32, times[:nf]),
+        f_types=column(front_cap, -1, np.int32, types[:nf]),
+        f_args=column(front_cap, 0, np.float32, args[:nf]),
+        f_seqs=column(front_cap, I32_MAX, np.int32, seq_col[:nf]),
+        m_times=column(phys, np.inf, np.float32, times[nf:]),
+        m_types=column(phys, -1, np.int32, types[nf:]),
+        m_args=column(phys, 0, np.float32, args[nf:]),
+        m_seqs=column(phys, I32_MAX, np.int32, seq_col[nf:]),
+        s_times=np.full((stage_cap,), np.inf, np.float32),
+        s_types=np.full((stage_cap,), -1, np.int32),
+        s_args=np.zeros((stage_cap, arg_width), np.float32),
+        s_seqs=np.full((stage_cap,), I32_MAX, np.int32),
+        r_times=np.full((num_runs, stage_cap), np.inf, np.float32),
+        r_types=np.full((num_runs, stage_cap), -1, np.int32),
+        r_args=np.zeros((num_runs, stage_cap, arg_width), np.float32),
+        r_seqs=np.full((num_runs, stage_cap), I32_MAX, np.int32),
+        r_off=np.zeros((num_runs,), np.int32),
+        r_len=np.zeros((num_runs,), np.int32),
+        front_n=nf, main_n=nm, m_head=0, stage_n=0,
+        size=size, next_seq=next_seq, dropped=dropped,
+    )
+    return tiered3_queue_from_arrays(fields, device)
+
+
+# ---------------------------------------------------------------------------
+# Summaries
+# ---------------------------------------------------------------------------
+
+def _run_mins(q: Tiered3DeviceQueue) -> torch.Tensor:
+    """Head time of each run's live remainder (``inf`` when consumed)."""
+    S = q.stage_cap
+    head = q.r_times.gather(
+        1, torch.clamp(q.r_off, 0, S - 1).long()[:, None])[:, 0]
+    return torch.where(q.r_len > q.r_off, head, INF)
+
+
+def tiered3_queue_has_pending(q: Tiered3DeviceQueue) -> torch.Tensor:
+    """True while any tier holds a real event (a 0-d bool tensor)."""
+    return ((q.front_n > 0) | (q.stage_n > 0) | (q.main_n > 0)
+            | torch.any(q.r_len > q.r_off))
+
+
+def tiered3_queue_occupancy(q: Tiered3DeviceQueue) -> torch.Tensor:
+    """Number of real pending events across all four tiers."""
+    return q.front_n + q.stage_n + q.main_n + _i32(
+        torch.sum(q.r_len - q.r_off))
+
+
+def _main_head_time(q: Tiered3DeviceQueue) -> torch.Tensor:
+    head = _at(q.m_times, torch.clamp(q.m_head, 0, q.main_phys - 1))
+    return torch.where(q.main_n > 0, head, INF)
+
+
+def tiered3_queue_next_time(q: Tiered3DeviceQueue) -> torch.Tensor:
+    """Earliest pending timestamp (``inf`` when empty)."""
+    rest = torch.minimum(
+        torch.minimum(torch.min(q.s_times), torch.min(_run_mins(q))),
+        _main_head_time(q))
+    return torch.where(q.front_n > 0, q.f_times[0], rest)
+
+
+def _tiered3_boundary(q: Tiered3DeviceQueue) -> torch.Tensor:
+    """Earliest time outside the front tier: staging, run heads and the
+    main ring head (read at the ring offset)."""
+    return torch.minimum(
+        torch.minimum(_main_head_time(q), torch.min(q.s_times)),
+        torch.min(_run_mins(q)))
+
+
+def _lex_min_pair(t1, s1, t2, s2):
+    """Lexicographic min of two ``(time, seq)`` keys."""
+    t = torch.minimum(t1, t2)
+    s = torch.minimum(torch.where(t1 == t, s1, I32_MAX),
+                      torch.where(t2 == t, s2, I32_MAX))
+    return t, s
+
+
+def _tiered3_boundary_key(q: Tiered3DeviceQueue):
+    """Lexicographic ``(time, seq)`` form of :func:`_tiered3_boundary`."""
+    s_t = torch.min(q.s_times)
+    s_s = torch.min(torch.where((q.s_times == s_t) & (q.s_types >= 0),
+                                q.s_seqs, I32_MAX))
+    r_heads_t = _run_mins(q)
+    r_heads_s = torch.where(
+        q.r_len > q.r_off,
+        q.r_seqs.gather(
+            1, torch.clamp(q.r_off, 0, q.stage_cap - 1).long()[:, None])[:, 0],
+        I32_MAX)
+    r_t = torch.min(r_heads_t)
+    r_s = torch.min(torch.where(r_heads_t == r_t, r_heads_s, I32_MAX))
+    m_idx = torch.clamp(q.m_head, 0, q.main_phys - 1)
+    m_t = torch.where(q.main_n > 0, _at(q.m_times, m_idx), INF)
+    m_s = torch.where(q.main_n > 0, _at(q.m_seqs, m_idx), I32_MAX)
+    t, s = _lex_min_pair(s_t, s_s, r_t, r_s)
+    return _lex_min_pair(t, s, m_t, m_s)
+
+
+def tiered3_queue_next_key(q: Tiered3DeviceQueue):
+    """Full ``(time, seq)`` key of the earliest pending event —
+    ``(inf, I32_MAX)`` when empty."""
+    b_t, b_s = _tiered3_boundary_key(q)
+    t = torch.where(q.front_n > 0, q.f_times[0], b_t)
+    s = torch.where(q.front_n > 0, q.f_seqs[0], b_s)
+    return t, s
+
+
+# ---------------------------------------------------------------------------
+# Rare paths: run-pool merge, ring rotate, staging flush, refills
+# ---------------------------------------------------------------------------
+
+def _merge_runs_into_main(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
+    """Drain the whole run pool into the main ring: one tail append
+    when the sorted block follows the main tail and fits the slack,
+    else the rotate-and-merge compaction."""
+    R, S, P = q.num_runs, q.stage_cap, q.main_phys
+    RL = R * S
+    dev = q.device
+    k_idx = _arange(S, dev)[None, :]
+    live = (k_idx >= q.r_off[:, None]) & (k_idx < q.r_len[:, None])
+    bt = torch.where(live, q.r_times, INF).reshape(RL)
+    by = torch.where(live, q.r_types, -1).reshape(RL)
+    ba = torch.where(live[:, :, None], q.r_args, 0.0).reshape(
+        RL, q.r_args.shape[2])
+    bs = torch.where(live, q.r_seqs, I32_MAX).reshape(RL)
+    order = _lex_order(bt, bs)
+    bt, by, ba, bs = bt[order], by[order], ba[order], bs[order]
+    run_live = _i32(torch.sum(live))
+
+    head = torch.where(q.main_n > 0, q.m_head, 0)
+    tail = head + q.main_n
+    m_last = _at(q.m_times, torch.clamp(tail - 1, 0, P - 1))
+    can_append = ((q.main_n == 0) | (bt[0] > m_last)) & (tail + RL <= P)
+
+    if host_read(can_append):
+        COUNTS["merge_append"] += 1
+        q = q._replace(
+            m_times=_update_slice(q.m_times, bt, tail),
+            m_types=_update_slice(q.m_types, by, tail),
+            m_args=_update_slice(q.m_args, ba, tail),
+            m_seqs=_update_slice(q.m_seqs, bs, tail),
+            m_head=head,
+        )
+    else:
+        COUNTS["merge_compact"] += 1
+        ct = torch.cat([_ring_unroll(q.m_times, INF, q.m_head, q.main_n), bt])
+        cy = torch.cat([_ring_unroll(q.m_types, -1, q.m_head, q.main_n), by])
+        ca = torch.cat([_ring_unroll(q.m_args, 0.0, q.m_head, q.main_n), ba])
+        cs = torch.cat(
+            [_ring_unroll(q.m_seqs, I32_MAX, q.m_head, q.main_n), bs])
+        # Real elements <= logical capacity <= P, so truncating the
+        # sorted concat to P drops only sentinels.
+        perm = _lex_order(ct, cs)[:P]
+        q = q._replace(
+            m_times=ct[perm], m_types=cy[perm], m_args=ca[perm],
+            m_seqs=cs[perm], m_head=torch.zeros_like(q.m_head),
+        )
+    return q._replace(
+        main_n=q.main_n + run_live,
+        r_off=torch.zeros_like(q.r_off),
+        r_len=torch.zeros_like(q.r_len),
+    )
+
+
+def _rotate_main(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
+    """Re-center the sorted main ring at a margin of dead slots (one
+    gather per column, no sort)."""
+    COUNTS["rotate"] += 1
+    P, S = q.main_phys, q.stage_cap
+    margin = torch.clamp(torch.clamp(P - q.main_n - S, min=0),
+                         max=max(2 * S, P // 4))
+    return q._replace(
+        m_times=_ring_unroll(q.m_times, INF, q.m_head, q.main_n, margin),
+        m_types=_ring_unroll(q.m_types, -1, q.m_head, q.main_n, margin),
+        m_args=_ring_unroll(q.m_args, 0.0, q.m_head, q.main_n, margin),
+        m_seqs=_ring_unroll(q.m_seqs, I32_MAX, q.m_head, q.main_n, margin),
+        m_head=margin,
+    )
+
+
+def _flush_stage_to_run(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
+    """Drain the staging ring, splitting the sorted block three ways:
+    the suffix after the main tail is appended to the ring's slack, the
+    prefix inside the main head window is counting-merged into the ring
+    head, and the middle becomes one new sorted run."""
+    COUNTS["flush"] += 1
+    S, P = q.stage_cap, q.main_phys
+    dev = q.device
+    K = max(min(S, 32), S // 4)
+    KS = K + S
+    perm = _small_lex_perm(q.s_times, q.s_seqs)
+    st, sty, sarg, sseq = (q.s_times[perm], q.s_types[perm],
+                           q.s_args[perm], q.s_seqs[perm])
+    sval = sty >= 0
+    s_total = q.stage_n
+    j_idx = _arange(S, dev)
+
+    def sub_block(offset, count):
+        """Sorted sub-range [offset, offset+count) of the staged block
+        as its own S-wide block (sentinels past ``count``)."""
+        idx = torch.clamp(offset + j_idx, 0, S - 1).long()
+        live = j_idx < count
+        return (torch.where(live, st[idx], INF),
+                torch.where(live, sty[idx], -1),
+                torch.where(live[:, None], sarg[idx], 0.0),
+                torch.where(live, sseq[idx], I32_MAX))
+
+    # --- suffix: strictly after the main tail -> slack append ---------
+    head0 = torch.where(q.main_n > 0, q.m_head, 0)
+    m_last = _at(q.m_times, torch.clamp(head0 + q.main_n - 1, 0, P - 1))
+    after_tail = sval & ((q.main_n == 0) | (st > m_last))
+    n_suf = _i32(torch.sum(after_tail))
+
+    if host_read(n_suf > 0):
+        COUNTS["suffix_append"] += 1
+        if host_read(torch.where(q.main_n > 0, q.m_head, 0)
+                     + q.main_n + S > P):
+            q = _rotate_main(q)
+        head1 = torch.where(q.main_n > 0, q.m_head, 0)
+        tail1 = head1 + q.main_n
+        bt, by, ba, bs = sub_block(s_total - n_suf, n_suf)
+        q = q._replace(
+            m_times=_update_slice(q.m_times, bt, tail1),
+            m_types=_update_slice(q.m_types, by, tail1),
+            m_args=_update_slice(q.m_args, ba, tail1),
+            m_seqs=_update_slice(q.m_seqs, bs, tail1),
+            m_head=head1,
+            main_n=q.main_n + n_suf,
+        )
+
+    # --- prefix: strictly inside the head window -> bounded merge -----
+    suf_lo = s_total - n_suf
+    n_pre = torch.zeros((), dtype=_I32, device=dev)
+    head = torch.where(q.main_n > 0, q.m_head, 0)
+    if KS <= P:
+        ks_idx = _arange(KS, dev)
+        ext_idx = torch.clamp(head + ks_idx, 0, P - 1)
+        ext_live = ks_idx < q.main_n
+        wt = torch.where(ext_live, _take(q.m_times, ext_idx), INF)
+        ws = torch.where(ext_live, _take(q.m_seqs, ext_idx), I32_MAX)
+        wy = torch.where(ext_live, _take(q.m_types, ext_idx), -1)
+        wa = torch.where(ext_live[:, None], _take(q.m_args, ext_idx), 0.0)
+        n_pre_want = _i32(torch.sum(sval & (j_idx < suf_lo) & (st < wt[K])))
+        if host_read((n_pre_want > 0)
+                     & ((head < n_pre_want)
+                        | (head - n_pre_want + KS > P))):
+            q = _rotate_main(q)
+        head = torch.where(q.main_n > 0, q.m_head, 0)
+        n_pre = torch.where(
+            (head >= n_pre_want) & (head - n_pre_want + KS <= P),
+            n_pre_want, 0)
+
+        if host_read(n_pre > 0):
+            COUNTS["head_merge"] += 1
+            is_pre = j_idx < n_pre
+            bt = torch.where(is_pre, st, INF)
+            bs = torch.where(is_pre, sseq, I32_MAX)
+            w_lt_b = (wt[None, :] < bt[:, None]) | (
+                (wt[None, :] == bt[:, None]) & (ws[None, :] < bs[:, None]))
+            pos_b = torch.where(is_pre, j_idx + _i32(w_lt_b.sum(dim=1)),
+                                KS + S)
+            ins_before = torch.searchsorted(pos_b, ks_idx, right=True,
+                                            out_int32=True)
+            is_ins = ins_before > torch.searchsorted(
+                pos_b, ks_idx, right=False, out_int32=True)
+            src = torch.where(is_ins,
+                              KS + torch.clamp(ins_before - 1, 0, S - 1),
+                              torch.clamp(ks_idx - ins_before, 0, KS - 1))
+            start = head - n_pre
+
+            def merge_put(col, wcol, bcol):
+                merged = _take(torch.cat([wcol, bcol]), src)
+                return _update_slice(col, merged, start)
+
+            q = q._replace(
+                m_times=merge_put(q.m_times, wt, st),
+                m_types=merge_put(q.m_types, wy, sty),
+                m_args=merge_put(q.m_args, wa, sarg),
+                m_seqs=merge_put(q.m_seqs, ws, sseq),
+                m_head=start,
+                main_n=q.main_n + n_pre,
+            )
+
+    # --- middle: whatever neither leg could place -> one sorted run ---
+    n_mid = s_total - n_suf - n_pre
+    if host_read(n_mid > 0):
+        COUNTS["to_run"] += 1
+        if host_read(torch.all(q.r_len > q.r_off)):
+            q = _merge_runs_into_main(q)
+        slot = _i32(q.r_off >= q.r_len).argmax().reshape(1)
+        bt, by, ba, bs = sub_block(n_pre, n_mid)
+        q = q._replace(
+            r_times=q.r_times.index_copy(0, slot, bt[None]),
+            r_types=q.r_types.index_copy(0, slot, by[None]),
+            r_args=q.r_args.index_copy(0, slot, ba[None]),
+            r_seqs=q.r_seqs.index_copy(0, slot, bs[None]),
+            r_off=q.r_off.index_copy(0, slot, torch.zeros_like(q.r_off[:1])),
+            r_len=q.r_len.index_copy(0, slot, n_mid.reshape(1)),
+        )
+
+    et, ey, ea, es = _sentinel_cols(S, q.s_args.shape[1], dev)
+    return q._replace(s_times=et, s_types=ey, s_args=ea, s_seqs=es,
+                      stage_n=torch.zeros_like(q.stage_n))
+
+
+def _runs_intersect_refill(q: Tiered3DeviceQueue) -> torch.Tensor:
+    """True iff some run holds an element the next main-only refill
+    would need (strict time compare; a tie takes the k-way merge)."""
+    take = torch.minimum(q.front_cap - q.front_n, q.main_n)
+    last_idx = torch.clamp(q.m_head + take - 1, 0, q.main_phys - 1)
+    last_t = _at(q.m_times, last_idx)
+    return torch.min(_run_mins(q)) <= torch.where(take > 0, last_t, INF)
+
+
+def _refill_front3(q: Tiered3DeviceQueue, w: int) -> Tiered3DeviceQueue:
+    """Front refill: flush staging first, then the main-only gather or
+    the bounded k-way merge with its take capped at ``w``."""
+    if host_read(q.stage_n > 0):
+        q = _flush_stage_to_run(q)
+    if host_read(_runs_intersect_refill(q)):
+        return _refill_kway(q, w)
+    return _refill_main_only(q)
+
+
+def _refill_main_only(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
+    """Refill from the main ring head alone (no run intersects)."""
+    COUNTS["refill_main_only"] += 1
+    F, P = q.front_cap, q.main_phys
+    take = torch.minimum(F - q.front_n, q.main_n)
+    i_idx = _arange(F, q.device)
+    from_front = i_idx < q.front_n
+    f_idx = torch.clamp(i_idx, 0, F - 1)
+    m_idx = torch.clamp(q.m_head + i_idx - q.front_n, 0, P - 1)
+    fill_ok = i_idx < q.front_n + take
+
+    def refill(fcol, mcol, fill):
+        # The JAX gather over concat([front, main]) as two gathers.
+        sel = from_front if fcol.dim() == 1 else from_front[:, None]
+        ok = fill_ok if fcol.dim() == 1 else fill_ok[:, None]
+        out = torch.where(sel, _take(fcol, f_idx), _take(mcol, m_idx))
+        return torch.where(ok, out, fill)
+
+    main_n = q.main_n - take
+    return q._replace(
+        f_times=refill(q.f_times, q.m_times, INF),
+        f_types=refill(q.f_types, q.m_types, -1),
+        f_args=refill(q.f_args, q.m_args, 0.0),
+        f_seqs=refill(q.f_seqs, q.m_seqs, I32_MAX),
+        front_n=q.front_n + take,
+        main_n=main_n,
+        m_head=torch.where(main_n > 0, q.m_head + take, 0),
+    )
+
+
+def _refill_kway(q: Tiered3DeviceQueue, w: int | None = None
+                 ) -> Tiered3DeviceQueue:
+    """Refill against a live run pool: the bounded k-way merge over the
+    first ``w`` live elements of every run plus the main head window,
+    lex-ranked all-pairs; each source advances its head offset by the
+    number taken."""
+    COUNTS["refill_kway"] += 1
+    F, R, S, P = q.front_cap, q.num_runs, q.stage_cap, q.main_phys
+    dev = q.device
+    W = F if w is None else min(w, F)
+    N = (R + 1) * W
+    A = q.r_args.shape[2]
+    w_idx = _arange(W, dev)
+
+    widx = q.r_off[:, None] + w_idx[None, :]
+    rvalid = widx < q.r_len[:, None]
+    wc = torch.clamp(widx, 0, S - 1).long()
+    ct_r = torch.where(rvalid, q.r_times.gather(1, wc), INF)
+    cy_r = q.r_types.gather(1, wc)
+    ca_r = q.r_args.gather(1, wc[:, :, None].expand(R, W, A))
+    cs_r = torch.where(rvalid, q.r_seqs.gather(1, wc), I32_MAX)
+
+    midx = torch.clamp(q.m_head + w_idx, 0, P - 1)
+    mvalid = w_idx < q.main_n
+    ct_m = torch.where(mvalid, _take(q.m_times, midx), INF)
+    cy_m = _take(q.m_types, midx)
+    ca_m = _take(q.m_args, midx)
+    cs_m = torch.where(mvalid, _take(q.m_seqs, midx), I32_MAX)
+
+    ct = torch.cat([ct_r.reshape(R * W), ct_m])
+    cy = torch.cat([cy_r.reshape(R * W), cy_m])
+    ca = torch.cat([ca_r.reshape(R * W, A), ca_m])
+    cs = torch.cat([cs_r.reshape(R * W), cs_m])
+    src = torch.cat([
+        torch.repeat_interleave(_arange(R, dev), W),
+        torch.full((W,), R, dtype=_I32, device=dev),
+    ])
+    valid = torch.cat([rvalid.reshape(R * W), mvalid])
+
+    order = _small_lex_perm(ct, cs)
+    ct, cy, ca, cs = ct[order], cy[order], ca[order], cs[order]
+    src, valid = src[order], valid[order]
+
+    need = torch.clamp(F - q.front_n, max=W)
+    take = (_arange(N, dev) < need) & valid
+    taken = _i32(torch.sum(take))
+    # Untaken candidates count into bin R + 1 (always in range).
+    counts = _i32(torch.bincount(torch.where(take, src, R + 1).long(),
+                                 minlength=R + 2))
+
+    main_taken = counts[R]
+    main_n = q.main_n - main_taken
+    i_idx = _arange(F, dev)
+    srcF = torch.where(i_idx < q.front_n, i_idx,
+                       F + torch.clamp(i_idx - q.front_n, 0, N - 1))
+    fill_ok = i_idx < q.front_n + taken
+
+    def refill(fcol, ccol, fill):
+        out = _take(torch.cat([fcol, ccol]), srcF)
+        mask = fill_ok if out.dim() == 1 else fill_ok[:, None]
+        return torch.where(mask, out, fill)
+
+    return q._replace(
+        f_times=refill(q.f_times, ct, INF),
+        f_types=refill(q.f_types, cy, -1),
+        f_args=refill(q.f_args, ca, 0.0),
+        f_seqs=refill(q.f_seqs, cs, I32_MAX),
+        front_n=q.front_n + taken,
+        r_off=q.r_off + counts[:R],
+        main_n=main_n,
+        m_head=torch.where(main_n > 0, q.m_head + main_taken, 0),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Per-super-step operations
+# ---------------------------------------------------------------------------
+
+def tiered3_queue_peek_front(q: Tiered3DeviceQueue, k: int):
+    """Refill the front if it holds fewer than ``k`` events and any
+    other tier has some, then return the first ``k`` front slots
+    without popping: ``(q', ts, tys, args, seqs)``."""
+    if k > q.front_cap:
+        raise ValueError(
+            f"peek width {k} exceeds front tier capacity {q.front_cap}")
+    need_refill = (q.front_n < k) & (
+        (q.stage_n > 0) | (q.main_n > 0) | torch.any(q.r_len > q.r_off))
+    if host_read(need_refill):
+        q = _refill_front3(q, min(q.front_cap, 4 * k))
+    return q, q.f_times[:k], q.f_types[:k], q.f_args[:k], q.f_seqs[:k]
+
+
+def tiered3_queue_pop_prefix(q: Tiered3DeviceQueue, length, k: int
+                             ) -> Tiered3DeviceQueue:
+    """Pop the first ``length`` (<= ``k``) front events."""
+    return q._replace(
+        f_times=shift_left(q.f_times, INF, length, k),
+        f_types=shift_left(q.f_types, -1, length, k),
+        f_args=shift_left(q.f_args, 0.0, length, k),
+        f_seqs=shift_left(q.f_seqs, I32_MAX, length, k),
+        front_n=q.front_n - length,
+        size=q.size - length,
+    )
+
+
+def tiered3_queue_extract(q: Tiered3DeviceQueue, max_len: int, lookaheads,
+                          t_cap=None, bound=None):
+    """Window extraction from the front tier (paper Fig 2): the bounded
+    refill, then the take rule and prefix pop in one
+    :func:`repro_torch.kernels.queue_front.window_extract` call.
+
+    Returns ``(q', ts, tys, args, length)`` with ``length`` a 0-d int32
+    tensor.  The lexicographic ``bound`` fence (spill and streaming) is
+    not ported yet.
+    """
+    if bound is not None:
+        raise NotImplementedError(
+            "the lex-bounded extraction fence (spill / streaming) is not "
+            "ported to repro_torch yet")
+    if max_len > q.front_cap:
+        raise ValueError(
+            f"max_len {max_len} exceeds front tier capacity {q.front_cap}")
+    from repro_torch.kernels.queue_front import window_extract
+
+    q, *_ = tiered3_queue_peek_front(q, max_len)
+    ts, tys, args, length, nt, ny, na, ns = window_extract(
+        q.f_times, q.f_types, q.f_args, q.f_seqs, lookaheads, t_cap,
+        k=max_len)
+    q = q._replace(f_times=nt, f_types=ny, f_args=na, f_seqs=ns,
+                   front_n=q.front_n - length, size=q.size - length)
+    return q, ts, tys, args, length
+
+
+def _default_fill_accounting(q: Tiered3DeviceQueue, rows):
+    """Valid row ``r`` gets ``seq = next_seq + vrank(r)`` and survives
+    iff ``size + vrank(r) < capacity`` (``size`` counts ghosts)."""
+    ty_r = _i32(rows[:, 1])
+    valid = ty_r >= 0
+    vrank = _prefix_rank(valid)
+    num_valid = _i32(torch.sum(valid))
+    insert = valid & (q.size + vrank < q.capacity)
+    num_insert = _i32(torch.sum(insert))
+    seq_r = q.next_seq + vrank
+    counters = dict(
+        size=q.size + num_valid,
+        next_seq=q.next_seq + num_valid,
+        dropped=q.dropped + (num_valid - num_insert),
+    )
+    return seq_r, insert, counters
+
+
+def _tiered_fill_finish(q: Tiered3DeviceQueue, rows, b_time, seq_r, insert,
+                        counters) -> Tiered3DeviceQueue:
+    """Partition the emit block against the tier boundary,
+    counting-merge the near rows into the front
+    (:func:`repro_torch.kernels.queue_front.front_merge`, ``front_cap +
+    R`` wide: the tail is evicted to staging), append the rest to
+    staging, and install the caller's counters.  Row seqs must exceed
+    every queued seq."""
+    from repro_torch.kernels.queue_front import front_merge
+
+    R = rows.shape[0]
+    F = q.front_cap
+    t_r = rows[:, 0].contiguous()
+    ty_r = _i32(rows[:, 1])
+    arg_r = rows[:, 2:].contiguous()
+    r_idx = _arange(R, q.device)
+    to_front = insert & (t_r < b_time)
+    to_stage = insert & ~to_front
+
+    merged_t, merged_y, merged_a, merged_s = front_merge(
+        q.f_times, q.f_types, q.f_args, q.f_seqs, q.front_n,
+        t_r, ty_r, arg_r, seq_r, to_front)
+
+    n_front = _i32(torch.sum(to_front))
+    occ_after = q.front_n + n_front
+    evict_cnt = torch.clamp(occ_after - F, min=0)
+    front_n_new = torch.clamp(occ_after, max=F)
+
+    # --- staging appends: evicted front tail, then direct rows --------
+    SC = q.stage_cap
+    e_valid = merged_y[F:] >= 0
+    dest_e = torch.where(e_valid, q.stage_n + r_idx, SC)
+    srank = _prefix_rank(to_stage)
+    dest_s = torch.where(to_stage, q.stage_n + evict_cnt + srank, SC)
+    n_stage = _i32(torch.sum(to_stage))
+
+    def stage_put(col, evals, svals):
+        return _scatter_rows(_scatter_rows(col, dest_e, evals), dest_s,
+                             svals)
+
+    return q._replace(
+        f_times=merged_t[:F], f_types=merged_y[:F],
+        f_args=merged_a[:F], f_seqs=merged_s[:F],
+        s_times=stage_put(q.s_times, merged_t[F:], t_r),
+        s_types=stage_put(q.s_types, merged_y[F:], ty_r),
+        s_args=stage_put(q.s_args, merged_a[F:], arg_r),
+        s_seqs=stage_put(q.s_seqs, merged_s[F:], seq_r),
+        front_n=front_n_new,
+        stage_n=q.stage_n + evict_cnt + n_stage,
+        **counters,
+    )
+
+
+def _tiered3_preflush(q: Tiered3DeviceQueue, R: int) -> Tiered3DeviceQueue:
+    """Make room for up to ``R`` staging appends before a fill."""
+    if R > q.stage_cap:
+        raise ValueError(
+            f"emit block of {R} rows exceeds stage_cap {q.stage_cap}")
+    if host_read(q.stage_n + R > q.stage_cap):
+        q = _flush_stage_to_run(q)
+    return q
+
+
+def tiered3_queue_fill_rows(q: Tiered3DeviceQueue, rows
+                            ) -> Tiered3DeviceQueue:
+    """Per-batch emit insert touching only the front and staging tiers.
+    Row layout ``(time, type, arg...)``; ``type < 0`` rows are skipped."""
+    rows = rows.to(torch.float32)
+    q = _tiered3_preflush(q, rows.shape[0])
+    seq_r, insert, counters = _default_fill_accounting(q, rows)
+    return _tiered_fill_finish(q, rows, _tiered3_boundary(q), seq_r,
+                               insert, counters)
+
+
+def tiered3_queue_fill_rows_tagged(q: Tiered3DeviceQueue, rows, seqs,
+                                   insert) -> Tiered3DeviceQueue:
+    """Emit insert with seqs and survival decided by the caller (the
+    sharded engine's global counter); rows outside ``insert`` are
+    ignored entirely."""
+    rows = rows.to(torch.float32)
+    seqs = seqs.to(_I32)
+    q = _tiered3_preflush(q, rows.shape[0])
+    insert = insert & (rows[:, 1] >= 0)
+    n_ins = _i32(torch.sum(insert))
+    counters = dict(
+        size=q.size + n_ins,
+        next_seq=torch.maximum(
+            q.next_seq, torch.max(torch.where(insert, seqs + 1, 0))),
+        dropped=q.dropped,
+    )
+    return _tiered_fill_finish(q, rows, _tiered3_boundary(q), seqs, insert,
+                               counters)

@@ -1,0 +1,263 @@
+"""Front-tier queue kernels: hand-written CUDA for Hopper, plain PyTorch
+beside them.
+
+Counterparts of the two Pallas kernels in
+:mod:`repro.kernels.queue_front`, the only kernels on the engine's main
+path (one launch each per super-step):
+
+* :func:`window_extract` — the §III-B dynamic-lookahead take rule over
+  the refilled sorted front, plus the prefix pop of all four front
+  columns.  Plain version: :func:`repro_torch.core.queue.window_prefix_mask`
+  followed by the pop of :func:`repro_torch.core.queue.tiered3_queue_pop_prefix`.
+* :func:`front_merge` — the counting-merge of the per-batch emit rows
+  into the sorted front (``front_cap + R`` wide output; the tail is the
+  evicted rows).  Plain version: the merge block of the JAX
+  ``_tiered_fill_finish`` XLA path.
+
+Each wrapper takes the plain version for tensors on the CPU and the
+CUDA kernel (``src/repro_torch/csrc/queue_front.cu``, built at first
+use) for tensors on a CUDA device; anything else raises.  Both kernels
+are bit-identical to their plain versions.  ``LAUNCHES`` counts kernel
+launches per kernel name.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.queue import (
+    I32_MAX,
+    INF,
+    _arange,
+    _f32,
+    _small_lex_perm,
+    _take,
+    shift_left,
+    window_prefix_mask,
+)
+
+# Kernel launches since the last reset, by kernel name.  Only the CUDA
+# route adds to them, at the launch.
+LAUNCHES = {"window_extract": 0, "front_merge": 0}
+
+MAX_WINDOW = 32      # the kernel keeps the window in 32-slot shared arrays
+
+_ptr = ctypes.c_void_p
+_int = ctypes.c_int
+_LIB = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels._build import load
+
+        lib = load("queue_front")
+        lib.window_extract_launch.argtypes = (
+            [_ptr] * 5 + [_int, ctypes.c_float, _int, _int, _int]
+            + [_ptr] * 8 + [_ptr])
+        lib.window_extract_launch.restype = _int
+        lib.front_merge_launch.argtypes = (
+            [_ptr] * 10 + [_int, _int, _int] + [_ptr] * 4 + [_ptr])
+        lib.front_merge_launch.restype = _int
+        _LIB = lib
+    return _LIB
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _route(device: torch.device) -> str:
+    if device.type == "cpu":
+        return "plain"
+    if device.type == "cuda":
+        return "cuda"
+    raise ValueError(f"no queue_front kernel for device {device}")
+
+
+def _launch_status(name: str, status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {status}")
+
+
+# ---------------------------------------------------------------------------
+# window_extract
+# ---------------------------------------------------------------------------
+
+def window_extract_plain(f_times, f_types, f_args, f_seqs, lookaheads,
+                         t_cap=None, *, k: int):
+    """The XLA extract path: take rule over the first ``k`` front
+    slots, then the prefix pop.  Returns ``(ts[k], tys[k], args[k, W],
+    length, f_times', f_types', f_args', f_seqs')``."""
+    T = lookaheads.shape[0]
+    ts_c, tys_c, args_c = f_times[:k], f_types[:k], f_args[:k]
+    valid = tys_c >= 0
+    la = _take(lookaheads, torch.clamp(tys_c, 0, T - 1))
+    wins = torch.where(valid, ts_c + la, INF)
+    take = window_prefix_mask(ts_c, wins, valid, t_cap)
+    length = torch.sum(take).to(torch.int32)
+    ts = torch.where(take, ts_c, 0.0)
+    tys = torch.where(take, tys_c, 0)
+    args = torch.where(take[:, None], args_c, 0.0)
+    return (ts, tys, args, length,
+            shift_left(f_times, INF, length, k),
+            shift_left(f_types, -1, length, k),
+            shift_left(f_args, 0.0, length, k),
+            shift_left(f_seqs, I32_MAX, length, k))
+
+
+def window_extract_cuda(f_times, f_types, f_args, f_seqs, lookaheads,
+                        t_cap=None, *, k: int):
+    """The same function as one launch of the CUDA kernel."""
+    dev = f_times.device
+    F = f_times.shape[0]
+    W = f_args.shape[1] if f_args.dim() == 2 else -1
+    T = lookaheads.shape[0]
+    _check("f_times", f_times, torch.float32, (F,), dev)
+    _check("f_types", f_types, torch.int32, (F,), dev)
+    _check("f_args", f_args, torch.float32, (F, W), dev)
+    _check("f_seqs", f_seqs, torch.int32, (F,), dev)
+    _check("lookaheads", lookaheads, torch.float32, (T,), dev)
+    if not 1 <= k <= min(F, MAX_WINDOW):
+        raise ValueError(f"window width {k} must be in [1, "
+                         f"min(front_cap={F}, {MAX_WINDOW})]")
+    if T < 1:
+        raise ValueError("lookaheads must name at least one type")
+    if t_cap is not None and not isinstance(t_cap, (int, float)):
+        raise TypeError("t_cap must be a host number or None")
+    cap = INF if t_cap is None else _f32(t_cap)
+    ts = torch.empty((k,), dtype=torch.float32, device=dev)
+    tys = torch.empty((k,), dtype=torch.int32, device=dev)
+    args = torch.empty((k, W), dtype=torch.float32, device=dev)
+    length = torch.empty((), dtype=torch.int32, device=dev)
+    nt = torch.empty_like(f_times)
+    ny = torch.empty_like(f_types)
+    na = torch.empty_like(f_args)
+    ns = torch.empty_like(f_seqs)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.window_extract_launch(
+            f_times.data_ptr(), f_types.data_ptr(), f_args.data_ptr(),
+            f_seqs.data_ptr(), lookaheads.data_ptr(), T, cap, F, W, k,
+            ts.data_ptr(), tys.data_ptr(), args.data_ptr(), length.data_ptr(),
+            nt.data_ptr(), ny.data_ptr(), na.data_ptr(), ns.data_ptr(),
+            stream)
+    _launch_status("window_extract", status)
+    LAUNCHES["window_extract"] += 1
+    return ts, tys, args, length, nt, ny, na, ns
+
+
+def window_extract(f_times, f_types, f_args, f_seqs, lookaheads,
+                   t_cap=None, *, k: int):
+    """Fused take rule + prefix pop over a refilled sorted front tier
+    (``t_cap`` caps the window at the run horizon)."""
+    if _route(f_times.device) == "plain":
+        return window_extract_plain(f_times, f_types, f_args, f_seqs,
+                                    lookaheads, t_cap, k=k)
+    return window_extract_cuda(f_times, f_types, f_args, f_seqs,
+                               lookaheads, t_cap, k=k)
+
+
+# ---------------------------------------------------------------------------
+# front_merge
+# ---------------------------------------------------------------------------
+
+def front_merge_plain(f_times, f_types, f_args, f_seqs, front_n,
+                      t_r, ty_r, arg_r, seq_r, to_front):
+    """The XLA front-merge block: lex-rank the rows (non-front rows
+    last), searchsorted-right into the front capped at ``front_n``, and
+    rebuild the ``F + R`` merged columns by position arithmetic."""
+    F = f_times.shape[0]
+    R = t_r.shape[0]
+    FE = F + R
+    dev = f_times.device
+    tt = torch.where(to_front, t_r, INF)
+    perm = _small_lex_perm(tt, torch.where(to_front, seq_r, I32_MAX))
+    rt = tt[perm]
+    rty, rarg, rseq, rins = ty_r[perm], arg_r[perm], seq_r[perm], to_front[perm]
+    older = torch.minimum(
+        torch.searchsorted(f_times, rt, right=True, out_int32=True), front_n)
+    pos = torch.where(rins, older + _arange(R, dev), FE + R)
+    i_idx = _arange(FE, dev)
+    ins_before = torch.searchsorted(pos, i_idx, right=False, out_int32=True)
+    is_ins = torch.searchsorted(pos, i_idx, right=True,
+                                out_int32=True) > ins_before
+    src = torch.where(is_ins, FE + torch.clamp(ins_before, 0, R - 1),
+                      torch.clamp(i_idx - ins_before, 0, FE - 1))
+
+    def fmerge(col, rcol, fill):
+        pad = torch.full((R,) + tuple(col.shape[1:]), fill, dtype=col.dtype,
+                         device=dev)
+        return _take(torch.cat([col, pad, rcol]), src)
+
+    return (fmerge(f_times, rt, INF), fmerge(f_types, rty, -1),
+            fmerge(f_args, rarg, 0.0), fmerge(f_seqs, rseq, I32_MAX))
+
+
+def front_merge_cuda(f_times, f_types, f_args, f_seqs, front_n,
+                     t_r, ty_r, arg_r, seq_r, to_front):
+    """The same function as one launch of the CUDA kernel."""
+    dev = f_times.device
+    F, R = f_times.shape[0], t_r.shape[0]
+    W = f_args.shape[1] if f_args.dim() == 2 else -1
+    _check("f_times", f_times, torch.float32, (F,), dev)
+    _check("f_types", f_types, torch.int32, (F,), dev)
+    _check("f_args", f_args, torch.float32, (F, W), dev)
+    _check("f_seqs", f_seqs, torch.int32, (F,), dev)
+    _check("front_n", front_n, torch.int32, (), dev)
+    _check("t_r", t_r, torch.float32, (R,), dev)
+    _check("ty_r", ty_r, torch.int32, (R,), dev)
+    _check("arg_r", arg_r, torch.float32, (R, W), dev)
+    _check("seq_r", seq_r, torch.int32, (R,), dev)
+    _check("to_front", to_front, torch.bool, (R,), dev)
+    if not 1 <= R <= 1024:
+        raise ValueError(f"{R} emit rows; the kernel takes 1..1024")
+    outs = (torch.empty((F + R,), dtype=torch.float32, device=dev),
+            torch.empty((F + R,), dtype=torch.int32, device=dev),
+            torch.empty((F + R, W), dtype=torch.float32, device=dev),
+            torch.empty((F + R,), dtype=torch.int32, device=dev))
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.front_merge_launch(
+            f_times.data_ptr(), f_types.data_ptr(), f_args.data_ptr(),
+            f_seqs.data_ptr(), front_n.data_ptr(), t_r.data_ptr(),
+            ty_r.data_ptr(), arg_r.data_ptr(), seq_r.data_ptr(),
+            to_front.data_ptr(), F, R, W,
+            *(o.data_ptr() for o in outs), stream)
+    _launch_status("front_merge", status)
+    LAUNCHES["front_merge"] += 1
+    return outs
+
+
+def front_merge(f_times, f_types, f_args, f_seqs, front_n,
+                t_r, ty_r, arg_r, seq_r, to_front):
+    """Counting-merge ``R`` emit rows into the sorted front tier.
+
+    Returns the merged ``(times, types, args, seqs)`` columns, ``F + R``
+    wide; slots ``[F:]`` are the evicted tail the caller stages.
+    ``to_front`` marks the rows bound for the front.  Row seqs must
+    exceed every queued seq.
+    """
+    if _route(f_times.device) == "plain":
+        return front_merge_plain(f_times, f_types, f_args, f_seqs, front_n,
+                                 t_r, ty_r, arg_r, seq_r, to_front)
+    return front_merge_cuda(f_times, f_types, f_args, f_seqs, front_n,
+                            t_r, ty_r, arg_r, seq_r, to_front)
