@@ -6,23 +6,39 @@
 Phases, each printed on its own line:
 
 1. build — compile the CUDA sources of ``src/repro_torch/csrc`` for
-   ``sm_90a``; print the build time, the compiler's register report and
-   the card (``nvidia-smi`` name and power limit).
-2. kernels — each kernel against its plain PyTorch version on the same
-   CUDA inputs, bit for bit (``torch.equal`` on every output), over
+   ``sm_90a``, one ``nvcc`` per source, all started together; print the
+   build time, the compiler's register and shared-memory report and the
+   card (``nvidia-smi`` name and power limit).
+2. kernels — each queue kernel against its plain PyTorch version on the
+   same CUDA inputs, bit for bit (``torch.equal`` on every output), over
    random fronts, time ties, partial and empty fronts, empty and full
    row masks and a finite ``t_cap``.
-3. phold — PHOLD at a GPU PDES deployment's size (917,504 LPs, one
+3. attn_kernels — ``flash_attention`` and ``decode_attention`` against
+   their plain versions on the same N(0,1) CUDA inputs, in float32
+   (max abs error at most 1e-4) and bfloat16 (at most 2e-2), at the
+   serving path's head layout (H 32, KV 8, head_dim 160) and others;
+   a sequence of length 0 must come out 0.
+4. phold — PHOLD at a GPU PDES deployment's size (917,504 LPs, one
    message each, a 1,048,576-event queue) through
    ``SimProgram.build(backend="device")`` on the card, then the same
    program on the CPU for the same super-steps: state, counters,
    word histogram and every final queue field must be bit-identical,
    and each kernel's launch count must equal the super-step count.
-4. poc — the paper's model (16 iterations, 256 events) under ``switch``
+5. poc — the paper's model (16 iterations, 256 events) under ``switch``
    and ``masked`` dispatch; the final ``sum`` must match the oracle.
-5. timing — each kernel and its plain version at the main path's shapes
+6. serve — stablelm-12b at full width (40 layers, d_model 5120, 12.1 B
+   parameters in bf16) through ``repro_torch.launch.serve`` with its
+   defaults: 6 requests, 12 new tokens each, 4 slots, ``max_len`` 256.
+   Every request must finish, with ``flash_attention`` launched
+   2 * layers * prefills times and ``decode_attention`` layers * decode
+   events times.  Then one prompt is teacher-forced through ``prefill``
+   and 8 ``decode_step``s with the kernels and with the reference
+   attention: the logits must agree to a cosine similarity of 0.999.
+7. timing — each kernel and its plain version at the main path's shapes
    (CUDA events over back-to-back calls), beside the least time the
-   card could take for the bytes each call must move.
+   card could take for the bytes each call must move and the operations
+   it must do, and, for attention, one
+   ``scaled_dot_product_attention`` call on the same inputs.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
@@ -33,6 +49,7 @@ prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import pathlib
 import subprocess
@@ -51,6 +68,22 @@ PHOLD_BATCHES = 4096
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+
+CUDA_SOURCES = ("queue_front", "attention")
+
+# The serving path's attention shapes (stablelm-12b: 32 heads, 8 KV
+# heads, head_dim 160): (B, H, KV, T=S, D, causal) for flash and
+# (B, H, KV, S, D, lengths) for decode.
+FLASH_SHAPES = [(1, 32, 8, 32, 160, True), (1, 32, 8, 128, 160, True),
+                (1, 32, 8, 2048, 160, True), (1, 24, 8, 512, 128, True),
+                (1, 4, 4, 256, 64, False)]
+DECODE_SHAPES = [(4, 32, 8, 256, 160, (1, 31, 200, 256)),
+                 (4, 32, 8, 4096, 160, (4096, 1000, 17, 2049))]
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SERVE_ARGS = ["--arch", "stablelm-12b"]
+TEACHER_STEPS = 8
+MIN_COSINE = 0.999
 
 WINDOW_SHAPES = [(256, 4), (256, 16), (16, 4)]     # (front_cap, k)
 MERGE_SHAPES = [(256, 4), (256, 32)]               # (front_cap, R)
@@ -173,7 +206,75 @@ def check_kernels(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: PHOLD at full width, card against CPU
+# Phase 3: attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _randn(gen, shape, dtype):
+    import torch
+
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def check_attention() -> dict:
+    """Each attention kernel against its plain version on the same CUDA
+    inputs (model layout, read by the kernels through strides); returns
+    the worst absolute difference per kernel."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[str(dtype).split(".")[1]]
+        for B, H, KV, T, D, causal in FLASH_SHAPES:
+            q = _randn(gen, (B, T, H, D), dtype).transpose(1, 2)
+            k = _randn(gen, (B, T, KV, D), dtype).transpose(1, 2)
+            v = _randn(gen, (B, T, KV, D), dtype).transpose(1, 2)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            cases.append(f"flash {str(dtype)[6:]} B{B} H{H} KV{KV} T{T} "
+                         f"D{D} {'causal' if causal else 'full'} {err:.3g}")
+            if not err <= tol:
+                raise PhaseError(f"flash_attention {cases[-1]}: error "
+                                 f"above {tol}")
+        for B, H, KV, S, D, lengths in DECODE_SHAPES:
+            q = _randn(gen, (B, H, D), dtype)
+            kc = _randn(gen, (B, S, KV, D), dtype).transpose(1, 2)
+            vc = _randn(gen, (B, S, KV, D), dtype).transpose(1, 2)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            got = da.decode_attention_cuda(q, kc, vc, lens)
+            want = da.decode_attention_plain(q, kc, vc, lens)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            errs["decode_attention"] = max(errs["decode_attention"], err)
+            cases.append(f"decode {str(dtype)[6:]} B{B} H{H} KV{KV} S{S} "
+                         f"D{D} lengths{list(lengths)} {err:.3g}")
+            if not err <= tol:
+                raise PhaseError(f"decode_attention {cases[-1]}: error "
+                                 f"above {tol}")
+    # A sequence of length 0: no key is read and the output is 0.
+    q = _randn(gen, (2, 32, 160), torch.bfloat16)
+    kc = _randn(gen, (2, 64, 8, 160), torch.bfloat16).transpose(1, 2)
+    got = da.decode_attention_cuda(
+        q, kc, kc, torch.tensor([0, 5], dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    if not bool((got[0] == 0).all()) or not bool(got[1].abs().sum() > 0):
+        raise PhaseError("decode_attention: a length-0 sequence is not 0")
+    for line in cases:
+        print(f"  {line}")
+    phase("attn_kernels", cases=len(cases) + 1,
+          max_abs_err=json.dumps(errs))
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: PHOLD at full width, card against CPU
 # ---------------------------------------------------------------------------
 
 def run_phold(device_name: str):
@@ -254,7 +355,7 @@ def run_phold(device_name: str):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the paper's model
+# Phase 5: the paper's model
 # ---------------------------------------------------------------------------
 
 def run_poc(device_name: str) -> None:
@@ -281,7 +382,109 @@ def run_poc(device_name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: timing at the main path's shapes
+# Phase 6: serving stablelm-12b at full width
+# ---------------------------------------------------------------------------
+
+def run_serve() -> dict:
+    """Serve launcher's defaults on the card; returns the attention
+    kernels' launches in that run."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(SERVE_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve.build_model(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+
+    # The main path: counts are zeroed just before and read just after.
+    fa.reset_launches()
+    da.reset_launches()
+    engine = serve.serve(model, args)
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, **da.LAUNCHES}
+    stats = engine.stats
+    peak = torch.cuda.max_memory_allocated()
+
+    problems = []
+    done = sum(r.done for r in engine.requests.values())
+    if done != args.requests or len(engine.requests) != args.requests:
+        problems.append(f"{done} of {args.requests} requests done")
+    L = cfg.num_layers
+    if launches["flash_attention"] != 2 * L * stats.prefills:
+        problems.append(f"flash_attention launched "
+                        f"{launches['flash_attention']} times for "
+                        f"{stats.prefills} prefills of {L} layers")
+    if launches["decode_attention"] != L * stats.decode_events:
+        problems.append(f"decode_attention launched "
+                        f"{launches['decode_attention']} times for "
+                        f"{stats.decode_events} decode events of {L} layers")
+    if stats.host_reads != stats.decode_batches:
+        problems.append(f"{stats.host_reads} host reads in "
+                        f"{stats.decode_batches} decode batches")
+    if problems:
+        raise PhaseError("serve: " + "; ".join(problems))
+    tokens = sum(len(r.output) for r in engine.requests.values())
+    phase("serve", arch=cfg.name, layers=L, d_model=cfg.d_model,
+          head_dim=cfg.resolved_head_dim, params=sum(
+              p.numel() for p in model.parameters()),
+          param_bytes=param_bytes, init_s=f"{init_s:.3f}",
+          max_memory_allocated=peak, requests=done, tokens=tokens,
+          decode_events=stats.decode_events,
+          fused_batches=stats.fused_batches, singles=stats.singles,
+          prefills=stats.prefills, wall_s=f"{stats.wall_seconds:.3f}",
+          prefill_ms_per_request=f"{stats.prefill_seconds / stats.prefills * 1e3:.3f}",
+          decode_ms_per_token_step=f"{stats.decode_seconds / stats.decode_events * 1e3:.3f}",
+          generated_tokens_per_s=f"{tokens / stats.wall_seconds:.2f}",
+          host_reads_per_decode_batch=f"{stats.host_reads / stats.decode_batches:.3f}",
+          weight_read_bound_ms=f"{param_bytes / HBM_BYTES_PER_S * 1e3:.3f}",
+          launches=json.dumps(launches, separators=(",", ":")))
+    teacher_force(model)
+    return launches
+
+
+def teacher_force(model) -> None:
+    """One seeded prompt through ``prefill`` and ``TEACHER_STEPS``
+    ``decode_step``s, with the attention kernels and with the reference
+    attention, on the same weights and the same input tokens."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(3)
+    prompt = torch.tensor(rng.integers(0, model.cfg.vocab_size, (1, 16)),
+                          dtype=torch.int32, device="cuda")
+    feed = torch.tensor(rng.integers(0, model.cfg.vocab_size,
+                                     (TEACHER_STEPS, 1, 1)),
+                        dtype=torch.int32, device="cuda")
+    runs = {}
+    for impl in ("pallas", "reference"):
+        model.attn_impl = impl
+        logits, cache = model.prefill(prompt, max_len=64)
+        rows = [logits[0]]
+        for tok in feed:
+            logits, cache = model.decode_step(cache, tok)
+            rows.append(logits[0, 0])
+        runs[impl] = torch.stack(rows).float()
+    model.attn_impl = "pallas"
+    a, b = runs["pallas"], runs["reference"]
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    diff = float((a - b).abs().max())
+    if not bool(torch.isfinite(a).all()) or float(cos.min()) < MIN_COSINE:
+        raise PhaseError(f"serve: kernel vs reference logits cosine "
+                         f"{cos.tolist()} (min {MIN_COSINE})")
+    phase("teacher_force", steps=TEACHER_STEPS + 1,
+          min_cosine=f"{float(cos.min()):.6f}", max_abs_diff=f"{diff:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
 def _time_ms(fn, reps: int = 300) -> float:
@@ -363,6 +566,107 @@ def time_kernels(final_queue, lookaheads, launches, errs) -> list:
     return out
 
 
+def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
+            ops, ops_per_s, library_ms):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def time_attention(launches, errs) -> list:
+    """Each attention kernel, its plain version and one
+    ``scaled_dot_product_attention`` call at the serving path's shapes
+    (bf16, H 32, KV 8, head_dim 160).  Returns the JSON records at the
+    main path's own shapes (the prompt bucket T = S = 32; B = 4 slots,
+    S = max_len 256); flash at T = S = 2048 is printed beside them."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+    src = "src/repro_torch/csrc/attention.cu"
+    out = []
+    for T, reps in ((32, 300), (2048, 20)):
+        B, H, KV, D = 1, 32, 8, 160
+        q = _randn(gen, (B, T, H, D), bf16).transpose(1, 2)
+        k = _randn(gen, (B, T, KV, D), bf16).transpose(1, 2)
+        v = _randn(gen, (B, T, KV, D), bf16).transpose(1, 2)
+        o = fa.flash_attention_cuda(q, k, v)
+        ms = _time_ms(lambda: fa.flash_attention_cuda(q, k, v), reps)
+        plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), reps)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps)
+        nbytes = _nbytes([q, k, v, o])
+        ops = 4 * D * H * B * T * (T + 1) // 2       # causal QK^T and PV
+        rec = _record("flash_attention", src,
+                      "src/repro/kernels/flash_attention.py:108",
+                      launches["flash_attention"], errs["flash_attention"],
+                      ms, plain_ms, nbytes, ops, BF16_OPS_PER_S, lib_ms)
+        phase("timing", kernel="flash_attention", T=T, S=T, H=H, KV=KV,
+              D=D, bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
+              plain_ms=f"{plain_ms:.6f}", library_ms=f"{lib_ms:.6f}",
+              bound_ms=f"{rec['bound_ms']:.9f}", bound_by=rec["bound_by"])
+        if T == 32:
+            out.append(rec)
+
+    B, H, KV, S, D = 4, 32, 8, 256, 160
+    lengths = (1, 31, 200, 256)
+    q = _randn(gen, (B, H, D), bf16)
+    kc = _randn(gen, (B, S, KV, D), bf16).transpose(1, 2)
+    vc = _randn(gen, (B, S, KV, D), bf16).transpose(1, 2)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]          # [B,1,1,S]
+    o = da.decode_attention_cuda(q, kc, vc, lens)
+    ms = _time_ms(lambda: da.decode_attention_cuda(q, kc, vc, lens))
+    plain_ms = _time_ms(lambda: da.decode_attention_plain(q, kc, vc, lens))
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
+    keys = sum(min(n, S) for n in lengths)     # cache rows actually read
+    nbytes = (_nbytes([q, o, lens])
+              + 2 * keys * KV * D * kc.element_size())
+    ops = 4 * D * H * keys
+    rec = _record("decode_attention", src,
+                  "src/repro/kernels/decode_attention.py:112",
+                  launches["decode_attention"], errs["decode_attention"],
+                  ms, plain_ms, nbytes, ops, BF16_OPS_PER_S, lib_ms)
+    phase("timing", kernel="decode_attention", B=B, S=S, H=H, KV=KV, D=D,
+          lengths=json.dumps(list(lengths)), bytes=nbytes, ops=ops,
+          ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+          library_ms=f"{lib_ms:.6f}", bound_ms=f"{rec['bound_ms']:.9f}",
+          bound_by=rec["bound_by"])
+    out.append(rec)
+    return out
+
+
+def build_all() -> float:
+    """Compile every CUDA source at once (one nvcc each); returns the
+    wall seconds and prints each source's ptxas report."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        for fut in [pool.submit(_build.build, n) for n in CUDA_SOURCES]:
+            fut.result()
+    seconds = time.perf_counter() - t0
+    for name in CUDA_SOURCES:
+        for line in _build.BUILD_LOG.get(name, "").splitlines():
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line or "smem" in line):
+                print(f"  ptxas[{name}]: {line.strip()}")
+    return seconds
+
+
 def main() -> int:
     import torch
 
@@ -374,30 +678,29 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build
 
     card = card_line()
-    t0 = time.perf_counter()
-    _build.build("queue_front")
-    build_s = time.perf_counter() - t0
-    phase("build", seconds=f"{build_s:.2f}", card=json.dumps(card),
-          torch=torch.__version__, cuda=torch.version.cuda)
-    for line in _build.BUILD_LOG.get("queue_front", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_s = build_all()
+    phase("build", seconds=f"{build_s:.2f}", sources=",".join(CUDA_SOURCES),
+          card=json.dumps(card), torch=torch.__version__,
+          cuda=torch.version.cuda)
 
     errs = check_kernels(torch.device("cuda"))
+    attn_errs = check_attention()
     res, launches = run_phold("cuda")
     run_poc("cuda")
+    attn_launches = run_serve()
     lookaheads = torch.tensor([1.0], device="cuda")
     kernels = time_kernels(res.raw["final_queue"], lookaheads, launches,
                            errs)
+    kernels += time_attention(attn_launches, attn_errs)
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())
+    # One card: the run uses cuda:0 alone, whatever the host has.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

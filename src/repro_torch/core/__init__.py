@@ -1,2 +1,3 @@
 """Core engine of the PyTorch port: events, codec, queue, composer,
-engine and program (see :mod:`repro_torch.api` for the public surface)."""
+engine, program and the host-side window extraction (scheduler); see
+:mod:`repro_torch.api` for the public surface."""

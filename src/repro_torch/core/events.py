@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -36,6 +36,21 @@ class EventType:
     handler: Callable       # (state, t, arg) -> state | (state, events)
     lookahead: float        # l_e >= 0; inf allowed (never blocks)
     returns_events: bool    # whether handler returns (state, new_events)
+
+
+@dataclasses.dataclass(frozen=True)
+class Event:
+    """A host-side scheduled event instance."""
+
+    time: float
+    type_id: int
+    arg: Any = None
+    # Monotonic sequence number used as a tie-breaker so that events with
+    # equal timestamps execute in schedule order (deterministic runs).
+    seq: int = 0
+
+    def key(self):
+        return (self.time, self.seq)
 
 
 def emits_events(handler: Callable) -> Callable:

@@ -22,8 +22,11 @@ delay relative to its own timestamp; the device adapter rewrites column
 tensors on the run's device; they may update state tensors in place,
 because the engine runs on its own copy of the initial state.
 
-Not ported yet: the host backend, entity-parallel handlers, the static
-analyzer, checkpoint / resume, streamed arrivals and the spill policy.
+``SimProgram.host_registry()`` gives the host runtimes' registry for
+handlers that emit nothing — what the serving control plane needs.
+Not ported yet: emitting host handlers and the host backend,
+entity-parallel handlers, the static analyzer, checkpoint / resume,
+streamed arrivals and the spill policy.
 """
 
 from __future__ import annotations
@@ -159,6 +162,7 @@ class SimProgram:
         self._schedule: list[tuple[float, int, np.ndarray]] = []
         self._frozen = False
         self._device_registry: EventRegistry | None = None
+        self._host_registry: EventRegistry | None = None
 
     def register(self, name: str, fn: Callable, *,
                  lookahead: float = float("inf"),
@@ -224,6 +228,23 @@ class SimProgram:
                 reg.register(spec.name, fn, lookahead=spec.lookahead)
             self._device_registry = reg.freeze()
         return self._device_registry
+
+    def host_registry(self) -> EventRegistry:
+        """Registry for the host runtimes, for handlers that emit
+        nothing (they take and return the state as they are given it:
+        plain Python objects, bound methods included).  Emitting
+        handlers raise :class:`NotImplementedError`."""
+        self.freeze()
+        if self._host_registry is None:
+            reg = EventRegistry()
+            for spec in self._specs:
+                if spec.emits:
+                    raise NotImplementedError(
+                        f"handler {spec.name!r} emits events; emitting "
+                        "host handlers are not ported to repro_torch yet")
+                reg.register(spec.name, spec.fn, lookahead=spec.lookahead)
+            self._host_registry = reg.freeze()
+        return self._host_registry
 
     def build(self, *, backend: str = "device", device=None,
               queue_mode: str = "tiered3", capacity: int | None = None,

@@ -37,12 +37,13 @@ tensors, as the JAX functions do.
 from __future__ import annotations
 
 import collections
-from typing import NamedTuple
+import heapq
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.events import ARG_WIDTH
+from repro_torch.core.events import ARG_WIDTH, Event
 
 INF = float("inf")
 I32_MAX = 2**31 - 1
@@ -51,6 +52,45 @@ _I32 = torch.int32
 # Rare-path firings and device-to-host reads, by name.  Plain counters:
 # callers reset them (``COUNTS.clear()``) around the run they measure.
 COUNTS: collections.Counter = collections.Counter()
+
+
+class HostEventQueue:
+    """Binary heap of Events keyed by (time, seq): the pending set of
+    the host-driven runtimes (the serving control plane)."""
+
+    def __init__(self):
+        self._heap: list[tuple[float, int, Event]] = []
+        self._seq = 0
+        self.push_count = 0
+        self.pop_count = 0
+
+    def push(self, time: float, type_id: int, arg: Any = None) -> Event:
+        ev = Event(time=float(time), type_id=int(type_id), arg=arg,
+                   seq=self._seq)
+        heapq.heappush(self._heap, (ev.time, ev.seq, ev))
+        self._seq += 1
+        self.push_count += 1
+        return ev
+
+    def push_event(self, ev: Event) -> None:
+        """Re-insert an existing event, PRESERVING its seq (its tie-break
+        rank among same-timestamp events)."""
+        heapq.heappush(self._heap, (ev.time, ev.seq, ev))
+        self._seq = max(self._seq, ev.seq + 1)
+        self.push_count += 1
+
+    def pop(self) -> Event:
+        self.pop_count += 1
+        return heapq.heappop(self._heap)[2]
+
+    def peek(self) -> Event:
+        return self._heap[0][2]
+
+    def __len__(self) -> int:
+        return len(self._heap)
+
+    def __bool__(self) -> bool:
+        return bool(self._heap)
 
 
 def host_read(t: torch.Tensor):

@@ -1,0 +1,274 @@
+"""GQA attention (PyTorch port of the GQA part of
+:mod:`repro.models.attention`).
+
+Three execution paths, selected by ``impl`` as in the JAX package:
+
+* ``"blockwise"`` (default) — flash-style attention in plain PyTorch:
+  Python loops over query and KV blocks with a running (max, denominator)
+  in f32; causal KV blocks wholly in the future are skipped.
+* ``"reference"`` — naive full-matrix softmax attention, the oracle.
+* ``"pallas"`` — the hand-written Hopper kernels
+  (:mod:`repro_torch.kernels.ops`), the counterparts of the JAX
+  package's Pallas kernels.  The name is kept so that both packages line
+  up; on CPU tensors the kernels' plain versions run.
+
+Decode writes the new token's K/V into a dense cache and attends with
+full-length masking.  Unlike the JAX package, decode updates the cache
+tensors IN PLACE (no copy of the ``[B, S, KV, D]`` cache per layer) and
+returns them.  MLA and M-RoPE are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import apply_rope, dense_init, proj
+
+_NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Reference attention (oracle)
+# ---------------------------------------------------------------------------
+
+def reference_attention(q, k, v, *, causal: bool):
+    """q: [B,T,H,D], k/v: [B,S,KV,D] with H = KV*G.  f32 softmax."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, T, KV, G, D)
+    logits = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale
+    if causal:
+        qpos = torch.arange(T, device=q.device)
+        mask = qpos[:, None] >= torch.arange(S, device=q.device)[None, :]
+        logits = torch.where(mask[None, None, None], logits, _NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", w, v.float())
+    return out.reshape(B, T, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (flash-style) attention in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def blockwise_attention(q, k, v, *, causal: bool, q_block: int = 512,
+                        kv_block: int = 1024):
+    """Numerically exact flash-style attention, O(T·kv_block) memory.
+
+    Requires k/v already expanded to H heads (``expand_kv``), as the JAX
+    function does.  The JAX ``lax.scan``s become Python loops and its
+    ``lax.cond`` block skip (``skip_masked_blocks``, on by default there
+    and always here) a Python ``if`` on block indices.
+    """
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if KV != H:
+        raise ValueError("blockwise_attention requires expanded KV heads "
+                         f"(got H={H}, KV={KV}); use expand_kv()")
+    scale = 1.0 / math.sqrt(D)
+    q_block = min(q_block, T)
+    kv_block = min(kv_block, S)
+    Tp = -(-T // q_block) * q_block
+    Sp = -(-S // kv_block) * kv_block
+    dev = q.device
+    qf = torch.nn.functional.pad(q.float(), (0, 0, 0, 0, 0, Tp - T))
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, Sp - S))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, Sp - S))
+    nq, nk = Tp // q_block, Sp // kv_block
+
+    outs = []
+    for qi in range(nq):
+        qblk = qf[:, qi * q_block:(qi + 1) * q_block]     # [B,qb,H,D]
+        q_pos = qi * q_block + torch.arange(q_block, device=dev)
+        m = torch.full((B, H, q_block), _NEG_INF, device=dev)
+        l = torch.zeros((B, H, q_block), device=dev)
+        acc = torch.zeros((B, H, q_block, D), device=dev)
+        for ki in range(nk):
+            if causal and ki * kv_block > qi * q_block + q_block - 1:
+                continue              # the whole KV block is in the future
+            kblk = kf[:, ki * kv_block:(ki + 1) * kv_block]
+            vblk = vf[:, ki * kv_block:(ki + 1) * kv_block]
+            s = torch.einsum("bqhd,bshd->bhqs", qblk, kblk) * scale
+            kv_pos = ki * kv_block + torch.arange(kv_block, device=dev)
+            valid = (kv_pos < S)[None, :]
+            if causal:
+                valid = valid & (q_pos[:, None] >= kv_pos[None, :])
+            s = torch.where(valid[None, None], s, _NEG_INF)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            pv = torch.einsum("bhqs,bshd->bhqd", p, vblk)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]     # [B,H,qb,D]
+        outs.append(out.transpose(1, 2))                     # [B,qb,H,D]
+    return torch.cat(outs, dim=1)[:, :T].to(q.dtype)
+
+
+def expand_kv(k, G: int):
+    """[B,S,KV,D] -> [B,S,KV*G,D]: replicate each KV head for its G
+    query heads."""
+    if G == 1:
+        return k
+    B, S, KV, D = k.shape
+    return k[:, :, :, None, :].expand(B, S, KV, G, D).reshape(B, S, KV * G, D)
+
+
+def _cache_dot(spec: str, a, b):
+    """An einsum in the cache dtype, as XLA's bf16 dot: products summed
+    in f32 and rounded once to the operands' dtype."""
+    if a.is_cuda:
+        return torch.einsum(spec, a, b)     # cuBLAS: f32 sums, one rounding
+    return torch.einsum(spec, a.float(), b.float()).to(a.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len):
+    """Single-token attention against a dense KV cache (the plain path).
+
+    q: [B,H,D]; k_cache/v_cache: [B,S,KV,D]; cache_len: i32[B] valid
+    lengths (the new token's position is cache_len-1 inclusive).
+
+    The cache-touching dots run in the CACHE dtype (bf16), as the JAX
+    function's do; only the [B,H,S] scores are f32.  The decode kernel
+    (``impl="pallas"``) accumulates in f32 throughout, so the two paths
+    differ by bf16 roundings and are each compared with their own
+    counterpart.
+    """
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, KV, G, D).to(k_cache.dtype)
+    s = _cache_dot("bkgd,bskd->bkgs", qg, k_cache).float() * scale
+    valid = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]
+    s = torch.where(valid[:, None, None], s, _NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = _cache_dot("bkgs,bskd->bkgd", w.to(v_cache.dtype), v_cache)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+def gqa_weight_shapes(*, d_model: int, num_heads: int, num_kv_heads: int,
+                      head_dim: int) -> dict:
+    """Name -> shape of the GQA weights, in init order."""
+    return {
+        "wq": (d_model, num_heads * head_dim),
+        "wk": (d_model, num_kv_heads * head_dim),
+        "wv": (d_model, num_kv_heads * head_dim),
+        "wo": (num_heads * head_dim, d_model),
+    }
+
+
+def gqa_init(gen: torch.Generator, *, d_model: int, num_heads: int,
+             num_kv_heads: int, head_dim: int, out=None) -> dict:
+    """Fan-in truncated-normal GQA weights drawn from ``gen``; ``out``
+    (a dict-like of tensors of these shapes) is filled in place."""
+    shapes = gqa_weight_shapes(d_model=d_model, num_heads=num_heads,
+                               num_kv_heads=num_kv_heads, head_dim=head_dim)
+    params = {} if out is None else out
+    for name, (fan_in, fan_out) in shapes.items():
+        w = dense_init(gen, fan_in, fan_out,
+                       out=None if out is None else out[name])
+        if out is None:
+            params[name] = w
+    return params
+
+
+def _project_qkv(params, x, *, num_heads, num_kv_heads, head_dim):
+    B, T, _ = x.shape
+    q = proj(x, params["wq"], out_dtype=x.dtype)
+    k = proj(x, params["wk"], out_dtype=x.dtype)
+    v = proj(x, params["wv"], out_dtype=x.dtype)
+    return (q.reshape(B, T, num_heads, head_dim),
+            k.reshape(B, T, num_kv_heads, head_dim),
+            v.reshape(B, T, num_kv_heads, head_dim))
+
+
+def _check_rope(m_rope: bool) -> None:
+    if m_rope:
+        raise NotImplementedError("M-RoPE is not ported to repro_torch yet")
+
+
+def gqa_apply(params, x, *, num_heads: int, num_kv_heads: int,
+              head_dim: int, positions, causal: bool = True,
+              rope_theta: float = 10000.0, m_rope: bool = False,
+              impl: str = "blockwise", q_block: int = 512,
+              kv_block: int = 1024):
+    """Full-sequence (train/prefill) GQA.  Returns (y, (k, v)) so callers
+    can build the KV cache during prefill."""
+    _check_rope(m_rope)
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(params, x, num_heads=num_heads,
+                           num_kv_heads=num_kv_heads, head_dim=head_dim)
+    if positions is not None:
+        q = apply_rope(q, positions, theta=rope_theta)
+        k = apply_rope(k, positions, theta=rope_theta)
+    G = num_heads // num_kv_heads
+    if impl == "reference":
+        o = reference_attention(q, k, v, causal=causal)
+    elif impl == "blockwise":
+        o = blockwise_attention(q, expand_kv(k, G), expand_kv(v, G),
+                                causal=causal, q_block=q_block,
+                                kv_block=kv_block)
+    elif impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        o = kops.flash_attention(q, k, v, causal=causal)
+    else:
+        raise ValueError(impl)
+    y = proj(o.reshape(B, T, num_heads * head_dim), params["wo"],
+             out_dtype=x.dtype)
+    return y, (k, v)
+
+
+def gqa_decode_apply(params, x, cache_k, cache_v, cache_len, *,
+                     num_heads: int, num_kv_heads: int, head_dim: int,
+                     positions, rope_theta: float = 10000.0,
+                     m_rope: bool = False, impl: str = "blockwise"):
+    """One-token decode.  x: [B,1,d]; cache_*: [B,S,KV,D]; cache_len:
+    i32[B] length INCLUDING the new token.  Writes the new K/V into the
+    caches in place and returns (y, cache_k, cache_v)."""
+    _check_rope(m_rope)
+    B = x.shape[0]
+    q, k, v = _project_qkv(params, x, num_heads=num_heads,
+                           num_kv_heads=num_kv_heads, head_dim=head_dim)
+    if positions is not None:
+        q = apply_rope(q, positions, theta=rope_theta)
+        k = apply_rope(k, positions, theta=rope_theta)
+    idx = cache_len - 1
+    _scatter_token(cache_k, k[:, 0], idx)
+    _scatter_token(cache_v, v[:, 0], idx)
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        o = kops.decode_attention(q[:, 0], cache_k, cache_v, cache_len)
+    else:
+        o = decode_attention(q[:, 0], cache_k, cache_v, cache_len)
+    y = proj(o.reshape(B, num_heads * head_dim), params["wo"],
+             out_dtype=x.dtype)
+    return y[:, None, :], cache_k, cache_v
+
+
+def _scatter_token(cache, new, idx):
+    """cache[b, idx[b]] = new[b] in place; cache: [B,S,KV,D]; new:
+    [B,KV,D]; idx: i32[B].
+
+    As JAX's ``.at[].set``: a negative index counts from the end, and a
+    row whose index is still outside ``[0, S)`` is dropped.  Serving
+    reaches that: an idle slot's length keeps growing past ``max_len``.
+    The write is masked on the device, with no host read."""
+    B, S = cache.shape[0], cache.shape[1]
+    rows = torch.arange(B, device=cache.device)
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + S, idx)
+    keep = (idx >= 0) & (idx < S)
+    safe = torch.clamp(idx, 0, S - 1)
+    old = cache[rows, safe]
+    cache[rows, safe] = torch.where(keep[:, None, None],
+                                    new.to(cache.dtype), old)
+    return cache

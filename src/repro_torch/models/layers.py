@@ -1,0 +1,172 @@
+"""Shared neural-net layers (PyTorch port of :mod:`repro.models.layers`).
+
+Functions on tensors with dict-like parameters (plain dicts or
+``nn.ParameterDict``), in the JAX package's layouts.  Weights are bf16
+with f32 norm scales.  Projections accumulate in f32: their result is
+f32, or rounded once to the activation dtype — what ``proj_einsum``
+does with ``PREFER_F32_PROJ=True`` (that §Perf knob is not ported).
+Initializers draw from an explicit ``torch.Generator``.
+
+Not ported yet: ``apply_m_rope`` and ``cross_entropy_loss``.  The JAX
+sharding constraints (``gather_head_for_unembed``, ``shard_batch_dim``)
+have no counterpart on one card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+DEFAULT_DTYPE = torch.bfloat16
+
+
+def proj(x, w, out_dtype=None):
+    """``x[..., d] @ w[d, f]`` accumulated in f32; returns f32, or the
+    f32 result rounded once to ``out_dtype``."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda:
+        if out_dtype is not None and x2.dtype == w.dtype == out_dtype:
+            # cuBLAS accumulates a bf16 product in f32 and rounds once
+            # (LM turns off its reduced-precision split-K reductions).
+            y = x2 @ w
+        else:
+            y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        y = x2.float() @ w.float()
+    y = y.reshape(*lead, w.shape[-1])
+    return y if out_dtype is None else y.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
+               out=None):
+    """Truncated-normal fan-in init in bf16: the normal is cut at ±2
+    before it is scaled by ``1/sqrt(in_dim)``, as the JAX ``dense_init``
+    does.  ``out`` (an ``[in_dim, out_dim]`` tensor) is filled in place
+    and returned."""
+    std = 1.0 / math.sqrt(in_dim)
+    w = torch.empty((in_dim, out_dim), dtype=torch.float32,
+                    device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    w.mul_(std)
+    return w.to(DEFAULT_DTYPE) if out is None else out.copy_(w)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, *, out=None):
+    """Normal init in bf16 scaled by ``1/sqrt(dim)``; ``out`` as in
+    :func:`dense_init`."""
+    w = torch.empty((vocab, dim), dtype=torch.float32, device=gen.device)
+    w.normal_(generator=gen)
+    w.mul_(1.0 / math.sqrt(dim))
+    return w.to(DEFAULT_DTYPE) if out is None else out.copy_(w)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_params(dim: int, device=None) -> dict:
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params, x, *, eps: float = 1e-5):
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * params["scale"]
+    return y.to(x.dtype)
+
+
+def layernorm_params(dim: int, device=None) -> dict:
+    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def layernorm(params, x, *, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y.to(x.dtype)
+
+
+def make_norm(kind: str):
+    """``(params(dim, device), apply(params, x, eps=))`` for a norm kind."""
+    if kind == "rmsnorm":
+        return rmsnorm_params, rmsnorm
+    if kind == "layernorm":
+        return layernorm_params, layernorm
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies f32[head_dim // 2]."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x, positions, *, theta: float = 10000.0):
+    """Rotate pairs (x[..., :d/2], x[..., d/2:]) by position angles.
+
+    x: [..., T, H, D]; positions: broadcastable to [..., T].  The "split
+    halves" convention (llama-style), in f32.
+    """
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)
+    angles = positions.float()[..., None] * inv      # [..., T, d/2]
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_weight_shapes(d_model: int, d_ff: int, activation: str) -> dict:
+    """Name -> shape of an MLP's weights, in init order."""
+    names = (("gate", "up", "down") if activation in ("swiglu", "geglu")
+             else ("up", "down"))
+    return {n: ((d_ff, d_model) if n == "down" else (d_model, d_ff))
+            for n in names}
+
+
+def mlp_apply(params, x, *, activation: str = "swiglu"):
+    dtype = x.dtype
+    if activation in ("swiglu", "geglu"):
+        g = proj(x, params["gate"])
+        u = proj(x, params["up"])
+        act = F.silu(g) if activation == "swiglu" else \
+            F.gelu(g, approximate="tanh")
+        h = (act * u).to(dtype)
+    elif activation == "gelu":
+        u = proj(x, params["up"])
+        h = F.gelu(u, approximate="tanh").to(dtype)   # jax.nn.gelu default
+    else:
+        raise ValueError(activation)
+    return proj(h, params["down"], out_dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_apply(embedding, tokens):
+    return embedding[tokens]
+
+
+def unembed_apply(embedding_or_head, x):
+    """Logits in f32: ``x[..., d] · head[v, d]``."""
+    return proj(x, embedding_or_head.t())

@@ -1,0 +1,377 @@
+"""LM: config-driven decoder (PyTorch port of :mod:`repro.models.model`).
+
+An ``nn.Module`` for stacks of ``(gqa, mlp)`` layers — the dense GQA
+architectures (stablelm-12b, llama3-405b, phi4-mini, minicpm-2b).  Any
+other mixer or FFN, ``remat`` and ``seq_parallel`` raise
+:class:`NotImplementedError`.  Entry points, as in the JAX package:
+
+* ``forward``      — full-sequence logits;
+* ``prefill``      — full sequence + the decode cache;
+* ``decode_step``  — one token against the cache.
+
+The JAX ``lax.scan`` over stacked layer params becomes a Python loop
+over ``self.layers``.  The decode cache keeps the JAX layout: a dict of
+stacked ``[L, B, S, KV, D]`` K/V tensors per stage plus ``lengths``;
+``decode_step`` writes each layer's new K/V into it in place.
+
+Parameters are created on the model's device without values; ``init``
+fills them from a seeded ``torch.Generator`` layer by layer, so peak
+memory stays at the weights plus one f32 temporary.  The weights differ
+from the JAX package's for the same seed (another generator);
+:func:`params_from_jax` carries the JAX weights across instead.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.engine import resolve_device
+from repro_torch.models import kvcache
+from repro_torch.models.attention import (
+    gqa_apply,
+    gqa_decode_apply,
+    gqa_init,
+    gqa_weight_shapes,
+)
+from repro_torch.models.layers import (
+    DEFAULT_DTYPE,
+    dense_init,
+    embed_apply,
+    embed_init,
+    make_norm,
+    mlp_apply,
+    mlp_weight_shapes,
+    unembed_apply,
+)
+
+ATTN_IMPLS = ("blockwise", "reference", "pallas")
+
+
+def _params(shapes: dict, dtype, device) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        name: nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                           requires_grad=False)
+        for name, shape in shapes.items()})
+
+
+def _norm_params(norm_params, dim, device) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        name: nn.Parameter(t, requires_grad=False)
+        for name, t in norm_params(dim, device).items()})
+
+
+class Block(nn.Module):
+    """One ``(gqa, mlp)`` layer: its two norms, the mixer and the FFN."""
+
+    def __init__(self, cfg: ArchConfig, norm_params, device):
+        super().__init__()
+        self.mixer_norm = _norm_params(norm_params, cfg.d_model, device)
+        self.ffn_norm = _norm_params(norm_params, cfg.d_model, device)
+        self.mixer = _params(gqa_weight_shapes(
+            d_model=cfg.d_model, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim),
+            DEFAULT_DTYPE, device)
+        self.ffn = _params(mlp_weight_shapes(cfg.d_model, cfg.d_ff,
+                                             cfg.activation),
+                           DEFAULT_DTYPE, device)
+
+
+class LM(nn.Module):
+    def __init__(self, cfg: ArchConfig, *, attn_impl: str = "blockwise",
+                 seq_parallel: bool = False, device=None):
+        """``device=None`` is the CUDA card, which must be present;
+        ``device="cpu"`` runs on the CPU with the kernels' plain
+        versions."""
+        super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+        if seq_parallel:
+            raise NotImplementedError(
+                "seq_parallel is not ported to repro_torch")
+        for pattern, _ in cfg.stages():
+            for spec in pattern:
+                if (spec.mixer, spec.ffn) != ("gqa", "mlp"):
+                    raise NotImplementedError(
+                        f"{cfg.name}: layer ({spec.mixer}, {spec.ffn}) is "
+                        "not ported to repro_torch (only (gqa, mlp))")
+        if cfg.m_rope:
+            raise NotImplementedError("M-RoPE is not ported to repro_torch")
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # Projections accumulate in f32 and round once, as the JAX
+            # package's (preferred_element_type=f32): no bf16 split-K sums.
+            torch.backends.cuda.matmul \
+                .allow_bf16_reduced_precision_reduction = False
+        norm_params, self.norm_apply = make_norm(cfg.norm)
+        self.stages = cfg.stages()
+        dev = self.device
+        self.embed = nn.Parameter(torch.empty(
+            (cfg.padded_vocab, cfg.d_model), dtype=DEFAULT_DTYPE, device=dev),
+            requires_grad=False)
+        self.final_norm = _norm_params(norm_params, cfg.d_model, dev)
+        if not cfg.tie_embeddings:
+            self.head = nn.Parameter(torch.empty_like(self.embed),
+                                     requires_grad=False)
+        # Layer order: stage, then unit within the stage, then the
+        # pattern's layers (the order of the JAX stacked params).
+        self.layers = nn.ModuleList(
+            Block(cfg, norm_params, dev)
+            for pattern, repeat in self.stages
+            for _ in range(repeat) for _ in pattern)
+
+    # ------------------------------------------------------------------
+    # Init
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def init(self, seed: int = 0) -> "LM":
+        """Fill every weight from ``torch.Generator(device).manual_seed(
+        seed)``, one tensor at a time (norm scales 1, biases 0)."""
+        cfg = self.cfg
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        embed_init(gen, cfg.padded_vocab, cfg.d_model, out=self.embed)
+        if not cfg.tie_embeddings:
+            embed_init(gen, cfg.padded_vocab, cfg.d_model, out=self.head)
+        norm_params, _ = make_norm(cfg.norm)
+        for lp in self.layers:
+            gqa_init(gen, d_model=cfg.d_model, num_heads=cfg.num_heads,
+                     num_kv_heads=cfg.num_kv_heads,
+                     head_dim=cfg.resolved_head_dim, out=lp.mixer)
+            for name, (fan_in, fan_out) in mlp_weight_shapes(
+                    cfg.d_model, cfg.d_ff, cfg.activation).items():
+                dense_init(gen, fan_in, fan_out, out=lp.ffn[name])
+        for norm in [self.final_norm] + [
+                n for lp in self.layers for n in (lp.mixer_norm,
+                                                  lp.ffn_norm)]:
+            for name, t in norm_params(cfg.d_model, self.device).items():
+                norm[name].copy_(t)
+        return self
+
+    def _head(self):
+        return self.embed if self.cfg.tie_embeddings else self.head
+
+    # ------------------------------------------------------------------
+    # Full-sequence forward (prefill)
+    # ------------------------------------------------------------------
+    def _positions(self, tokens):
+        B, T = tokens.shape
+        return torch.arange(T, dtype=torch.int32,
+                            device=tokens.device)[None, :].expand(B, T)
+
+    def _run_layers(self, x, positions, *, collect_cache=False):
+        cfg = self.cfg
+        caches = []
+        for lp in self.layers:
+            h = self.norm_apply(lp.mixer_norm, x, eps=cfg.norm_eps)
+            y, (k, v) = gqa_apply(
+                lp.mixer, h, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, positions=positions,
+                causal=cfg.causal, rope_theta=cfg.rope_theta,
+                impl=self.attn_impl, q_block=cfg.attn_q_block,
+                kv_block=cfg.attn_kv_block)
+            x = x + y
+            h = self.norm_apply(lp.ffn_norm, x, eps=cfg.norm_eps)
+            x = x + mlp_apply(lp.ffn, h, activation=cfg.activation)
+            if collect_cache:
+                caches.append((k, v))
+        return x, caches
+
+    def _mask_pad(self, logits):
+        """-1e30 on the vocab-padding tail (padded_vocab > vocab_size)."""
+        cfg = self.cfg
+        if cfg.padded_vocab == cfg.vocab_size:
+            return logits
+        ids = torch.arange(cfg.padded_vocab, device=logits.device)
+        return torch.where(ids < cfg.vocab_size, logits, -1e30)
+
+    @torch.no_grad()
+    def forward(self, tokens, *, remat: bool = False):
+        """tokens: i32[B,T] -> (logits [B,T,V] f32, moe_aux 0.0)."""
+        if remat:
+            raise NotImplementedError("remat is not ported to repro_torch")
+        cfg = self.cfg
+        x = embed_apply(self.embed, tokens)
+        x, _ = self._run_layers(x, self._positions(tokens))
+        x = self.norm_apply(self.final_norm, x, eps=cfg.norm_eps)
+        logits = self._mask_pad(unembed_apply(self._head(), x))
+        return logits, torch.zeros((), device=x.device)
+
+    # ------------------------------------------------------------------
+    # Decode cache
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
+        stages = []
+        for pattern, repeat in self.stages:
+            stages.append({
+                f"l{j}": kvcache.gqa_cache_init(
+                    repeat, batch, max_len, cfg.num_kv_heads,
+                    cfg.resolved_head_dim, device=self.device)
+                for j in range(len(pattern))})
+        return {"stages": stages,
+                "lengths": torch.zeros((batch,), dtype=torch.int32,
+                                       device=self.device)}
+
+    def _layer_caches(self, cache):
+        """(k, v) views of each layer's cache slice, in layer order."""
+        out = []
+        for (pattern, repeat), sc in zip(self.stages, cache["stages"]):
+            for i in range(repeat):
+                for j in range(len(pattern)):
+                    out.append((sc[f"l{j}"]["k"][i], sc[f"l{j}"]["v"][i]))
+        return out
+
+    # ------------------------------------------------------------------
+    # Decode step
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def decode_step(self, cache, tokens):
+        """tokens: i32[B,1] -> (logits [B,1,V] f32, cache).
+
+        ``cache['lengths']`` counts tokens BEFORE this step; the new
+        token is written at position lengths (0-based) and lengths
+        increments.  The K/V tensors are updated in place; the returned
+        cache shares them and carries the new ``lengths``.
+        """
+        cfg = self.cfg
+        lengths = cache["lengths"] + 1            # incl. the new token
+        pos = (lengths - 1)[:, None]              # [B,1]
+        x = embed_apply(self.embed, tokens)
+        for lp, (ck, cv) in zip(self.layers, self._layer_caches(cache)):
+            h = self.norm_apply(lp.mixer_norm, x, eps=cfg.norm_eps)
+            y, _, _ = gqa_decode_apply(
+                lp.mixer, h, ck, cv, lengths, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, positions=pos,
+                rope_theta=cfg.rope_theta, impl=self.attn_impl)
+            x = x + y
+            h = self.norm_apply(lp.ffn_norm, x, eps=cfg.norm_eps)
+            x = x + mlp_apply(lp.ffn, h, activation=cfg.activation)
+        x = self.norm_apply(self.final_norm, x, eps=cfg.norm_eps)
+        logits = self._mask_pad(unembed_apply(self._head(), x))
+        return logits, {"stages": cache["stages"], "lengths": lengths}
+
+    # ------------------------------------------------------------------
+    # Prefill
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, tokens, max_len: int | None = None):
+        """Full-sequence pass that also builds the decode cache.
+
+        Returns (last-token logits [B,V], cache padded to ``max_len``).
+        """
+        cfg = self.cfg
+        B, T = tokens.shape
+        max_len = max_len or T
+        x = embed_apply(self.embed, tokens)
+        x, caches = self._run_layers(x, self._positions(tokens),
+                                     collect_cache=True)
+        x = self.norm_apply(self.final_norm, x, eps=cfg.norm_eps)
+        logits = self._mask_pad(unembed_apply(self._head(), x[:, -1]))
+        full = self.init_cache(B, max_len)
+        for (ck, cv), (k, v) in zip(self._layer_caches(full), caches):
+            ck[:, :T] = k
+            cv[:, :T] = v
+        full["lengths"].fill_(T)
+        return logits, full
+
+
+# ---------------------------------------------------------------------------
+# Weights and caches carried across from the JAX package
+# ---------------------------------------------------------------------------
+
+def _to_tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor of the same dtype.  bf16 arrays (the
+    ``bfloat16`` numpy dtype that JAX arrays convert to) are viewed as
+    16-bit integers and then as ``torch.bfloat16``: ``torch.from_numpy``
+    rejects the dtype itself."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.array(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`_to_tensor`; bf16 comes back as its uint16 bits
+    (numpy has no bf16 of its own: ``.view(ml_dtypes.bfloat16)`` on the
+    caller's side restores the dtype)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).copy()
+    return t.numpy().copy()
+
+
+def _layer_keys(cfg: ArchConfig):
+    """(stage, repeat index, unit layer name, port layer index)."""
+    li = 0
+    for si, (pattern, repeat) in enumerate(cfg.stages()):
+        for i in range(repeat):
+            for j in range(len(pattern)):
+                yield si, i, f"l{j}", li
+                li += 1
+
+
+def params_from_jax(cfg: ArchConfig, tree) -> dict:
+    """The JAX ``LM.init`` pytree, as numpy arrays (``jax.tree.map(
+    np.asarray, params)``), -> a state dict for :class:`LM`
+    (``model.load_state_dict(state)``).  Each stage's leading
+    ``[repeat]`` axis is unstacked into the port's layers; every dtype
+    is kept (bf16 weights, f32 norm scales)."""
+    state = {"embed": _to_tensor(tree["embed"])}
+    if not cfg.tie_embeddings:
+        state["head"] = _to_tensor(tree["head"])
+    for name, a in tree["final_norm"].items():
+        state[f"final_norm.{name}"] = _to_tensor(a)
+    for si, i, lj, li in _layer_keys(cfg):
+        unit = tree["stages"][si][lj]
+        for group in ("mixer_norm", "ffn_norm", "mixer", "ffn"):
+            for name, a in unit[group].items():
+                state[f"layers.{li}.{group}.{name}"] = _to_tensor(
+                    np.asarray(a)[i])
+    return state
+
+
+def params_to_numpy(cfg: ArchConfig, state: dict) -> dict:
+    """Inverse of :func:`params_from_jax`: the JAX pytree layout, with
+    each stage's layers stacked on a leading ``[repeat]`` axis; bf16
+    tensors come back as their uint16 bits."""
+    tree = {"embed": _to_numpy(state["embed"]),
+            "final_norm": {}, "stages": []}
+    if not cfg.tie_embeddings:
+        tree["head"] = _to_numpy(state["head"])
+    for key, t in state.items():
+        if key.startswith("final_norm."):
+            tree["final_norm"][key.split(".", 1)[1]] = _to_numpy(t)
+    stacks: dict = {}
+    for si, i, lj, li in _layer_keys(cfg):
+        prefix = f"layers.{li}."
+        for key, t in state.items():
+            if key.startswith(prefix):
+                group, name = key[len(prefix):].split(".")
+                stacks.setdefault((si, lj, group, name), []).append(
+                    _to_numpy(t))
+    for si, (pattern, _) in enumerate(cfg.stages()):
+        unit = {f"l{j}": {} for j in range(len(pattern))}
+        for (s, lj, group, name), arrs in stacks.items():
+            if s == si:
+                unit[lj].setdefault(group, {})[name] = np.stack(arrs)
+        tree["stages"].append(unit)
+    return tree
+
+
+def cache_from_jax(cache, device="cpu") -> dict:
+    """A JAX decode cache (numpy leaves) -> the port's cache dict on
+    ``device``, same layout and dtypes."""
+    return {
+        "stages": [{lj: {name: _to_tensor(a).to(device)
+                         for name, a in layer.items()}
+                    for lj, layer in stage.items()}
+                   for stage in cache["stages"]],
+        "lengths": _to_tensor(cache["lengths"]).to(device),
+    }
