@@ -18,6 +18,14 @@ Phases, each printed on its own line:
    (max abs error at most 1e-4) and bfloat16 (at most 2e-2), at the
    serving path's head layout (H 32, KV 8, head_dim 160) and others;
    a sequence of length 0 must come out 0.
+3b. rwkv_kernel — ``rwkv6_scan`` against its plain version (the
+   sequential recurrence in f32) on the same CUDA inputs, f32 and bf16:
+   the serving prefill's shapes (B 1, H 32, K 64, T 4, 13, 16), T 2048 at
+   B 1 and B 4, K 16 and 32, strided views of the model's ``[B,T,H,K]``
+   streams and contiguous inputs, the model's decay range and a strong
+   decay (log w near -20).  y and the final state must agree within
+   1e-4 of the reference's largest magnitude: both sum the same f32
+   products, in another order, and a state error decays with w <= 1.
 4. phold — PHOLD at a GPU PDES deployment's size (917,504 LPs, one
    message each, a 1,048,576-event queue) through
    ``SimProgram.build(backend="device")`` on the card, then the same
@@ -34,11 +42,23 @@ Phases, each printed on its own line:
    events times.  Then one prompt is teacher-forced through ``prefill``
    and 8 ``decode_step``s with the kernels and with the reference
    attention: the logits must agree to a cosine similarity of 0.999.
+6b. serve_rwkv — rwkv6-1.6b at full width and depth (24 layers of
+   ``(rwkv, rwkv_cm)``, d_model 2048, 1.58 B parameters in bf16) through
+   the same launcher with the same defaults.  Every request must finish,
+   with ``rwkv6_scan`` launched 2 * layers * prefills times (``prefill``
+   and the second ``forward`` of each prompt) and the attention kernels
+   not at all; then the teacher-forced check against
+   ``attn_impl="blockwise"`` (the chunked plain scan).
 7. timing — each kernel and its plain version at the main path's shapes
    (CUDA events over back-to-back calls), beside the least time the
    card could take for the bytes each call must move and the operations
    it must do, and, for attention, one
-   ``scaled_dot_product_attention`` call on the same inputs.
+   ``scaled_dot_product_attention`` call on the same inputs;
+   ``rwkv6_scan`` at the serving prefill's T 16 and at T 2048 (no
+   PyTorch call computes it).
+
+Each path (PHOLD, PoC, each served model) runs with every kernel's
+launch count set to 0 just before it and read just after.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
@@ -50,6 +70,7 @@ prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import pathlib
 import subprocess
@@ -70,7 +91,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 
-CUDA_SOURCES = ("queue_front", "attention")
+CUDA_SOURCES = ("queue_front", "attention", "rwkv6_scan")
 
 # The serving path's attention shapes (stablelm-12b: 32 heads, 8 KV
 # heads, head_dim 160): (B, H, KV, T=S, D, causal) for flash and
@@ -85,6 +106,20 @@ SERVE_ARGS = ["--arch", "stablelm-12b"]
 TEACHER_STEPS = 8
 MIN_COSINE = 0.999
 
+RWKV_SERVE_ARGS = ["--arch", "rwkv6-1.6b"]
+# (B, H, T, K, layout, decay): the serving prefill (H 32, K 64, prompts
+# of 4-16 tokens), long sequences, the reduced and JAX-sweep head dims.
+RWKV_CASES = [(1, 32, 4, 64, "view", "model"),
+              (1, 32, 13, 64, "view", "model"),
+              (1, 32, 16, 64, "view", "model"),
+              (1, 32, 2048, 64, "view", "model"),
+              (4, 32, 2048, 64, "view", "model"),
+              (2, 8, 100, 16, "contiguous", "model"),
+              (2, 8, 77, 32, "view", "model"),
+              (1, 32, 64, 64, "view", "strong"),
+              (2, 4, 33, 16, "contiguous", "strong")]
+RWKV_TOL = 1e-4            # of the reference's largest |y| or |S| (>= 1)
+
 WINDOW_SHAPES = [(256, 4), (256, 16), (16, 4)]     # (front_cap, k)
 MERGE_SHAPES = [(256, 4), (256, 32)]               # (front_cap, R)
 
@@ -96,6 +131,28 @@ class PhaseError(RuntimeError):
 def phase(name: str, **fields) -> None:
     print(f"PHASE {name} " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+def kernel_modules():
+    """The kernel modules, each with ``LAUNCHES`` and ``reset_launches``."""
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import queue_front, rwkv6_scan
+
+    return (queue_front, flash_attention, decode_attention, rwkv6_scan)
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    for mod in kernel_modules():
+        mod.reset_launches()
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count, just after a path was driven."""
+    out = {}
+    for mod in kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def card_line() -> str:
@@ -274,6 +331,74 @@ def check_attention() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the rwkv6 scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def rwkv_inputs(gen, B, H, T, K, dtype, layout="view", decay="model"):
+    """r, k, v, logw ``[B,H,T,K]`` and u ``[H,K]`` on the card.  "view":
+    transposed views of ``[B,T,H,K]`` tensors, as the model hands them
+    over.  "model" decay: the init's per-channel ``linspace(-6, -0.5)``
+    plus N(0, 0.5²) in the log-log domain (w from 0.9975 down to about
+    0.1); "strong": log w near -20."""
+    import torch
+
+    def t(shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
+    shape = (B, T, H, K) if layout == "view" else (B, H, T, K)
+    if decay == "model":
+        base = torch.linspace(-6.0, -0.5, H * K, device=gen.device)
+        base = base.view(H, K)
+        base = base if layout == "view" else base[:, None, :]   # [H,(T,)K]
+        logw = -torch.exp(base + 0.5 * t(shape))
+    else:
+        logw = -torch.exp(3.0 + 0.5 * t(shape))
+    xs = [t(shape), t(shape), t(shape), logw]
+    if layout == "view":
+        xs = [x.transpose(1, 2) for x in xs]
+    return [x.to(dtype) for x in xs] + [(0.1 * t((H, K))).to(dtype)]
+
+
+def check_rwkv() -> dict:
+    """``rwkv6_scan`` against its plain version on the same CUDA inputs;
+    returns the worst absolute difference (y and the final state)."""
+    import torch
+
+    from repro_torch.kernels import rwkv6_scan as rs
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst, cases = 0.0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, T, K, layout, decay in RWKV_CASES:
+            xs = rwkv_inputs(gen, B, H, T, K, dtype, layout, decay)
+            y, S = rs.rwkv6_scan_cuda(*xs)
+            y_want, S_want = rs.rwkv6_scan_plain(*xs)
+            torch.cuda.synchronize()
+            errs, scales = [], []
+            for got, want in ((y, y_want), (S, S_want)):
+                scale = max(1.0, float(want.abs().max()))
+                err = float((got - want).abs().max())
+                if not (bool(torch.isfinite(got).all()) and
+                        err <= RWKV_TOL * scale):
+                    raise PhaseError(
+                        f"rwkv6_scan {str(dtype)[6:]} B{B} H{H} T{T} K{K} "
+                        f"{layout} {decay}: error {err} above {RWKV_TOL} * "
+                        f"{scale}")
+                errs.append(err)
+                scales.append(scale)
+            worst = max(worst, *errs)
+            cases.append(f"rwkv6_scan {str(dtype)[6:]} B{B} H{H} T{T} K{K} "
+                         f"{layout} {decay} y {errs[0]:.3g} of "
+                         f"{scales[0]:.3g}, S {errs[1]:.3g} of "
+                         f"{scales[1]:.3g}")
+    for line in cases:
+        print(f"  {line}")
+    phase("rwkv_kernel", cases=len(cases),
+          max_abs_err=json.dumps({"rwkv6_scan": worst}))
+    return {"rwkv6_scan": worst}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: PHOLD at full width, card against CPU
 # ---------------------------------------------------------------------------
 
@@ -293,7 +418,7 @@ def run_phold(device_name: str):
     setup_s = time.perf_counter() - t0
 
     # The main path: counts are zeroed just before and read just after.
-    qf.reset_launches()
+    reset_launches()
     q.COUNTS.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -301,7 +426,8 @@ def run_phold(device_name: str):
                   max_batches=PHOLD_BATCHES)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
-    launches = dict(qf.LAUNCHES)
+    every = read_launches()
+    launches = {name: every[name] for name in qf.LAUNCHES}
     counts = dict(q.COUNTS)
 
     cpu = prog.build(backend="device", device="cpu", dispatch_mode="switch")
@@ -332,8 +458,8 @@ def run_phold(device_name: str):
     for name in want:
         if not np.array_equal(got[name], want[name]):
             problems.append(f"final queue field {name} differs")
-    for name, n in launches.items():
-        if n != res.batches:
+    for name, n in every.items():
+        if n != (res.batches if name in launches else 0):
             problems.append(f"{name} launched {n} times in "
                             f"{res.batches} super-steps")
     if problems:
@@ -368,14 +494,16 @@ def run_poc(device_name: str) -> None:
     for mode in ("switch", "masked"):
         sim = poc.build_program(iters).build(
             backend="device", device=device_name, dispatch_mode=mode)
-        qf.reset_launches()
+        reset_launches()
         res = sim.run(poc.initial_state(device_name), events=evs)
+        launches = read_launches()
         got = int(res.state)
         if got != want or res.events != len(evs):
             raise PhaseError(f"poc {mode}: sum {got} (want {want}), "
                              f"{res.events} events")
-        if any(n != res.batches for n in qf.LAUNCHES.values()):
-            raise PhaseError(f"poc {mode}: launches {qf.LAUNCHES} for "
+        if any(n != (res.batches if name in qf.LAUNCHES else 0)
+               for name, n in launches.items()):
+            raise PhaseError(f"poc {mode}: launches {launches} for "
                              f"{res.batches} super-steps")
         phase("poc", mode=mode, events=res.events, batches=res.batches,
               sum=got, oracle=want)
@@ -405,11 +533,11 @@ def run_serve() -> dict:
                       for p in model.parameters())
 
     # The main path: counts are zeroed just before and read just after.
-    fa.reset_launches()
-    da.reset_launches()
+    reset_launches()
     engine = serve.serve(model, args)
     torch.cuda.synchronize()
-    launches = {**fa.LAUNCHES, **da.LAUNCHES}
+    every = read_launches()
+    launches = {name: every[name] for name in (*fa.LAUNCHES, *da.LAUNCHES)}
     stats = engine.stats
     peak = torch.cuda.max_memory_allocated()
 
@@ -429,6 +557,9 @@ def run_serve() -> dict:
     if stats.host_reads != stats.decode_batches:
         problems.append(f"{stats.host_reads} host reads in "
                         f"{stats.decode_batches} decode batches")
+    others = {n: c for n, c in every.items() if n not in launches and c}
+    if others:
+        problems.append(f"other kernels launched: {others}")
     if problems:
         raise PhaseError("serve: " + "; ".join(problems))
     tokens = sum(len(r.output) for r in engine.requests.values())
@@ -446,25 +577,112 @@ def run_serve() -> dict:
           host_reads_per_decode_batch=f"{stats.host_reads / stats.decode_batches:.3f}",
           weight_read_bound_ms=f"{param_bytes / HBM_BYTES_PER_S * 1e3:.3f}",
           launches=json.dumps(launches, separators=(",", ":")))
-    teacher_force(model)
+    teacher_force(model, "reference")
     return launches
 
 
-def teacher_force(model) -> None:
-    """One seeded prompt through ``prefill`` and ``TEACHER_STEPS``
-    ``decode_step``s, with the attention kernels and with the reference
-    attention, on the same weights and the same input tokens."""
+def run_serve_rwkv() -> dict:
+    """rwkv6-1.6b with the serve launcher's defaults on the card;
+    returns ``rwkv6_scan``'s launches in that run."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(RWKV_SERVE_ARGS)
+    # The stablelm engine holds its model in a reference cycle (handlers
+    # bound to the engine): collect it so the peak below is rwkv6's own.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve.build_model(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+
+    # The main path: counts are zeroed just before and read just after.
+    reset_launches()
+    engine = serve.serve(model, args)
+    torch.cuda.synchronize()
+    every = read_launches()
+    stats = engine.stats
+    peak = torch.cuda.max_memory_allocated()
+
+    problems = []
+    done = sum(r.done for r in engine.requests.values())
+    if done != args.requests or len(engine.requests) != args.requests:
+        problems.append(f"{done} of {args.requests} requests done")
+    L = cfg.num_layers
+    want = {name: 0 for name in every}
+    want["rwkv6_scan"] = 2 * L * stats.prefills
+    if every != want:
+        problems.append(f"launches {every}, expected {want} for "
+                        f"{stats.prefills} prefills of {L} layers")
+    if stats.host_reads != stats.decode_batches:
+        problems.append(f"{stats.host_reads} host reads in "
+                        f"{stats.decode_batches} decode batches")
+    if problems:
+        raise PhaseError("serve_rwkv: " + "; ".join(problems))
+    tokens = sum(len(r.output) for r in engine.requests.values())
+    phase("serve_rwkv", arch=cfg.name, layers=L, d_model=cfg.d_model,
+          heads=cfg.d_model // cfg.rwkv_head_dim,
+          head_dim=cfg.rwkv_head_dim,
+          params=sum(p.numel() for p in model.parameters()),
+          param_bytes=param_bytes, init_s=f"{init_s:.3f}",
+          max_memory_allocated=peak, requests=done, tokens=tokens,
+          decode_events=stats.decode_events,
+          fused_batches=stats.fused_batches, singles=stats.singles,
+          prefills=stats.prefills, wall_s=f"{stats.wall_seconds:.3f}",
+          prefill_ms_per_request=f"{stats.prefill_seconds / stats.prefills * 1e3:.3f}",
+          decode_ms_per_token_step=f"{stats.decode_seconds / stats.decode_events * 1e3:.3f}",
+          generated_tokens_per_s=f"{tokens / stats.wall_seconds:.2f}",
+          host_reads_per_decode_batch=f"{stats.host_reads / stats.decode_batches:.3f}",
+          weight_read_bound_ms=f"{param_bytes / HBM_BYTES_PER_S * 1e3:.3f}",
+          launches=json.dumps(every, separators=(",", ":")))
+    teacher_force_rwkv(model)
+    return {"rwkv6_scan": every["rwkv6_scan"]}
+
+
+def teacher_force_rwkv(model) -> None:
+    """The teacher-forced check of the rwkv6 kernel path against the
+    chunked plain scan (``blockwise``).  In bf16 the two sit at the
+    random-weight model's own rounding noise: a one-ulp change of a
+    single embedding element moves the last logits to a cosine near
+    0.997 (``scripts/torch_rwkv_noise.py``), so any two summation orders
+    of the scan land there.  The gate therefore runs on an f32 copy of
+    the same weights, where the kernel (with the same f32 inputs, shapes
+    and strides as in serving) and the plain scan differ only in the
+    order of their f32 sums; the bf16 numbers are printed beside it."""
+    import copy
+
+    import torch
+
+    bf16 = _teacher_rows(model, "blockwise")
+    model32 = copy.deepcopy(model).float()
+    teacher_force(model32, "blockwise", phase_name="teacher_force_rwkv",
+                  bf16_rows=bf16)
+    del model32
+    torch.cuda.empty_cache()
+
+
+def _teacher_rows(model, plain_impl: str) -> dict:
+    """Logits of one seeded prompt through ``prefill`` and
+    ``TEACHER_STEPS`` ``decode_step``s, with the kernels
+    (``attn_impl="pallas"``) and with ``plain_impl``, on the same weights
+    and the same input tokens: ``{impl: [steps + 1, V] f32}``."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(3)
     prompt = torch.tensor(rng.integers(0, model.cfg.vocab_size, (1, 16)),
-                          dtype=torch.int32, device="cuda")
+                          dtype=torch.int32, device=model.device)
     feed = torch.tensor(rng.integers(0, model.cfg.vocab_size,
                                      (TEACHER_STEPS, 1, 1)),
-                        dtype=torch.int32, device="cuda")
+                        dtype=torch.int32, device=model.device)
     runs = {}
-    for impl in ("pallas", "reference"):
+    for impl in ("pallas", plain_impl):
         model.attn_impl = impl
         logits, cache = model.prefill(prompt, max_len=64)
         rows = [logits[0]]
@@ -473,24 +691,47 @@ def teacher_force(model) -> None:
             rows.append(logits[0, 0])
         runs[impl] = torch.stack(rows).float()
     model.attn_impl = "pallas"
-    a, b = runs["pallas"], runs["reference"]
+    return runs
+
+
+def _compare(runs, plain_impl):
+    import torch
+
+    a, b = runs["pallas"], runs[plain_impl]
     cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
-    diff = float((a - b).abs().max())
-    if not bool(torch.isfinite(a).all()) or float(cos.min()) < MIN_COSINE:
-        raise PhaseError(f"serve: kernel vs reference logits cosine "
-                         f"{cos.tolist()} (min {MIN_COSINE})")
-    phase("teacher_force", steps=TEACHER_STEPS + 1,
-          min_cosine=f"{float(cos.min()):.6f}", max_abs_diff=f"{diff:.4f}")
+    return cos, float((a - b).abs().max()), bool(torch.isfinite(a).all())
+
+
+def teacher_force(model, plain_impl: str, phase_name: str = "teacher_force",
+                  bf16_rows=None) -> None:
+    """Kernel vs ``plain_impl`` logits (:func:`_teacher_rows`) must agree
+    to a cosine of ``MIN_COSINE`` in the model's own dtype; ``bf16_rows``
+    (an earlier bf16 run of the same comparison) is printed beside."""
+    cos, diff, finite = _compare(_teacher_rows(model, plain_impl), plain_impl)
+    if not finite or float(cos.min()) < MIN_COSINE:
+        raise PhaseError(f"{phase_name}: kernel vs {plain_impl} logits "
+                         f"cosine {cos.tolist()} (min {MIN_COSINE})")
+    extra = {}
+    if bf16_rows is not None:
+        cos16, diff16, finite16 = _compare(bf16_rows, plain_impl)
+        if not finite16:
+            raise PhaseError(f"{phase_name}: bf16 logits not finite")
+        extra = dict(bf16_min_cosine=f"{float(cos16.min()):.6f}",
+                     bf16_max_abs_diff=f"{diff16:.4f}")
+    phase(phase_name, arch=model.cfg.name, against=plain_impl,
+          dtype=str(model.embed.dtype)[6:], steps=TEACHER_STEPS + 1,
+          min_cosine=f"{float(cos.min()):.6f}", max_abs_diff=f"{diff:.4f}",
+          **extra)
 
 
 # ---------------------------------------------------------------------------
 # Phase 7: timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def _time_ms(fn, reps: int = 300) -> float:
+def _time_ms(fn, reps: int = 300, warmup: int = 20) -> float:
     import torch
 
-    for _ in range(20):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -649,6 +890,38 @@ def time_attention(launches, errs) -> list:
     return out
 
 
+def time_rwkv(launches, errs) -> list:
+    """``rwkv6_scan`` and its plain version at the serving prefill's
+    shape (B 1, H 32, K 64, T 16: the longest prompt, f32 views of the
+    model's streams) and at T 2048; no PyTorch call computes the scan."""
+    import torch
+
+    from repro_torch.kernels import rwkv6_scan as rs
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = []
+    for T, reps, plain_reps in ((16, 300, 20), (2048, 20, 3)):
+        B, H, K = 1, 32, 64
+        xs = rwkv_inputs(gen, B, H, T, K, torch.float32)
+        y, S = rs.rwkv6_scan_cuda(*xs)
+        ms = _time_ms(lambda: rs.rwkv6_scan_cuda(*xs), reps)
+        plain_ms = _time_ms(lambda: rs.rwkv6_scan_plain(*xs), plain_reps,
+                            warmup=1)
+        nbytes = _nbytes(xs) + _nbytes([y, S])
+        ops = B * H * T * (5 * K * K + 4 * K)   # kv, r.S, decay, bonus, exp
+        rec = _record("rwkv6_scan", "src/repro_torch/csrc/rwkv6_scan.cu",
+                      "src/repro/kernels/rwkv6_scan.py:92",
+                      launches["rwkv6_scan"], errs["rwkv6_scan"], ms,
+                      plain_ms, nbytes, ops, F32_OPS_PER_S, None)
+        rec["shape"] = f"B{B} H{H} T{T} K{K} f32"
+        phase("timing", kernel="rwkv6_scan", B=B, H=H, T=T, K=K,
+              bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
+              plain_ms=f"{plain_ms:.6f}", bound_ms=f"{rec['bound_ms']:.9f}",
+              bound_by=rec["bound_by"])
+        out.append(rec)
+    return out
+
+
 def build_all() -> float:
     """Compile every CUDA source at once (one nvcc each); returns the
     wall seconds and prints each source's ptxas report."""
@@ -685,22 +958,27 @@ def main() -> int:
           card=json.dumps(card), torch=torch.__version__,
           cuda=torch.version.cuda)
 
+    # f32 products in full f32: the plain versions are the yardstick.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     errs = check_kernels(torch.device("cuda"))
     attn_errs = check_attention()
+    rwkv_errs = check_rwkv()
     res, launches = run_phold("cuda")
     run_poc("cuda")
     attn_launches = run_serve()
+    rwkv_launches = run_serve_rwkv()
     lookaheads = torch.tensor([1.0], device="cuda")
     kernels = time_kernels(res.raw["final_queue"], lookaheads, launches,
                            errs)
     kernels += time_attention(attn_launches, attn_errs)
+    kernels += time_rwkv(rwkv_launches, rwkv_errs)
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())
-    # One card: the run uses cuda:0 alone, whatever the host has.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -1,16 +1,19 @@
-"""Model-layout entry points of the attention kernels.
+"""Model-facing entry points of the kernels.
 
 Counterpart of :mod:`repro.kernels.ops`.  The models keep ``[B, T, H,
-D]``; the kernels' contract is ``[B, H, T, D]``.  JAX transposes into
-the kernel layout first; here the transposes are views that the CUDA
-kernels read through their strides, so nothing is copied.  The
-``rwkv6_scan`` and ``mamba_scan`` entry points come with their kernels.
+D]``; the attention kernels' contract is ``[B, H, T, D]``.  JAX
+transposes into the kernel layout first; here the transposes are views
+that the CUDA kernels read through their strides, so nothing is copied.
+``rwkv6_scan`` takes the kernel layout ``[B, H, T, K]`` as JAX's does;
+the model hands it strided views.  ``mamba_scan`` comes with its kernel,
+which is not ported yet.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import rwkv6_scan as _rwkv
 
 
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128):
@@ -25,3 +28,17 @@ def decode_attention(q, k_cache, v_cache, lengths):
     """q: [B,H,D]; caches: [B,S,KV,D] (model layout) -> [B,H,D]."""
     return _decode.decode_attention(q, k_cache.transpose(1, 2),
                                     v_cache.transpose(1, 2), lengths)
+
+
+def rwkv6_scan(r, k, v, logw, u, *, chunk: int = 64,
+               return_state: bool = False):
+    """r/k/v/logw: [B,H,T,K] (strided views welcome); u: [H,K] ->
+    y [B,H,T,K] f32, and with ``return_state`` also S_T [B,H,K,K] f32.
+
+    ``chunk`` is the Pallas kernel's sequence tile; it is kept so that
+    both packages take the same call.  The CUDA kernel walks the tokens
+    itself and needs no chunk and no padding.
+    """
+    del chunk
+    y, s_final = _rwkv.rwkv6_scan(r, k, v, logw, u)
+    return (y, s_final) if return_state else y

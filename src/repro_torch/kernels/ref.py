@@ -1,11 +1,11 @@
-"""Plain PyTorch oracles for the attention kernels (the ``ref.py``
-contract of :mod:`repro.kernels.ref`).
+"""Plain PyTorch oracles for the kernels (the ``ref.py`` contract of
+:mod:`repro.kernels.ref`).
 
 They are the plain versions the kernel wrappers take on the CPU and
 the yardstick the CUDA kernels are held to on the card.  Deliberately
-naive — full score matrices, no blocking, f32 throughout — so their
-correctness is auditable at a glance.  The scan oracles
-(``rwkv6_scan_ref``, ``mamba_scan_ref``) come with their kernels.
+naive — full score matrices, no blocking, the scan one token at a time,
+f32 throughout — so their correctness is auditable at a glance.
+``mamba_scan_ref`` comes with the mamba kernel, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,3 +48,27 @@ def decode_attention_ref(q, k_cache, v_cache, lengths):
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bksd->bkgd", w, v_cache.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def rwkv6_scan_ref(r, k, v, logw, u, *, return_state: bool = False):
+    """Sequential RWKV6 WKV recurrence — the exact oracle.
+
+    r/k/v: [B,H,T,K]; logw: [B,H,T,K] (log decay, <0); u: [H,K] bonus.
+    Returns y [B,H,T,K] (V == K) in fp32, and with ``return_state``
+    also the final state S_T [B,H,K,K] (the JAX oracle returns y alone):
+
+        y_t = r_t · (S_{t-1} + u ⊙ k_t v_tᵀ)
+        S_t = diag(w_t) S_{t-1} + k_t v_tᵀ,    S_0 = 0
+    """
+    B, H, T, K = r.shape
+    r, k, v = r.float(), k.float(), v.float()
+    w = torch.exp(logw.float())
+    uf = u.float()[None, :, :, None]
+    S = torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(T):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, :, t], v[:, :, t])
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t], S + uf * kv))
+        S = w[:, :, t, :, None] * S + kv
+    y = torch.stack(ys, dim=2) if ys else r.new_zeros((B, H, 0, K))
+    return (y, S) if return_state else y

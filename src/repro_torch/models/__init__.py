@@ -1,4 +1,4 @@
-"""LM stack of the PyTorch port (GQA + MLP stages)."""
+"""LM stack of the PyTorch port ((gqa, mlp) and (rwkv, rwkv_cm) stages)."""
 
 from repro_torch.models.model import LM
 

@@ -5,9 +5,12 @@ cache keeps its layout and the serving engine's slot splice ports
 directly:
 
 * GQA:   k/v  [L, B, S, KV, D]
+* RWKV6: x_att [L, B, 1, D] (the time-mix's last input token) and
+  S [L, B, H, K, K] f32 (the WKV state); the channel-mix's x_ffn
+  [L, B, 1, D] is added by ``LM.init_cache``.
 
 ``lengths: i32[B]`` (kept beside the stages by ``LM.init_cache``) counts
-valid tokens per sequence, shared across layers.  The MLA and SSM
+valid tokens per sequence, shared across layers.  The MLA and Mamba
 caches come with those mixers.
 """
 
@@ -22,4 +25,15 @@ def gqa_cache_init(num_layers, batch, max_len, num_kv_heads, head_dim,
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def rwkv_cache_init(num_layers, batch, d_model, head_dim,
+                    dtype=torch.bfloat16, device=None):
+    H = d_model // head_dim
+    return {
+        "x_att": torch.zeros((num_layers, batch, 1, d_model), dtype=dtype,
+                             device=device),
+        "S": torch.zeros((num_layers, batch, H, head_dim, head_dim),
+                         dtype=torch.float32, device=device),
     }

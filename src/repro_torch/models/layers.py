@@ -28,9 +28,11 @@ def proj(x, w, out_dtype=None):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.is_cuda:
-        if out_dtype is not None and x2.dtype == w.dtype == out_dtype:
+        if x2.dtype == w.dtype and (w.dtype == torch.float32
+                                    or out_dtype == w.dtype):
             # cuBLAS accumulates a bf16 product in f32 and rounds once
-            # (LM turns off its reduced-precision split-K reductions).
+            # (LM turns off its reduced-precision split-K reductions);
+            # f32 operands give f32 (TF32 stays off by default).
             y = x2 @ w
         else:
             y = torch.mm(x2, w, out_dtype=torch.float32)

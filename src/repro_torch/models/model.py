@@ -1,8 +1,9 @@
 """LM: config-driven decoder (PyTorch port of :mod:`repro.models.model`).
 
 An ``nn.Module`` for stacks of ``(gqa, mlp)`` layers — the dense GQA
-architectures (stablelm-12b, llama3-405b, phi4-mini, minicpm-2b).  Any
-other mixer or FFN, ``remat`` and ``seq_parallel`` raise
+architectures (stablelm-12b, llama3-405b, phi4-mini, minicpm-2b) — and
+of ``(rwkv, rwkv_cm)`` layers (rwkv6-1.6b).  Mamba, MoE and MLA layers,
+M-RoPE, ``remat`` and ``seq_parallel`` raise
 :class:`NotImplementedError`.  Entry points, as in the JAX package:
 
 * ``forward``      — full-sequence logits;
@@ -11,8 +12,13 @@ other mixer or FFN, ``remat`` and ``seq_parallel`` raise
 
 The JAX ``lax.scan`` over stacked layer params becomes a Python loop
 over ``self.layers``.  The decode cache keeps the JAX layout: a dict of
-stacked ``[L, B, S, KV, D]`` K/V tensors per stage plus ``lengths``;
-``decode_step`` writes each layer's new K/V into it in place.
+stacked ``[L, B, ...]`` leaves per stage plus ``lengths`` — K/V
+``[L, B, S, KV, D]`` for GQA; ``x_att``/``x_ffn`` ``[L, B, 1, D]`` and
+the WKV state ``S`` ``[L, B, H, K, K]`` f32 for RWKV.  ``decode_step``
+writes each layer's new entries into it in place.  ``attn_impl``
+selects the kernels: under ``"pallas"`` the rwkv time-mix of
+``forward`` and ``prefill`` runs the ``rwkv6_scan`` kernel, which the
+JAX LM never reaches (its ``ssm.py`` runs ``lax.scan``).
 
 Parameters are created on the model's device without values; ``init``
 fills them from a seeded ``torch.Generator`` layer by layer, so peak
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import kvcache
 from repro_torch.models.attention import (
@@ -46,8 +52,19 @@ from repro_torch.models.layers import (
     mlp_weight_shapes,
     unembed_apply,
 )
+from repro_torch.models.ssm import (
+    rwkv6_attn,
+    rwkv6_attn_decode,
+    rwkv6_channel_mix,
+    rwkv6_channel_mix_init,
+    rwkv6_channel_mix_weight_shapes,
+    rwkv6_init,
+    rwkv6_weight_shapes,
+)
 
 ATTN_IMPLS = ("blockwise", "reference", "pallas")
+MIXERS = ("gqa", "rwkv")
+FFNS = ("mlp", "rwkv_cm")
 
 
 def _params(shapes: dict, dtype, device) -> nn.ParameterDict:
@@ -63,20 +80,50 @@ def _norm_params(norm_params, dim, device) -> nn.ParameterDict:
         for name, t in norm_params(dim, device).items()})
 
 
-class Block(nn.Module):
-    """One ``(gqa, mlp)`` layer: its two norms, the mixer and the FFN."""
+class ParamTree(nn.Module):
+    """Nested parameters from a ``{name: (shape, dtype) | {...}}`` spec,
+    read as the JAX pytree is: ``tree["mix"]["r"]``.  State-dict keys
+    join the path with dots (``mixer.mix.r``)."""
 
-    def __init__(self, cfg: ArchConfig, norm_params, device):
+    def __init__(self, shapes: dict, device):
         super().__init__()
+        for name, spec in shapes.items():
+            if isinstance(spec, dict):
+                self.add_module(name, ParamTree(spec, device))
+            else:
+                shape, dtype = spec
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(shape, dtype=dtype, device=device),
+                    requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+class Block(nn.Module):
+    """One layer: its two norms, the mixer and the FFN its
+    :class:`LayerSpec` names."""
+
+    def __init__(self, cfg: ArchConfig, spec: LayerSpec, norm_params,
+                 device):
+        super().__init__()
+        self.spec = spec
         self.mixer_norm = _norm_params(norm_params, cfg.d_model, device)
         self.ffn_norm = _norm_params(norm_params, cfg.d_model, device)
-        self.mixer = _params(gqa_weight_shapes(
-            d_model=cfg.d_model, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim),
-            DEFAULT_DTYPE, device)
-        self.ffn = _params(mlp_weight_shapes(cfg.d_model, cfg.d_ff,
-                                             cfg.activation),
-                           DEFAULT_DTYPE, device)
+        if spec.mixer == "gqa":
+            self.mixer = _params(gqa_weight_shapes(
+                d_model=cfg.d_model, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim), DEFAULT_DTYPE, device)
+        else:
+            self.mixer = ParamTree(rwkv6_weight_shapes(cfg.d_model), device)
+        if spec.ffn == "mlp":
+            self.ffn = _params(mlp_weight_shapes(cfg.d_model, cfg.d_ff,
+                                                 cfg.activation),
+                               DEFAULT_DTYPE, device)
+        else:
+            self.ffn = ParamTree(rwkv6_channel_mix_weight_shapes(
+                cfg.d_model, cfg.d_ff), device)
 
 
 class LM(nn.Module):
@@ -93,10 +140,11 @@ class LM(nn.Module):
                 "seq_parallel is not ported to repro_torch")
         for pattern, _ in cfg.stages():
             for spec in pattern:
-                if (spec.mixer, spec.ffn) != ("gqa", "mlp"):
+                if spec.mixer not in MIXERS or spec.ffn not in FFNS:
                     raise NotImplementedError(
                         f"{cfg.name}: layer ({spec.mixer}, {spec.ffn}) is "
-                        "not ported to repro_torch (only (gqa, mlp))")
+                        f"not ported to repro_torch (mixers {MIXERS}, "
+                        f"FFNs {FFNS})")
         if cfg.m_rope:
             raise NotImplementedError("M-RoPE is not ported to repro_torch")
         self.cfg = cfg
@@ -120,9 +168,9 @@ class LM(nn.Module):
         # Layer order: stage, then unit within the stage, then the
         # pattern's layers (the order of the JAX stacked params).
         self.layers = nn.ModuleList(
-            Block(cfg, norm_params, dev)
+            Block(cfg, spec, norm_params, dev)
             for pattern, repeat in self.stages
-            for _ in range(repeat) for _ in pattern)
+            for _ in range(repeat) for spec in pattern)
 
     # ------------------------------------------------------------------
     # Init
@@ -138,12 +186,19 @@ class LM(nn.Module):
             embed_init(gen, cfg.padded_vocab, cfg.d_model, out=self.head)
         norm_params, _ = make_norm(cfg.norm)
         for lp in self.layers:
-            gqa_init(gen, d_model=cfg.d_model, num_heads=cfg.num_heads,
-                     num_kv_heads=cfg.num_kv_heads,
-                     head_dim=cfg.resolved_head_dim, out=lp.mixer)
-            for name, (fan_in, fan_out) in mlp_weight_shapes(
-                    cfg.d_model, cfg.d_ff, cfg.activation).items():
-                dense_init(gen, fan_in, fan_out, out=lp.ffn[name])
+            if lp.spec.mixer == "gqa":
+                gqa_init(gen, d_model=cfg.d_model, num_heads=cfg.num_heads,
+                         num_kv_heads=cfg.num_kv_heads,
+                         head_dim=cfg.resolved_head_dim, out=lp.mixer)
+            else:
+                rwkv6_init(gen, lp.mixer, d_model=cfg.d_model)
+            if lp.spec.ffn == "mlp":
+                for name, (fan_in, fan_out) in mlp_weight_shapes(
+                        cfg.d_model, cfg.d_ff, cfg.activation).items():
+                    dense_init(gen, fan_in, fan_out, out=lp.ffn[name])
+            else:
+                rwkv6_channel_mix_init(gen, lp.ffn, d_model=cfg.d_model,
+                                       d_ff=cfg.d_ff)
         for norm in [self.final_norm] + [
                 n for lp in self.layers for n in (lp.mixer_norm,
                                                   lp.ffn_norm)]:
@@ -163,22 +218,36 @@ class LM(nn.Module):
                             device=tokens.device)[None, :].expand(B, T)
 
     def _run_layers(self, x, positions, *, collect_cache=False):
+        """-> (x, per-layer cache entries: {"k", "v"} for GQA, {"x_att",
+        "S"} and {"x_ffn"} for RWKV; empty unless ``collect_cache``)."""
         cfg = self.cfg
         caches = []
         for lp in self.layers:
+            c = {}
             h = self.norm_apply(lp.mixer_norm, x, eps=cfg.norm_eps)
-            y, (k, v) = gqa_apply(
-                lp.mixer, h, num_heads=cfg.num_heads,
-                num_kv_heads=cfg.num_kv_heads,
-                head_dim=cfg.resolved_head_dim, positions=positions,
-                causal=cfg.causal, rope_theta=cfg.rope_theta,
-                impl=self.attn_impl, q_block=cfg.attn_q_block,
-                kv_block=cfg.attn_kv_block)
+            if lp.spec.mixer == "gqa":
+                y, (c["k"], c["v"]) = gqa_apply(
+                    lp.mixer, h, num_heads=cfg.num_heads,
+                    num_kv_heads=cfg.num_kv_heads,
+                    head_dim=cfg.resolved_head_dim, positions=positions,
+                    causal=cfg.causal, rope_theta=cfg.rope_theta,
+                    impl=self.attn_impl, q_block=cfg.attn_q_block,
+                    kv_block=cfg.attn_kv_block)
+            else:
+                y, (c["x_att"], c["S"]) = rwkv6_attn(
+                    lp.mixer, h, head_dim=cfg.rwkv_head_dim,
+                    chunk=cfg.rwkv_chunk, return_state=True,
+                    impl=self.attn_impl)
             x = x + y
             h = self.norm_apply(lp.ffn_norm, x, eps=cfg.norm_eps)
-            x = x + mlp_apply(lp.ffn, h, activation=cfg.activation)
+            if lp.spec.ffn == "mlp":
+                y = mlp_apply(lp.ffn, h, activation=cfg.activation)
+            else:
+                y, c["x_ffn"] = rwkv6_channel_mix(lp.ffn, h,
+                                                  return_state=True)
+            x = x + y
             if collect_cache:
-                caches.append((k, v))
+                caches.append(c)
         return x, caches
 
     def _mask_pad(self, logits):
@@ -205,25 +274,43 @@ class LM(nn.Module):
     # Decode cache
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
+        """Zeroed caches; K/V and the RWKV token-shift inputs in the
+        activation dtype (the embedding's: bf16, as JAX's
+        ``DEFAULT_DTYPE``, unless the model was cast), ``S`` in f32."""
         cfg = self.cfg
+        dev = self.device
+        act = self.embed.dtype
         stages = []
         for pattern, repeat in self.stages:
-            stages.append({
-                f"l{j}": kvcache.gqa_cache_init(
-                    repeat, batch, max_len, cfg.num_kv_heads,
-                    cfg.resolved_head_dim, device=self.device)
-                for j in range(len(pattern))})
+            unit = {}
+            for j, spec in enumerate(pattern):
+                c = {}
+                if spec.mixer == "gqa":
+                    c.update(kvcache.gqa_cache_init(
+                        repeat, batch, max_len, cfg.num_kv_heads,
+                        cfg.resolved_head_dim, dtype=act, device=dev))
+                else:
+                    c.update(kvcache.rwkv_cache_init(
+                        repeat, batch, cfg.d_model, cfg.rwkv_head_dim,
+                        dtype=act, device=dev))
+                if spec.ffn == "rwkv_cm":
+                    c["x_ffn"] = torch.zeros((repeat, batch, 1, cfg.d_model),
+                                             dtype=act, device=dev)
+                unit[f"l{j}"] = c
+            stages.append(unit)
         return {"stages": stages,
                 "lengths": torch.zeros((batch,), dtype=torch.int32,
-                                       device=self.device)}
+                                       device=dev)}
 
     def _layer_caches(self, cache):
-        """(k, v) views of each layer's cache slice, in layer order."""
+        """{name: view of the layer's slice} for each layer, in layer
+        order."""
         out = []
         for (pattern, repeat), sc in zip(self.stages, cache["stages"]):
             for i in range(repeat):
                 for j in range(len(pattern)):
-                    out.append((sc[f"l{j}"]["k"][i], sc[f"l{j}"]["v"][i]))
+                    out.append({name: leaf[i]
+                                for name, leaf in sc[f"l{j}"].items()})
         return out
 
     # ------------------------------------------------------------------
@@ -235,23 +322,38 @@ class LM(nn.Module):
 
         ``cache['lengths']`` counts tokens BEFORE this step; the new
         token is written at position lengths (0-based) and lengths
-        increments.  The K/V tensors are updated in place; the returned
-        cache shares them and carries the new ``lengths``.
+        increments.  The cache tensors are updated in place (K/V rows,
+        the RWKV token-shift inputs and WKV states of every slot, idle
+        ones too, as JAX's step computes them); the returned cache
+        shares them and carries the new ``lengths``.
         """
         cfg = self.cfg
         lengths = cache["lengths"] + 1            # incl. the new token
         pos = (lengths - 1)[:, None]              # [B,1]
         x = embed_apply(self.embed, tokens)
-        for lp, (ck, cv) in zip(self.layers, self._layer_caches(cache)):
+        for lp, lc in zip(self.layers, self._layer_caches(cache)):
             h = self.norm_apply(lp.mixer_norm, x, eps=cfg.norm_eps)
-            y, _, _ = gqa_decode_apply(
-                lp.mixer, h, ck, cv, lengths, num_heads=cfg.num_heads,
-                num_kv_heads=cfg.num_kv_heads,
-                head_dim=cfg.resolved_head_dim, positions=pos,
-                rope_theta=cfg.rope_theta, impl=self.attn_impl)
+            if lp.spec.mixer == "gqa":
+                y, _, _ = gqa_decode_apply(
+                    lp.mixer, h, lc["k"], lc["v"], lengths,
+                    num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                    head_dim=cfg.resolved_head_dim, positions=pos,
+                    rope_theta=cfg.rope_theta, impl=self.attn_impl)
+            else:
+                y, (x_att, S) = rwkv6_attn_decode(
+                    lp.mixer, h, lc["x_att"], lc["S"],
+                    head_dim=cfg.rwkv_head_dim)
+                lc["x_att"].copy_(x_att)
+                lc["S"].copy_(S)
             x = x + y
             h = self.norm_apply(lp.ffn_norm, x, eps=cfg.norm_eps)
-            x = x + mlp_apply(lp.ffn, h, activation=cfg.activation)
+            if lp.spec.ffn == "mlp":
+                y = mlp_apply(lp.ffn, h, activation=cfg.activation)
+            else:
+                y, x_ffn = rwkv6_channel_mix(lp.ffn, h, lc["x_ffn"],
+                                             return_state=True)
+                lc["x_ffn"].copy_(x_ffn)
+            x = x + y
         x = self.norm_apply(self.final_norm, x, eps=cfg.norm_eps)
         logits = self._mask_pad(unembed_apply(self._head(), x))
         return logits, {"stages": cache["stages"], "lengths": lengths}
@@ -274,9 +376,12 @@ class LM(nn.Module):
         x = self.norm_apply(self.final_norm, x, eps=cfg.norm_eps)
         logits = self._mask_pad(unembed_apply(self._head(), x[:, -1]))
         full = self.init_cache(B, max_len)
-        for (ck, cv), (k, v) in zip(self._layer_caches(full), caches):
-            ck[:, :T] = k
-            cv[:, :T] = v
+        for tgt, src in zip(self._layer_caches(full), caches):
+            for name, val in src.items():
+                if name in ("k", "v"):     # [B,T,...] into [B,max_len,...]
+                    tgt[name][:, :T] = val
+                else:                      # recurrent state: set whole
+                    tgt[name].copy_(val)
         full["lengths"].fill_(T)
         return logits, full
 
@@ -317,24 +422,40 @@ def _layer_keys(cfg: ArchConfig):
                 li += 1
 
 
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) of a nested dict, depth first."""
+    for name, a in tree.items():
+        if isinstance(a, dict):
+            yield from _leaves(a, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", a
+
+
 def params_from_jax(cfg: ArchConfig, tree) -> dict:
     """The JAX ``LM.init`` pytree, as numpy arrays (``jax.tree.map(
     np.asarray, params)``), -> a state dict for :class:`LM`
     (``model.load_state_dict(state)``).  Each stage's leading
-    ``[repeat]`` axis is unstacked into the port's layers; every dtype
-    is kept (bf16 weights, f32 norm scales)."""
+    ``[repeat]`` axis is unstacked into the port's layers; nested
+    groups (the rwkv mixer's ``mix`` and ``ln_x``) become dotted keys;
+    every dtype is kept (bf16 weights, f32 norm scales)."""
     state = {"embed": _to_tensor(tree["embed"])}
     if not cfg.tie_embeddings:
         state["head"] = _to_tensor(tree["head"])
-    for name, a in tree["final_norm"].items():
+    for name, a in _leaves(tree["final_norm"]):
         state[f"final_norm.{name}"] = _to_tensor(a)
     for si, i, lj, li in _layer_keys(cfg):
         unit = tree["stages"][si][lj]
         for group in ("mixer_norm", "ffn_norm", "mixer", "ffn"):
-            for name, a in unit[group].items():
-                state[f"layers.{li}.{group}.{name}"] = _to_tensor(
+            for path, a in _leaves(unit[group]):
+                state[f"layers.{li}.{group}.{path}"] = _to_tensor(
                     np.asarray(a)[i])
     return state
+
+
+def _set_path(tree: dict, path, value) -> None:
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = value
 
 
 def params_to_numpy(cfg: ArchConfig, state: dict) -> dict:
@@ -347,20 +468,19 @@ def params_to_numpy(cfg: ArchConfig, state: dict) -> dict:
         tree["head"] = _to_numpy(state["head"])
     for key, t in state.items():
         if key.startswith("final_norm."):
-            tree["final_norm"][key.split(".", 1)[1]] = _to_numpy(t)
+            _set_path(tree["final_norm"], key.split(".")[1:], _to_numpy(t))
     stacks: dict = {}
     for si, i, lj, li in _layer_keys(cfg):
         prefix = f"layers.{li}."
         for key, t in state.items():
             if key.startswith(prefix):
-                group, name = key[len(prefix):].split(".")
-                stacks.setdefault((si, lj, group, name), []).append(
-                    _to_numpy(t))
+                path = tuple(key[len(prefix):].split("."))
+                stacks.setdefault((si, lj, path), []).append(_to_numpy(t))
     for si, (pattern, _) in enumerate(cfg.stages()):
         unit = {f"l{j}": {} for j in range(len(pattern))}
-        for (s, lj, group, name), arrs in stacks.items():
+        for (s, lj, path), arrs in stacks.items():
             if s == si:
-                unit[lj].setdefault(group, {})[name] = np.stack(arrs)
+                _set_path(unit[lj], path, np.stack(arrs))
         tree["stages"].append(unit)
     return tree
 

@@ -141,6 +141,14 @@ class ServingEngine:
         return self._decode_k_programs[k]
 
     def _prefill_bucket(self, length: int) -> int:
+        # Recurrent mixers (mamba/rwkv) carry state across EVERY token,
+        # so right-padding a prompt would corrupt the state: use exact
+        # lengths, as the JAX engine does.  Attention-only archs use
+        # buckets (lengths mask the padded cache tail).
+        if any(spec.mixer in ("mamba", "rwkv")
+               for pattern, _ in self.model.cfg.stages()
+               for spec in pattern):
+            return length
         for b in self.prompt_buckets:
             if length <= b:
                 return b

@@ -24,6 +24,15 @@ def test_serve_launcher_reduced_on_cpu(capsys):
     assert "decode events: 43  fused batches: 7" in out
 
 
+def test_serve_launcher_rwkv6_reduced_on_cpu(capsys):
+    assert tserve.main(["--arch", "rwkv6-1.6b", "--reduced",
+                        "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "served 6/6 requests" in out
+    assert "decode events: 43  fused batches: 7" in out
+    assert "singles: 18  prefills: 6" in out
+
+
 def test_serve_launcher_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -37,6 +46,24 @@ def test_serve_launcher_prints_what_the_jax_launcher_prints():
         proc = subprocess.run(
             [sys.executable, "-m", module, "--arch", "stablelm-12b",
              "--reduced", "--requests", "2", "--max-new", "4", *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env={"PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
+                 "PATH": "/usr/bin:/bin"})
+        assert proc.returncode == 0, proc.stderr
+        return [line for line in proc.stdout.splitlines()
+                if "s wall" not in line]
+
+    assert run("repro_torch.launch.serve", ["--device", "cpu"]) == \
+        run("repro.launch.serve", [])
+
+
+def test_serve_launcher_rwkv6_prints_what_the_jax_launcher_prints():
+    """The rwkv6 control plane of the launcher's defaults (6 requests of
+    12 tokens), the wall-clock line aside."""
+    def run(module, extra):
+        proc = subprocess.run(
+            [sys.executable, "-m", module, "--arch", "rwkv6-1.6b",
+             "--reduced", *extra],
             cwd=ROOT, capture_output=True, text=True, timeout=300,
             env={"PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
                  "PATH": "/usr/bin:/bin"})

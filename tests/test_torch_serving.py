@@ -4,7 +4,8 @@ The scenarios of ``tests/test_substrates.py`` (decode-run fusion, fused
 vs single-step decode, slot exhaustion) and ``tests/test_extended.py``
 (slot splice isolation) run through both packages from ONE set of
 weights: ``stablelm-12b.reduced()`` initialised by JAX, carried across
-by ``params_from_jax``.
+by ``params_from_jax``.  The fusion scenario runs ``rwkv6-1.6b.reduced()``
+too, whose recurrent prompts are prefilled at their exact length.
 
 The control plane must be exactly equal: ``decode_events``,
 ``fused_batches``, ``fused_events``, ``singles``, ``prefills``, and each
@@ -38,40 +39,50 @@ MARGIN = 0.1
 STAT_FIELDS = ("decode_events", "fused_batches", "fused_events", "singles",
                "prefills")
 
-JCFG = jget_config("stablelm-12b").reduced()
-TCFG = tget_config("stablelm-12b").reduced()
+ARCH = "stablelm-12b"
+RWKV = "rwkv6-1.6b"
 
 
 @functools.lru_cache(maxsize=None)
-def _weights(seed: int):
-    params = JLM(JCFG).init(jax.random.PRNGKey(seed))
-    return params, params_from_jax(TCFG, jax.tree.map(np.asarray, params))
+def _cfgs(arch: str):
+    return jget_config(arch).reduced(), tget_config(arch).reduced()
 
 
-def _engines(seed: int, **kw):
-    params, state = _weights(seed)
-    jeng = JEngine(JLM(JCFG), params, **kw)
-    tm = TLM(TCFG, device="cpu")
+@functools.lru_cache(maxsize=None)
+def _weights(seed: int, arch: str = ARCH):
+    jcfg, tcfg = _cfgs(arch)
+    params = JLM(jcfg).init(jax.random.PRNGKey(seed))
+    return params, params_from_jax(tcfg, jax.tree.map(np.asarray, params))
+
+
+def _engines(seed: int, arch: str = ARCH, **kw):
+    jcfg, tcfg = _cfgs(arch)
+    params, state = _weights(seed, arch)
+    jeng = JEngine(JLM(jcfg), params, **kw)
+    tm = TLM(tcfg, device="cpu")
     tm.load_state_dict(state)
     return jeng, TEngine(tm, **kw)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_programs(max_len: int):
-    m = JLM(JCFG)
+def _jax_programs(max_len: int, arch: str = ARCH):
+    m = JLM(_cfgs(arch)[0])
     return (jax.jit(m.forward),
             jax.jit(functools.partial(m.prefill, max_len=max_len)),
             jax.jit(m.decode_step))
 
 
-def _greedy_margins(seed: int, prompt, stream, max_len: int) -> list:
+def _greedy_margins(seed: int, prompt, stream, max_len: int,
+                    arch: str = ARCH) -> list:
     """JAX's top-1/top-2 margin at every greedy choice of ``stream``,
-    recomputed by teacher-forcing it: the first token from the
-    bucket-padded forward (as the engine's prefill does), the rest from
-    decode steps on the prefilled cache."""
-    params, _ = _weights(seed)
-    forward, prefill, step = _jax_programs(max_len)
-    toks = np.zeros((1, 32), np.int32)
+    recomputed by teacher-forcing it: the first token from the forward
+    of the prompt as the engine prefills it (padded to the 32-token
+    bucket, or at its exact length for a recurrent model), the rest
+    from decode steps on the prefilled cache."""
+    params, _ = _weights(seed, arch)
+    forward, prefill, step = _jax_programs(max_len, arch)
+    recurrent = arch == RWKV
+    toks = np.zeros((1, len(prompt) if recurrent else 32), np.int32)
     toks[0, :len(prompt)] = prompt
     logits, _ = forward(params, jnp.asarray(toks))
     rows = [np.asarray(logits[0, len(prompt) - 1])]
@@ -88,7 +99,7 @@ def _greedy_margins(seed: int, prompt, stream, max_len: int) -> list:
     return margins
 
 
-def _check_same(jeng, teng, jstats, tstats, seed, max_len):
+def _check_same(jeng, teng, jstats, tstats, seed, max_len, arch=ARCH):
     for name in STAT_FIELDS:
         assert getattr(tstats, name) == getattr(jstats, name), name
     assert sorted(tstats.compiled_programs) == sorted(jstats.compiled_programs)
@@ -98,7 +109,8 @@ def _check_same(jeng, teng, jstats, tstats, seed, max_len):
         assert tr.done and jr.done
         assert tr.finish_time == jr.finish_time, rid
         assert len(tr.output) == len(jr.output), rid
-        margins = _greedy_margins(seed, jr.prompt, jr.output, max_len)
+        margins = _greedy_margins(seed, jr.prompt, jr.output, max_len,
+                                  arch)
         assert min(margins) > MARGIN, (rid, margins)
         assert tr.output == jr.output, rid
     # one host read per decode batch that ran
@@ -115,6 +127,47 @@ def test_serving_engine_fuses_decode_runs():
     jstats, tstats = jeng.run(), teng.run()
     assert tstats.fused_batches > 0 and tstats.mean_fused_length > 1.5
     _check_same(jeng, teng, jstats, tstats, 1676, 64)
+
+
+def test_serving_rwkv6_fuses_decode_runs():
+    """The fusion scenario on the reduced rwkv6: the control plane
+    exactly equal, the token streams equal past the margin (weight seed
+    27: every JAX greedy margin above 0.1, asserted)."""
+    kw = dict(max_slots=2, max_len=64, max_batch_len=4, arrival_lookahead=5.0)
+    jeng, teng = _engines(27, RWKV, **kw)
+    for eng in (jeng, teng):
+        eng.submit(0, [5, 6, 7], max_new_tokens=6, at=0.0)
+        eng.submit(1, [8, 9, 10, 11, 12], max_new_tokens=6, at=6.0)
+        eng.schedule_decode_grid(1.0, 40.0)
+    jstats, tstats = jeng.run(), teng.run()
+    assert tstats.fused_batches > 0 and tstats.mean_fused_length > 1.5
+    _check_same(jeng, teng, jstats, tstats, 27, 64, RWKV)
+
+
+def test_serving_rwkv6_prefills_prompts_at_their_exact_length():
+    """A recurrent prompt is not padded to a bucket (padding would run
+    through the recurrence), in both packages; the spliced slot holds
+    exactly the prefill of the bare prompt."""
+    jeng, teng = _engines(27, RWKV, max_slots=2, max_len=64)
+    for n in (1, 5, 31, 33, 200):
+        assert teng._prefill_bucket(n) == jeng._prefill_bucket(n) == n
+    stable, _ = _engines(0, max_slots=1, max_len=64)
+    assert stable._prefill_bucket(5) == 32
+    prompt = [3, 1, 4, 1, 5]
+    teng.submit(0, prompt, 4, at=0.0)
+    teng.waiting.append(teng.requests[0])
+    teng._h_prefill(None, 0.0, None)
+    slot = teng.requests[0].slot
+    _, own = teng.model.prefill(torch.tensor([prompt], dtype=torch.int32),
+                                max_len=64)
+    for name, leaf in teng.cache["stages"][0]["l0"].items():
+        assert torch.equal(leaf[:, slot], own["stages"][0]["l0"][name][:, 0])
+    padded = torch.zeros((1, 32), dtype=torch.int32)
+    padded[0, :len(prompt)] = torch.tensor(prompt)
+    _, pad = teng.model.prefill(padded, max_len=64)
+    assert not torch.equal(teng.cache["stages"][0]["l0"]["S"][:, slot],
+                           pad["stages"][0]["l0"]["S"][:, 0])
+    assert int(teng.cache["lengths"][slot]) == len(prompt)
 
 
 @pytest.mark.parametrize("max_batch_len", [1, 4])
