@@ -16,8 +16,9 @@ Phases, each printed on its own line:
 3. attn_kernels — ``flash_attention`` and ``decode_attention`` against
    their plain versions on the same N(0,1) CUDA inputs, in float32
    (max abs error at most 1e-4) and bfloat16 (at most 2e-2), at the
-   serving path's head layout (H 32, KV 8, head_dim 160) and others;
-   a sequence of length 0 must come out 0.
+   serving paths' head layouts (stablelm-12b: H 32, KV 8, head_dim 160;
+   jamba: H 64, KV 8, head_dim 128, flash at its exact prompt lengths)
+   and others; a sequence of length 0 must come out 0.
 3b. rwkv_kernel — ``rwkv6_scan`` against its plain version (the
    sequential recurrence in f32) on the same CUDA inputs, f32 and bf16:
    the serving prefill's shapes (B 1, H 32, K 64, T 4, 13, 16), T 2048 at
@@ -26,6 +27,13 @@ Phases, each printed on its own line:
    decay (log w near -20).  y and the final state must agree within
    1e-4 of the reference's largest magnitude: both sum the same f32
    products, in another order, and a state error decays with w <= 1.
+3c. mamba_kernel — ``mamba_scan`` against its plain version (the
+   sequential recurrence in f32) on the same CUDA inputs, f32 and bf16:
+   the serving prefill's shapes (B 1, I 16384, N 16, T 4, 13, 16) with
+   B_t/C_t as column slices of the model's ``x_proj`` output, T 2048,
+   N 4 and 8, contiguous inputs, and a strong decay (dt near 15).  y and
+   the final state must agree within 1e-5 of the reference's largest
+   magnitude (both printed).
 4. phold — PHOLD at a GPU PDES deployment's size (917,504 LPs, one
    message each, a 1,048,576-event queue) through
    ``SimProgram.build(backend="device")`` on the card, then the same
@@ -49,13 +57,26 @@ Phases, each printed on its own line:
    and the second ``forward`` of each prompt) and the attention kernels
    not at all; then the teacher-forced check against
    ``attn_impl="blockwise"`` (the chunked plain scan).
+6c. serve_jamba — jamba-1.5-large-398b cut to its first two layers,
+   ``[(gqa, mlp), (mamba, moe)]``, at full width (d_model 8192, 64 heads,
+   16 experts top-2, mamba d_inner 16384: 11.9 B parameters in bf16),
+   through the same launcher with the same defaults.  Every request must
+   finish, with ``mamba_scan`` launched 2 * mamba layers * prefills times,
+   ``flash_attention`` 2 * gqa layers * prefills and ``decode_attention``
+   gqa layers * decode events, the other kernels not at all.  Then the
+   teacher-forced check against ``attn_impl="blockwise"`` in bf16: one
+   MoE router sits between the scan and the logits, so routing choices
+   that differ between the routes are counted with their margins (each
+   must be a near tie, under 1e-3 of the token's router-logit spread),
+   rows whose routing agrees must reach a cosine of 0.999, and the mamba
+   layer's output, kernel against plain, 0.9999.
 7. timing — each kernel and its plain version at the main path's shapes
    (CUDA events over back-to-back calls), beside the least time the
    card could take for the bytes each call must move and the operations
    it must do, and, for attention, one
    ``scaled_dot_product_attention`` call on the same inputs;
-   ``rwkv6_scan`` at the serving prefill's T 16 and at T 2048 (no
-   PyTorch call computes it).
+   ``rwkv6_scan`` and ``mamba_scan`` at the serving prefill's T 16 and at
+   T 2048 (no PyTorch call computes either).
 
 Each path (PHOLD, PoC, each served model) runs with every kernel's
 launch count set to 0 just before it and read just after.
@@ -91,16 +112,17 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 
-CUDA_SOURCES = ("queue_front", "attention", "rwkv6_scan")
-
 # The serving path's attention shapes (stablelm-12b: 32 heads, 8 KV
 # heads, head_dim 160): (B, H, KV, T=S, D, causal) for flash and
 # (B, H, KV, S, D, lengths) for decode.
 FLASH_SHAPES = [(1, 32, 8, 32, 160, True), (1, 32, 8, 128, 160, True),
                 (1, 32, 8, 2048, 160, True), (1, 24, 8, 512, 128, True),
-                (1, 4, 4, 256, 64, False)]
+                (1, 4, 4, 256, 64, False),
+                # jamba (64 heads, 8 KV heads, head_dim 128), exact lengths
+                (1, 64, 8, 7, 128, True), (1, 64, 8, 16, 128, True)]
 DECODE_SHAPES = [(4, 32, 8, 256, 160, (1, 31, 200, 256)),
-                 (4, 32, 8, 4096, 160, (4096, 1000, 17, 2049))]
+                 (4, 32, 8, 4096, 160, (4096, 1000, 17, 2049)),
+                 (4, 64, 8, 256, 128, (1, 31, 200, 256))]
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SERVE_ARGS = ["--arch", "stablelm-12b"]
 TEACHER_STEPS = 8
@@ -120,6 +142,23 @@ RWKV_CASES = [(1, 32, 4, 64, "view", "model"),
               (2, 4, 33, 16, "contiguous", "strong")]
 RWKV_TOL = 1e-4            # of the reference's largest |y| or |S| (>= 1)
 
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_LAYERS = 2           # the block's first two: (gqa, mlp), (mamba, moe)
+# (B, T, I, N, layout, decay): the serving prefill (I 16384, N 16, prompts
+# of 4-16 tokens), a long sequence, the reduced and other state dims.
+MAMBA_CASES = [(1, 4, 16384, 16, "proj", "model"),
+               (1, 13, 16384, 16, "proj", "model"),
+               (1, 16, 16384, 16, "proj", "model"),
+               (1, 2048, 16384, 16, "proj", "model"),
+               (2, 100, 128, 4, "contiguous", "model"),
+               (2, 77, 256, 8, "proj", "model"),
+               (1, 64, 16384, 16, "proj", "strong"),
+               (3, 33, 100, 4, "contiguous", "strong")]
+MAMBA_TOL = 1e-5           # of the reference's largest |y| or |h|
+SFU_OPS_PER_S = 132 * 16 * 1.98e9   # H100 SXM special-function units (exp)
+ROUTE_NEAR_TIE = 1e-3      # of the token's router-logit spread
+MIN_MAMBA_COSINE = 0.9999
+
 WINDOW_SHAPES = [(256, 4), (256, 16), (16, 4)]     # (front_cap, k)
 MERGE_SHAPES = [(256, 4), (256, 32)]               # (front_cap, R)
 
@@ -136,9 +175,10 @@ def phase(name: str, **fields) -> None:
 def kernel_modules():
     """The kernel modules, each with ``LAUNCHES`` and ``reset_launches``."""
     from repro_torch.kernels import decode_attention, flash_attention
-    from repro_torch.kernels import queue_front, rwkv6_scan
+    from repro_torch.kernels import mamba_scan, queue_front, rwkv6_scan
 
-    return (queue_front, flash_attention, decode_attention, rwkv6_scan)
+    return (queue_front, flash_attention, decode_attention, rwkv6_scan,
+            mamba_scan)
 
 
 def reset_launches() -> None:
@@ -152,6 +192,15 @@ def read_launches() -> dict:
     out = {}
     for mod in kernel_modules():
         out.update(mod.LAUNCHES)
+    return out
+
+
+def mixer_layers(cfg) -> dict:
+    """How many layers of each mixer kind the config's stack holds."""
+    out: dict = {}
+    for pattern, repeat in cfg.stages():
+        for spec in pattern:
+            out[spec.mixer] = out.get(spec.mixer, 0) + repeat
     return out
 
 
@@ -399,6 +448,84 @@ def check_rwkv() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3c: the mamba scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def mamba_inputs(gen, B, T, I, N, dtype, layout="proj", decay="model"):
+    """xdt, dt ``[B,T,I]``, bc, cc ``[B,T,N]`` and a ``[I,N]`` on the card.
+    "proj": bc and cc are column slices of one ``[B,T,R+2N]`` tensor
+    (R = I/32, jamba's dt_rank), as the model's ``x_proj`` output hands
+    them over.  "model" decay: the init's ``A = -(1..N)`` (each entry
+    jittered by a factor exp(0.1·N(0,1))) and ``dt = softplus(N(0,1) +
+    log(expm1(U(0.001, 0.1))))``, as ``dt_proj`` plus ``dt_bias`` give
+    it; "strong": dt near 15 (10 to 20), every decay exp(dt·A) below
+    1e-4."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = gen.device
+
+    def t(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    if decay == "model":
+        u = torch.rand((I,), generator=gen, device=dev) * 0.099 + 0.001
+        dt = F.softplus(t((B, T, I)) + torch.log(torch.expm1(u)))
+    else:
+        dt = F.softplus(15.0 + t((B, T, I)))
+    a = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(I, N)
+    a = a.contiguous() * torch.exp(0.1 * t((I, N)))
+    R = max(1, I // 32)
+    proj = t((B, T, R + 2 * N))
+    bc, cc = proj[..., R:R + N], proj[..., R + N:]
+    if layout != "proj":
+        bc, cc = bc.contiguous(), cc.contiguous()
+    xs = [dt * t((B, T, I)), dt, bc, cc]
+    return [x.to(dtype) for x in xs] + [a]
+
+
+def check_mamba() -> dict:
+    """``mamba_scan`` against its plain version on the same CUDA inputs;
+    returns the worst absolute difference (y and the final state)."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan as ms
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    worst, cases = 0.0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, I, N, layout, decay in MAMBA_CASES:
+            xs = mamba_inputs(gen, B, T, I, N, dtype, layout, decay)
+            if dtype == torch.bfloat16 and layout == "contiguous":
+                xs[4] = xs[4].to(dtype)          # a in bf16 too
+            y, h = ms.mamba_scan_cuda(*xs)
+            y_want, h_want = ms.mamba_scan_plain(*xs)
+            torch.cuda.synchronize()
+            errs, scales = [], []
+            for got, want in ((y, y_want), (h, h_want)):
+                scale = float(want.abs().max())
+                err = float((got - want).abs().max())
+                if not (bool(torch.isfinite(got).all()) and
+                        err <= MAMBA_TOL * scale):
+                    raise PhaseError(
+                        f"mamba_scan {str(dtype)[6:]} B{B} T{T} I{I} N{N} "
+                        f"{layout} {decay}: error {err} above {MAMBA_TOL} * "
+                        f"{scale}")
+                errs.append(err)
+                scales.append(scale)
+            worst = max(worst, *errs)
+            cases.append(f"mamba_scan {str(dtype)[6:]} B{B} T{T} I{I} N{N} "
+                         f"{layout} {decay} y {errs[0]:.3g} of "
+                         f"{scales[0]:.4g}, h {errs[1]:.3g} of "
+                         f"{scales[1]:.4g}")
+    for line in cases:
+        print(f"  {line}")
+    phase("mamba_kernel", cases=len(cases), tol_of_largest=MAMBA_TOL,
+          max_abs_err=json.dumps({"mamba_scan": worst}))
+    return {"mamba_scan": worst}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: PHOLD at full width, card against CPU
 # ---------------------------------------------------------------------------
 
@@ -545,15 +672,16 @@ def run_serve() -> dict:
     done = sum(r.done for r in engine.requests.values())
     if done != args.requests or len(engine.requests) != args.requests:
         problems.append(f"{done} of {args.requests} requests done")
-    L = cfg.num_layers
+    L = mixer_layers(cfg).get("gqa", 0)
     if launches["flash_attention"] != 2 * L * stats.prefills:
         problems.append(f"flash_attention launched "
                         f"{launches['flash_attention']} times for "
-                        f"{stats.prefills} prefills of {L} layers")
+                        f"{stats.prefills} prefills of {L} gqa layers")
     if launches["decode_attention"] != L * stats.decode_events:
         problems.append(f"decode_attention launched "
                         f"{launches['decode_attention']} times for "
-                        f"{stats.decode_events} decode events of {L} layers")
+                        f"{stats.decode_events} decode events of {L} gqa "
+                        "layers")
     if stats.host_reads != stats.decode_batches:
         problems.append(f"{stats.host_reads} host reads in "
                         f"{stats.decode_batches} decode batches")
@@ -614,7 +742,7 @@ def run_serve_rwkv() -> dict:
     done = sum(r.done for r in engine.requests.values())
     if done != args.requests or len(engine.requests) != args.requests:
         problems.append(f"{done} of {args.requests} requests done")
-    L = cfg.num_layers
+    L = mixer_layers(cfg).get("rwkv", 0)
     want = {name: 0 for name in every}
     want["rwkv6_scan"] = 2 * L * stats.prefills
     if every != want:
@@ -643,6 +771,209 @@ def run_serve_rwkv() -> dict:
           launches=json.dumps(every, separators=(",", ":")))
     teacher_force_rwkv(model)
     return {"rwkv6_scan": every["rwkv6_scan"]}
+
+
+def jamba_truncation():
+    """jamba-1.5-large-398b at its published widths, cut to the first
+    ``JAMBA_LAYERS`` layers of its block: ``[(gqa, mlp), (mamba, moe)]``
+    (the 72-layer model, 398 B parameters, fits no single card)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(JAMBA)
+    return dataclasses.replace(
+        cfg, num_layers=JAMBA_LAYERS,
+        block_pattern=cfg.block_pattern[:JAMBA_LAYERS])
+
+
+def run_serve_jamba() -> dict:
+    """The jamba truncation with the serve launcher's defaults on the
+    card; returns the kernels' launches in that run."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+
+    args = serve.parse_args(["--arch", JAMBA])
+    # The engines before hold their models in reference cycles: collect
+    # them so the peak below is jamba's own.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = jamba_truncation()
+    t0 = time.perf_counter()
+    model = LM(cfg, attn_impl="pallas").init(args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+
+    # The main path: counts are zeroed just before and read just after.
+    reset_launches()
+    engine = serve.serve(model, args)
+    torch.cuda.synchronize()
+    every = read_launches()
+    stats = engine.stats
+    peak = torch.cuda.max_memory_allocated()
+
+    problems = []
+    done = sum(r.done for r in engine.requests.values())
+    if done != args.requests or len(engine.requests) != args.requests:
+        problems.append(f"{done} of {args.requests} requests done")
+    layers = mixer_layers(cfg)
+    want = {name: 0 for name in every}
+    want["mamba_scan"] = 2 * layers.get("mamba", 0) * stats.prefills
+    want["flash_attention"] = 2 * layers.get("gqa", 0) * stats.prefills
+    want["decode_attention"] = layers.get("gqa", 0) * stats.decode_events
+    if every != want:
+        problems.append(f"launches {every}, expected {want} for "
+                        f"{stats.prefills} prefills and "
+                        f"{stats.decode_events} decode events of {layers}")
+    if stats.host_reads != stats.decode_batches:
+        problems.append(f"{stats.host_reads} host reads in "
+                        f"{stats.decode_batches} decode batches")
+    if params != cfg.param_count() + _uncounted_params(cfg):
+        problems.append(f"{params} parameters, the config counts "
+                        f"{cfg.param_count()}")
+    if problems:
+        raise PhaseError("serve_jamba: " + "; ".join(problems))
+    tokens = sum(len(r.output) for r in engine.requests.values())
+    phase("serve_jamba", arch=cfg.name, layers=cfg.num_layers,
+          pattern=json.dumps([[s.mixer, s.ffn] for s in cfg.block_pattern],
+                             separators=(",", ":")),
+          d_model=cfg.d_model, heads=cfg.num_heads,
+          kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+          experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+          d_inner=cfg.mamba.d_inner(cfg.d_model), d_state=cfg.mamba.d_state,
+          params=params, param_bytes=param_bytes, init_s=f"{init_s:.3f}",
+          max_memory_allocated=peak, requests=done, tokens=tokens,
+          decode_events=stats.decode_events,
+          fused_batches=stats.fused_batches, singles=stats.singles,
+          prefills=stats.prefills, wall_s=f"{stats.wall_seconds:.3f}",
+          prefill_ms_per_request=f"{stats.prefill_seconds / stats.prefills * 1e3:.3f}",
+          decode_ms_per_token_step=f"{stats.decode_seconds / stats.decode_events * 1e3:.3f}",
+          generated_tokens_per_s=f"{tokens / stats.wall_seconds:.2f}",
+          host_reads_per_decode_batch=f"{stats.host_reads / stats.decode_batches:.3f}",
+          weight_read_bound_ms=f"{param_bytes / HBM_BYTES_PER_S * 1e3:.3f}",
+          launches=json.dumps(every, separators=(",", ":")))
+    teacher_force_jamba(model)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: every[name] for name in
+            ("mamba_scan", "flash_attention", "decode_attention")}
+
+
+def _uncounted_params(cfg) -> int:
+    """Parameters the port holds that ``ArchConfig.param_count`` leaves
+    out: the norm scales (two a layer and the final one), the mamba
+    ``conv_b`` and ``dt_bias``."""
+    n = (2 * cfg.num_layers + 1) * cfg.d_model
+    mamba = mixer_layers(cfg).get("mamba", 0)
+    return n + 2 * mamba * cfg.mamba.d_inner(cfg.d_model)
+
+
+def teacher_force_jamba(model) -> None:
+    """The teacher-forced check of the jamba truncation's kernel route
+    against ``blockwise``, in bf16.  The MoE router after the mamba layer
+    is discontinuous: a token whose k-th and (k+1)-th router logits are
+    nearly tied may go to another expert on the two routes, which is no
+    fault of the kernel.  So the routing choices of both runs are
+    compared: each difference must be a near tie (under
+    ``ROUTE_NEAR_TIE`` of the token's router-logit spread); the logit rows
+    whose routing agrees (a row agrees when every MoE call up to it
+    routed every token alike) must reach ``MIN_COSINE``; and the mamba
+    layer's output on the prefill's own layer input, kernel against the
+    chunked plain scan, ``MIN_MAMBA_COSINE``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import model as lm_module
+    from repro_torch.models import moe as moe_module
+    from repro_torch.models import ssm as ssm_module
+
+    routers: dict = {}
+    mamba_in: list = []
+
+    def recording(fn):
+        def wrapped(params, x, *, num_experts, top_k, **kw):
+            logits = moe_module.proj(x.reshape(-1, x.shape[-1]).float(),
+                                     params["router"])
+            routers.setdefault(model.attn_impl, []).append(logits)
+            return fn(params, x, num_experts=num_experts, top_k=top_k, **kw)
+        return wrapped
+
+    def mamba_recording(params, x, **kw):
+        if not mamba_in:
+            mamba_in.append((params, x.clone(), kw))
+        return ssm_module.mamba_apply(params, x, **kw)
+
+    saved = (lm_module.moe_apply, lm_module.moe_apply_dense,
+             lm_module.mamba_apply)
+    lm_module.moe_apply = recording(moe_module.moe_apply)
+    lm_module.moe_apply_dense = recording(moe_module.moe_apply_dense)
+    lm_module.mamba_apply = mamba_recording
+    try:
+        runs = _teacher_rows(model, "blockwise")
+    finally:
+        (lm_module.moe_apply, lm_module.moe_apply_dense,
+         lm_module.mamba_apply) = saved
+    k = model.cfg.moe.top_k
+    diffs, agree_rows, calls_agree = [], [], True
+    a_calls, b_calls = routers["pallas"], routers["blockwise"]
+    if len(a_calls) != len(b_calls):
+        raise PhaseError("teacher_force_jamba: the routes made "
+                         f"{len(a_calls)} and {len(b_calls)} MoE calls")
+    # Calls per row: the prefill (its MoE layers) and each decode step.
+    per_row = len(a_calls) // (TEACHER_STEPS + 1)
+    for i, (la, lb) in enumerate(zip(a_calls, b_calls)):
+        ia = torch.sort(torch.topk(la, k, dim=-1).indices, dim=-1).values
+        ib = torch.sort(torch.topk(lb, k, dim=-1).indices, dim=-1).values
+        for tok in torch.nonzero((ia != ib).any(dim=-1)).flatten().tolist():
+            margins = []
+            for lg in (la[tok], lb[tok]):
+                top = torch.sort(lg.double(), descending=True).values
+                margins.append(float((top[k - 1] - top[k])
+                                     / (top[0] - top[-1])))
+            diffs.append({"call": i, "token": tok,
+                          "margin_of_spread": max(margins)})
+            calls_agree = False
+        if (i + 1) % per_row == 0:
+            agree_rows.append(calls_agree)
+    cos, diff, finite = _compare(runs, "blockwise")
+    agreeing = [float(c) for c, ok in zip(cos, agree_rows) if ok]
+    params, x, kw = mamba_in[0]
+    kw = dict(kw, impl="pallas")
+    y_k = ssm_module.mamba_apply(params, x, **kw)[0]
+    y_p = ssm_module.mamba_apply(params, x, **dict(kw, impl="blockwise"))[0]
+    mamba_cos = float(F.cosine_similarity(y_k.float().flatten(),
+                                          y_p.float().flatten(), dim=0))
+    for d in diffs:
+        print(f"  routing differs: MoE call {d['call']} token {d['token']}, "
+              f"k-th/(k+1)-th gap {d['margin_of_spread']:.3g} of the "
+              "token's router-logit spread")
+    problems = []
+    if not finite:
+        problems.append("logits not finite")
+    if any(d["margin_of_spread"] >= ROUTE_NEAR_TIE for d in diffs):
+        problems.append(f"a routing difference is no near tie: {diffs}")
+    if not agreeing or min(agreeing) < MIN_COSINE:
+        problems.append(f"cosine {agreeing} on the rows whose routing "
+                        f"agrees (min {MIN_COSINE})")
+    if not mamba_cos >= MIN_MAMBA_COSINE:
+        problems.append(f"mamba layer cosine {mamba_cos} (min "
+                        f"{MIN_MAMBA_COSINE})")
+    if problems:
+        raise PhaseError("teacher_force_jamba: " + "; ".join(problems))
+    phase("teacher_force_jamba", arch=model.cfg.name, against="blockwise",
+          dtype=str(model.embed.dtype)[6:], steps=TEACHER_STEPS + 1,
+          moe_calls=len(a_calls), routing_differences=len(diffs),
+          rows_routing_agrees=len(agreeing),
+          min_cosine_agreeing=f"{min(agreeing):.6f}",
+          min_cosine_all=f"{float(cos.min()):.6f}",
+          max_abs_diff=f"{diff:.4f}", mamba_layer_cosine=f"{mamba_cos:.7f}")
 
 
 def teacher_force_rwkv(model) -> None:
@@ -922,17 +1253,54 @@ def time_rwkv(launches, errs) -> list:
     return out
 
 
+def time_mamba(launches, errs) -> list:
+    """``mamba_scan`` and its plain version at the serving prefill's shape
+    (B 1, T 16: the longest prompt, I 16384, N 16, f32, B_t/C_t as slices
+    of the ``x_proj`` output) and at T 2048; no PyTorch call computes the
+    scan.  The bound counts each operand's own elements once (the slices'
+    N columns, not the whole projection rows)."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan as ms
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = []
+    for T, reps, plain_reps in ((16, 300, 20), (2048, 20, 3)):
+        B, I, N = 1, 16384, 16
+        xs = mamba_inputs(gen, B, T, I, N, torch.float32)
+        y, h = ms.mamba_scan_cuda(*xs)
+        ms_ = _time_ms(lambda: ms.mamba_scan_cuda(*xs), reps)
+        plain_ms = _time_ms(lambda: ms.mamba_scan_plain(*xs), plain_reps,
+                            warmup=1)
+        nbytes = sum(x.numel() * x.element_size() for x in xs) + \
+            _nbytes([y, h])
+        exps = B * T * I * N
+        ops = 7 * exps          # dt*A, exp, decay*h + x*B, C*h summed
+        rec = _record("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
+                      "src/repro/kernels/mamba_scan.py:87",
+                      launches["mamba_scan"], errs["mamba_scan"], ms_,
+                      plain_ms, nbytes, ops, F32_OPS_PER_S, None)
+        rec["shape"] = f"B{B} T{T} I{I} N{N} f32"
+        phase("timing", kernel="mamba_scan", B=B, T=T, I=I, N=N,
+              bytes=nbytes, ops=ops, exps=exps, ms=f"{ms_:.6f}",
+              plain_ms=f"{plain_ms:.6f}", bound_ms=f"{rec['bound_ms']:.9f}",
+              bound_by=rec["bound_by"],
+              exp_sfu_ms=f"{exps / SFU_OPS_PER_S * 1e3:.9f}")
+        out.append(rec)
+    return out
+
+
 def build_all() -> float:
     """Compile every CUDA source at once (one nvcc each); returns the
     wall seconds and prints each source's ptxas report."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
-        for fut in [pool.submit(_build.build, n) for n in CUDA_SOURCES]:
+    with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        for fut in [pool.submit(_build.build, n) for n in _build.SOURCES]:
             fut.result()
     seconds = time.perf_counter() - t0
-    for name in CUDA_SOURCES:
+    for name in _build.SOURCES:
         for line in _build.BUILD_LOG.get(name, "").splitlines():
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line or "smem" in line):
@@ -952,9 +1320,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
+    from repro_torch.kernels import _build
+
     card = card_line()
     build_s = build_all()
-    phase("build", seconds=f"{build_s:.2f}", sources=",".join(CUDA_SOURCES),
+    phase("build", seconds=f"{build_s:.2f}", sources=",".join(_build.SOURCES),
           card=json.dumps(card), torch=torch.__version__,
           cuda=torch.version.cuda)
 
@@ -964,15 +1334,18 @@ def main() -> int:
     errs = check_kernels(torch.device("cuda"))
     attn_errs = check_attention()
     rwkv_errs = check_rwkv()
+    mamba_errs = check_mamba()
     res, launches = run_phold("cuda")
     run_poc("cuda")
     attn_launches = run_serve()
     rwkv_launches = run_serve_rwkv()
+    jamba_launches = run_serve_jamba()
     lookaheads = torch.tensor([1.0], device="cuda")
     kernels = time_kernels(res.raw["final_queue"], lookaheads, launches,
                            errs)
     kernels += time_attention(attn_launches, attn_errs)
     kernels += time_rwkv(rwkv_launches, rwkv_errs)
+    kernels += time_mamba(jamba_launches, mamba_errs)
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

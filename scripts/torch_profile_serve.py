@@ -2,9 +2,14 @@
 """Where a decode step of the PyTorch port's LM spends its time.
 
     python3 scripts/torch_profile_serve.py [--arch stablelm-12b] [--steps 16]
+    python3 scripts/torch_profile_serve.py --arch jamba-1.5-large-398b \
+        --layers 2
 
 Builds the serving model of ``repro_torch.launch.serve`` at full width on
-the CUDA card (random weights from ``--seed``), prefills ``--slots``
+the CUDA card (random weights from ``--seed``), or with ``--layers N``
+the config cut to the first N layers of its block pattern (jamba's
+first two are ``[(gqa, mlp), (mamba, moe)]``: the 72-layer model fits no
+single card), prefills ``--slots``
 seeded prompts of ``--prompt`` tokens into a ``max_len`` 256 cache, then:
 
 1. times ``--steps`` decode steps of all slots without the profiler
@@ -24,6 +29,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import sys
@@ -43,16 +49,28 @@ def main() -> int:
     ap.add_argument("--prompt", type=int, default=16)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to the first N layers of its "
+                         "block pattern")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.models import LM
     from repro_torch.serving.engine import _splice_slot
 
-    model = serve.build_model(serve.parse_args(
-        ["--arch", args.arch, "--seed", str(args.seed)]))
+    if args.layers is None:
+        model = serve.build_model(serve.parse_args(
+            ["--arch", args.arch, "--seed", str(args.seed)]))
+    else:
+        cfg = get_config(args.arch)
+        cfg = dataclasses.replace(cfg, num_layers=args.layers,
+                                  block_pattern=cfg.block_pattern[
+                                      :args.layers])
+        model = LM(cfg, attn_impl="pallas").init(args.seed)
     param_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
     rng = np.random.default_rng(args.seed)
@@ -106,7 +124,8 @@ def main() -> int:
     n = args.steps
     summary = {
         "device": torch.cuda.get_device_name(0),
-        "arch": model.cfg.name, "slots": args.slots, "steps": n,
+        "arch": model.cfg.name, "layers": model.cfg.num_layers,
+        "slots": args.slots, "steps": n,
         "untraced_ms_per_step": untraced_s * 1e3 / n,
         "traced_ms_per_step": traced_s * 1e3 / n,
         "weight_read_bound_ms": param_bytes / HBM_BYTES_PER_S * 1e3,

@@ -19,6 +19,9 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
+# Every source of csrc/, by name; chip_smoke.py builds them all at once.
+SOURCES = ("queue_front", "attention", "rwkv6_scan", "mamba_scan")
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -5,14 +5,16 @@ D]``; the attention kernels' contract is ``[B, H, T, D]``.  JAX
 transposes into the kernel layout first; here the transposes are views
 that the CUDA kernels read through their strides, so nothing is copied.
 ``rwkv6_scan`` takes the kernel layout ``[B, H, T, K]`` as JAX's does;
-the model hands it strided views.  ``mamba_scan`` comes with its kernel,
-which is not ported yet.
+the model hands it strided views.  ``mamba_scan`` takes ``[B, T, I]`` and
+``[B, T, N]`` as JAX's does; the model hands it ``B_t``/``C_t`` as column
+slices of its ``x_proj`` output.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import rwkv6_scan as _rwkv
 
 
@@ -42,3 +44,19 @@ def rwkv6_scan(r, k, v, logw, u, *, chunk: int = 64,
     del chunk
     y, s_final = _rwkv.rwkv6_scan(r, k, v, logw, u)
     return (y, s_final) if return_state else y
+
+
+def mamba_scan(xdt, dt, bc, cc, a, *, chunk: int = 32, block_i: int = 256,
+               return_state: bool = False):
+    """Selective scan: xdt/dt [B,T,I]; bc/cc [B,T,N] (strided views
+    welcome); a [I,N] -> y [B,T,I] f32, and with ``return_state`` also
+    h_T [B,I,N] f32.
+
+    ``chunk`` and ``block_i`` are the Pallas kernel's sequence and channel
+    tiles; they are kept so that both packages take the same call.  The
+    CUDA kernel walks the tokens itself, one thread a channel, and needs
+    neither and no padding.
+    """
+    del chunk, block_i
+    y, h_final = _mamba.mamba_scan(xdt, dt, bc, cc, a)
+    return (y, h_final) if return_state else y

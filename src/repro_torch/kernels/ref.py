@@ -5,7 +5,6 @@ They are the plain versions the kernel wrappers take on the CPU and
 the yardstick the CUDA kernels are held to on the card.  Deliberately
 naive — full score matrices, no blocking, the scan one token at a time,
 f32 throughout — so their correctness is auditable at a glance.
-``mamba_scan_ref`` comes with the mamba kernel, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -72,3 +71,26 @@ def rwkv6_scan_ref(r, k, v, logw, u, *, return_state: bool = False):
         S = w[:, :, t, :, None] * S + kv
     y = torch.stack(ys, dim=2) if ys else r.new_zeros((B, H, 0, K))
     return (y, S) if return_state else y
+
+
+def mamba_scan_ref(xdt, dt, bc, cc, a, *, return_state: bool = False):
+    """Sequential selective-scan oracle.
+
+    xdt/dt: [B,T,I]; bc/cc: [B,T,N]; a: [I,N] (negative) -> y [B,T,I]
+    in fp32, and with ``return_state`` also the final state h_T [B,I,N]
+    fp32 (the JAX oracle returns y alone):
+
+        h_t = exp(dt_t·A) h_{t-1} + xdt_t·B_t;   y_t = C_t · h_t,   h_0 = 0
+    """
+    B, T, I = xdt.shape
+    N = bc.shape[-1]
+    xdt, dt, bc, cc = xdt.float(), dt.float(), bc.float(), cc.float()
+    a = a.float()
+    h = torch.zeros((B, I, N), dtype=torch.float32, device=xdt.device)
+    ys = []
+    for t in range(T):
+        decay = torch.exp(dt[:, t, :, None] * a)            # [B,I,N]
+        h = decay * h + xdt[:, t, :, None] * bc[:, t, None, :]
+        ys.append(torch.sum(h * cc[:, t, None, :], dim=-1))
+    y = torch.stack(ys, dim=1) if ys else xdt.new_zeros((B, 0, I))
+    return (y, h) if return_state else y

@@ -3,19 +3,23 @@ port of :mod:`repro.launch.serve`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
-        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-1.5-large-398b --reduced --device cpu
 
 The same arguments, request generator and printout as the JAX launcher,
 plus ``--device``: the default is the CUDA card, and the launcher raises
 without one.  The model is ``LM(cfg, attn_impl="pallas")`` — the
 hand-written kernels, the JAX docstrings' choice for the real
-accelerator: the attention kernels for ``(gqa, mlp)`` stacks, the
-``rwkv6_scan`` kernel in the prefill of ``(rwkv, rwkv_cm)`` stacks —
-with random weights from ``--seed``.  Full width (stablelm-12b: 12.1 B
-parameters, 24.3 GB of bf16 weights; rwkv6-1.6b: 1.58 B, 3.17 GB) runs
-only on the card; ``--reduced`` is the small same-family config the CPU
-tests use.
+accelerator: ``flash_attention`` and ``decode_attention`` for the
+``gqa`` layers, the ``rwkv6_scan`` and ``mamba_scan`` kernels in the
+prefill of ``rwkv`` and ``mamba`` layers; MoE FFNs run batched expert
+products (with capacity at prefill, dropless at decode) — with random
+weights from ``--seed``.  Full width runs only on the card (stablelm-12b:
+12.1 B parameters, 24.3 GB of bf16 weights; rwkv6-1.6b: 1.58 B,
+3.17 GB); the full 72-layer jamba-1.5-large-398b (398 B parameters)
+fits no single card, and ``chip_smoke.py`` serves its first two layers
+at full width through :func:`serve`.  ``--reduced`` is the small
+same-family config the CPU tests use.
 """
 
 from __future__ import annotations

@@ -5,13 +5,15 @@ cache keeps its layout and the serving engine's slot splice ports
 directly:
 
 * GQA:   k/v  [L, B, S, KV, D]
+* Mamba: h [L, B, I, N] f32 (the SSM state) and conv [L, B, K-1, I]
+  (the conv's last inputs, in the activation dtype).
 * RWKV6: x_att [L, B, 1, D] (the time-mix's last input token) and
   S [L, B, H, K, K] f32 (the WKV state); the channel-mix's x_ffn
   [L, B, 1, D] is added by ``LM.init_cache``.
 
 ``lengths: i32[B]`` (kept beside the stages by ``LM.init_cache``) counts
-valid tokens per sequence, shared across layers.  The MLA and Mamba
-caches come with those mixers.
+valid tokens per sequence, shared across layers.  The MLA cache comes
+with that mixer.
 """
 
 from __future__ import annotations
@@ -25,6 +27,16 @@ def gqa_cache_init(num_layers, batch, max_len, num_kv_heads, head_dim,
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def mamba_cache_init(num_layers, batch, d_inner, d_state, d_conv,
+                     conv_dtype=torch.bfloat16, device=None):
+    return {
+        "h": torch.zeros((num_layers, batch, d_inner, d_state),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((num_layers, batch, d_conv - 1, d_inner),
+                            dtype=conv_dtype, device=device),
     }
 
 

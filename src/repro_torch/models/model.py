@@ -1,29 +1,38 @@
 """LM: config-driven decoder (PyTorch port of :mod:`repro.models.model`).
 
-An ``nn.Module`` for stacks of ``(gqa, mlp)`` layers — the dense GQA
-architectures (stablelm-12b, llama3-405b, phi4-mini, minicpm-2b) — and
-of ``(rwkv, rwkv_cm)`` layers (rwkv6-1.6b).  Mamba, MoE and MLA layers,
+An ``nn.Module`` for stacks of ``gqa``, ``mamba`` and ``rwkv`` mixers
+with ``mlp``, ``moe`` and ``rwkv_cm`` FFNs: the dense GQA architectures
+(stablelm-12b, llama3-405b, phi4-mini, minicpm-2b), granite-moe
+(``(gqa, moe)``), rwkv6-1.6b (``(rwkv, rwkv_cm)``) and the jamba hybrid
+(``(gqa, mlp)``, ``(mamba, moe)``, ``(mamba, mlp)``, ...).  MLA layers,
 M-RoPE, ``remat`` and ``seq_parallel`` raise
 :class:`NotImplementedError`.  Entry points, as in the JAX package:
 
-* ``forward``      — full-sequence logits;
+* ``forward``      — full-sequence logits and the summed MoE aux loss;
 * ``prefill``      — full sequence + the decode cache;
 * ``decode_step``  — one token against the cache.
 
 The JAX ``lax.scan`` over stacked layer params becomes a Python loop
 over ``self.layers``.  The decode cache keeps the JAX layout: a dict of
 stacked ``[L, B, ...]`` leaves per stage plus ``lengths`` — K/V
-``[L, B, S, KV, D]`` for GQA; ``x_att``/``x_ffn`` ``[L, B, 1, D]`` and
-the WKV state ``S`` ``[L, B, H, K, K]`` f32 for RWKV.  ``decode_step``
-writes each layer's new entries into it in place.  ``attn_impl``
-selects the kernels: under ``"pallas"`` the rwkv time-mix of
-``forward`` and ``prefill`` runs the ``rwkv6_scan`` kernel, which the
-JAX LM never reaches (its ``ssm.py`` runs ``lax.scan``).
+``[L, B, S, KV, D]`` for GQA; the SSM state ``h`` ``[L, B, I, N]`` f32
+and the conv tail ``conv`` ``[L, B, d_conv - 1, I]`` for Mamba;
+``x_att``/``x_ffn`` ``[L, B, 1, D]`` and the WKV state ``S``
+``[L, B, H, K, K]`` f32 for RWKV.  ``decode_step`` writes each layer's
+new entries into it in place.  ``attn_impl`` selects the kernels: under
+``"pallas"`` attention runs ``flash_attention`` (full sequence) and
+``decode_attention`` (decode), and the mamba and rwkv time-mixes of
+``forward`` and ``prefill`` run the ``mamba_scan`` and ``rwkv6_scan``
+kernels, which the JAX LM never reaches (its ``ssm.py`` runs
+``lax.associative_scan`` and ``lax.scan``).  MoE FFNs dispatch with
+capacity in ``forward``/``prefill`` and run dropless in ``decode_step``,
+as JAX's do.
 
 Parameters are created on the model's device without values; ``init``
 fills them from a seeded ``torch.Generator`` layer by layer, so peak
-memory stays at the weights plus one f32 temporary.  The weights differ
-from the JAX package's for the same seed (another generator);
+memory stays at the weights plus one f32 temporary (one expert's
+matrix for MoE stacks).  The weights differ from the JAX package's for
+the same seed (another generator);
 :func:`params_from_jax` carries the JAX weights across instead.
 """
 
@@ -52,7 +61,17 @@ from repro_torch.models.layers import (
     mlp_weight_shapes,
     unembed_apply,
 )
+from repro_torch.models.moe import (
+    moe_apply,
+    moe_apply_dense,
+    moe_init,
+    moe_weight_shapes,
+)
 from repro_torch.models.ssm import (
+    mamba_apply,
+    mamba_decode_step,
+    mamba_init,
+    mamba_weight_shapes,
     rwkv6_attn,
     rwkv6_attn_decode,
     rwkv6_channel_mix,
@@ -63,8 +82,8 @@ from repro_torch.models.ssm import (
 )
 
 ATTN_IMPLS = ("blockwise", "reference", "pallas")
-MIXERS = ("gqa", "rwkv")
-FFNS = ("mlp", "rwkv_cm")
+MIXERS = ("gqa", "mamba", "rwkv")
+FFNS = ("mlp", "moe", "rwkv_cm")
 
 
 def _params(shapes: dict, dtype, device) -> nn.ParameterDict:
@@ -99,6 +118,17 @@ class ParamTree(nn.Module):
     def __getitem__(self, name: str):
         return getattr(self, name)
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def _moe_kw(cfg: ArchConfig) -> dict:
+    """The MoE spec's keywords of ``moe_weight_shapes``/``moe_init``."""
+    mo = cfg.moe
+    return dict(d_model=cfg.d_model, d_ff_expert=mo.d_ff_expert,
+                num_experts=mo.num_experts, num_shared=mo.num_shared,
+                activation=cfg.activation)
+
 
 class Block(nn.Module):
     """One layer: its two norms, the mixer and the FFN its
@@ -115,12 +145,19 @@ class Block(nn.Module):
                 d_model=cfg.d_model, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads,
                 head_dim=cfg.resolved_head_dim), DEFAULT_DTYPE, device)
+        elif spec.mixer == "mamba":
+            mm = cfg.mamba
+            self.mixer = ParamTree(mamba_weight_shapes(
+                d_model=cfg.d_model, d_state=mm.d_state, d_conv=mm.d_conv,
+                expand=mm.expand), device)
         else:
             self.mixer = ParamTree(rwkv6_weight_shapes(cfg.d_model), device)
         if spec.ffn == "mlp":
             self.ffn = _params(mlp_weight_shapes(cfg.d_model, cfg.d_ff,
                                                  cfg.activation),
                                DEFAULT_DTYPE, device)
+        elif spec.ffn == "moe":
+            self.ffn = ParamTree(moe_weight_shapes(**_moe_kw(cfg)), device)
         else:
             self.ffn = ParamTree(rwkv6_channel_mix_weight_shapes(
                 cfg.d_model, cfg.d_ff), device)
@@ -190,12 +227,19 @@ class LM(nn.Module):
                 gqa_init(gen, d_model=cfg.d_model, num_heads=cfg.num_heads,
                          num_kv_heads=cfg.num_kv_heads,
                          head_dim=cfg.resolved_head_dim, out=lp.mixer)
+            elif lp.spec.mixer == "mamba":
+                mm = cfg.mamba
+                mamba_init(gen, lp.mixer, d_model=cfg.d_model,
+                           d_state=mm.d_state, d_conv=mm.d_conv,
+                           expand=mm.expand)
             else:
                 rwkv6_init(gen, lp.mixer, d_model=cfg.d_model)
             if lp.spec.ffn == "mlp":
                 for name, (fan_in, fan_out) in mlp_weight_shapes(
                         cfg.d_model, cfg.d_ff, cfg.activation).items():
                     dense_init(gen, fan_in, fan_out, out=lp.ffn[name])
+            elif lp.spec.ffn == "moe":
+                moe_init(gen, lp.ffn, **_moe_kw(cfg))
             else:
                 rwkv6_channel_mix_init(gen, lp.ffn, d_model=cfg.d_model,
                                        d_ff=cfg.d_ff)
@@ -218,10 +262,12 @@ class LM(nn.Module):
                             device=tokens.device)[None, :].expand(B, T)
 
     def _run_layers(self, x, positions, *, collect_cache=False):
-        """-> (x, per-layer cache entries: {"k", "v"} for GQA, {"x_att",
+        """-> (x, the summed MoE aux loss (f32 scalar), per-layer cache
+        entries: {"k", "v"} for GQA, {"h", "conv"} for Mamba, {"x_att",
         "S"} and {"x_ffn"} for RWKV; empty unless ``collect_cache``)."""
         cfg = self.cfg
         caches = []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in self.layers:
             c = {}
             h = self.norm_apply(lp.mixer_norm, x, eps=cfg.norm_eps)
@@ -233,6 +279,11 @@ class LM(nn.Module):
                     causal=cfg.causal, rope_theta=cfg.rope_theta,
                     impl=self.attn_impl, q_block=cfg.attn_q_block,
                     kv_block=cfg.attn_kv_block)
+            elif lp.spec.mixer == "mamba":
+                mm = cfg.mamba
+                y, (c["h"], c["conv"]) = mamba_apply(
+                    lp.mixer, h, d_state=mm.d_state, d_conv=mm.d_conv,
+                    chunk=mm.chunk, return_state=True, impl=self.attn_impl)
             else:
                 y, (c["x_att"], c["S"]) = rwkv6_attn(
                     lp.mixer, h, head_dim=cfg.rwkv_head_dim,
@@ -242,13 +293,20 @@ class LM(nn.Module):
             h = self.norm_apply(lp.ffn_norm, x, eps=cfg.norm_eps)
             if lp.spec.ffn == "mlp":
                 y = mlp_apply(lp.ffn, h, activation=cfg.activation)
+            elif lp.spec.ffn == "moe":
+                mo = cfg.moe
+                y, aux_l = moe_apply(
+                    lp.ffn, h, num_experts=mo.num_experts, top_k=mo.top_k,
+                    capacity_factor=mo.capacity_factor,
+                    activation=cfg.activation)
+                aux = aux + aux_l
             else:
                 y, c["x_ffn"] = rwkv6_channel_mix(lp.ffn, h,
                                                   return_state=True)
             x = x + y
             if collect_cache:
                 caches.append(c)
-        return x, caches
+        return x, aux, caches
 
     def _mask_pad(self, logits):
         """-1e30 on the vocab-padding tail (padded_vocab > vocab_size)."""
@@ -260,23 +318,25 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def forward(self, tokens, *, remat: bool = False):
-        """tokens: i32[B,T] -> (logits [B,T,V] f32, moe_aux 0.0)."""
+        """tokens: i32[B,T] -> (logits [B,T,V] f32, moe_aux f32: the
+        Switch aux losses of the MoE layers, summed; 0 without any)."""
         if remat:
             raise NotImplementedError("remat is not ported to repro_torch")
         cfg = self.cfg
         x = embed_apply(self.embed, tokens)
-        x, _ = self._run_layers(x, self._positions(tokens))
+        x, aux, _ = self._run_layers(x, self._positions(tokens))
         x = self.norm_apply(self.final_norm, x, eps=cfg.norm_eps)
         logits = self._mask_pad(unembed_apply(self._head(), x))
-        return logits, torch.zeros((), device=x.device)
+        return logits, aux
 
     # ------------------------------------------------------------------
     # Decode cache
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """Zeroed caches; K/V and the RWKV token-shift inputs in the
-        activation dtype (the embedding's: bf16, as JAX's
-        ``DEFAULT_DTYPE``, unless the model was cast), ``S`` in f32."""
+        """Zeroed caches; K/V, the mamba conv tail and the RWKV
+        token-shift inputs in the activation dtype (the embedding's: bf16,
+        as JAX's ``DEFAULT_DTYPE``, unless the model was cast), the
+        recurrent states ``h`` and ``S`` in f32."""
         cfg = self.cfg
         dev = self.device
         act = self.embed.dtype
@@ -289,6 +349,11 @@ class LM(nn.Module):
                     c.update(kvcache.gqa_cache_init(
                         repeat, batch, max_len, cfg.num_kv_heads,
                         cfg.resolved_head_dim, dtype=act, device=dev))
+                elif spec.mixer == "mamba":
+                    mm = cfg.mamba
+                    c.update(kvcache.mamba_cache_init(
+                        repeat, batch, mm.d_inner(cfg.d_model), mm.d_state,
+                        mm.d_conv, conv_dtype=act, device=dev))
                 else:
                     c.update(kvcache.rwkv_cache_init(
                         repeat, batch, cfg.d_model, cfg.rwkv_head_dim,
@@ -323,9 +388,10 @@ class LM(nn.Module):
         ``cache['lengths']`` counts tokens BEFORE this step; the new
         token is written at position lengths (0-based) and lengths
         increments.  The cache tensors are updated in place (K/V rows,
-        the RWKV token-shift inputs and WKV states of every slot, idle
-        ones too, as JAX's step computes them); the returned cache
-        shares them and carries the new ``lengths``.
+        the mamba states and conv tails, the RWKV token-shift inputs and
+        WKV states of every slot, idle ones too, as JAX's step computes
+        them); the returned cache shares them and carries the new
+        ``lengths``.  MoE layers run dropless (``moe_apply_dense``).
         """
         cfg = self.cfg
         lengths = cache["lengths"] + 1            # incl. the new token
@@ -339,6 +405,13 @@ class LM(nn.Module):
                     num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                     head_dim=cfg.resolved_head_dim, positions=pos,
                     rope_theta=cfg.rope_theta, impl=self.attn_impl)
+            elif lp.spec.mixer == "mamba":
+                mm = cfg.mamba
+                y, st = mamba_decode_step(
+                    lp.mixer, h, {"h": lc["h"], "conv": lc["conv"]},
+                    d_state=mm.d_state, d_conv=mm.d_conv)
+                lc["h"].copy_(st["h"])
+                lc["conv"].copy_(st["conv"])
             else:
                 y, (x_att, S) = rwkv6_attn_decode(
                     lp.mixer, h, lc["x_att"], lc["S"],
@@ -349,6 +422,11 @@ class LM(nn.Module):
             h = self.norm_apply(lp.ffn_norm, x, eps=cfg.norm_eps)
             if lp.spec.ffn == "mlp":
                 y = mlp_apply(lp.ffn, h, activation=cfg.activation)
+            elif lp.spec.ffn == "moe":
+                mo = cfg.moe
+                y = moe_apply_dense(lp.ffn, h, num_experts=mo.num_experts,
+                                    top_k=mo.top_k,
+                                    activation=cfg.activation)
             else:
                 y, x_ffn = rwkv6_channel_mix(lp.ffn, h, lc["x_ffn"],
                                              return_state=True)
@@ -371,8 +449,8 @@ class LM(nn.Module):
         B, T = tokens.shape
         max_len = max_len or T
         x = embed_apply(self.embed, tokens)
-        x, caches = self._run_layers(x, self._positions(tokens),
-                                     collect_cache=True)
+        x, _aux, caches = self._run_layers(x, self._positions(tokens),
+                                           collect_cache=True)
         x = self.norm_apply(self.final_norm, x, eps=cfg.norm_eps)
         logits = self._mask_pad(unembed_apply(self._head(), x[:, -1]))
         full = self.init_cache(B, max_len)
@@ -436,8 +514,10 @@ def params_from_jax(cfg: ArchConfig, tree) -> dict:
     np.asarray, params)``), -> a state dict for :class:`LM`
     (``model.load_state_dict(state)``).  Each stage's leading
     ``[repeat]`` axis is unstacked into the port's layers; nested
-    groups (the rwkv mixer's ``mix`` and ``ln_x``) become dotted keys;
-    every dtype is kept (bf16 weights, f32 norm scales)."""
+    groups (the rwkv mixer's ``mix`` and ``ln_x``, the MoE ``experts``
+    stacks ``[repeat, E, ...]``) become dotted keys; empty groups (the
+    mamba mixer's ``meta``) carry nothing; every dtype is kept (bf16
+    weights, f32 norm scales, routers and SSM parameters)."""
     state = {"embed": _to_tensor(tree["embed"])}
     if not cfg.tie_embeddings:
         state["head"] = _to_tensor(tree["head"])

@@ -1,26 +1,36 @@
-"""RWKV6 ("Finch") blocks (PyTorch port of the RWKV6 half of
-:mod:`repro.models.ssm`; Mamba is not ported yet).
+"""State-space blocks: Mamba (Jamba) and RWKV6 ("Finch") (PyTorch port
+of :mod:`repro.models.ssm`).
 
-Parameters are nested dict-likes in the JAX package's layout
-(``mix/{r,k,v,w,g}``, ``ln_x/{scale,bias}``); weights are bf16, the mix
-coefficients, decay, bonus and ``ln_x`` f32.  The time-mix runs the
-whole sequence one of two ways, chosen by ``impl`` as the attention
-mixers are:
+Parameters are nested dict-likes in the JAX package's layout.  Mamba:
+``in_proj``, ``conv_w``/``conv_b``, ``x_proj``, ``dt_proj``,
+``out_proj`` in bf16, ``dt_bias``, ``A_log`` and ``D`` in f32 (JAX's
+empty ``meta`` dict is not carried).  RWKV6: ``mix/{r,k,v,w,g}``,
+``ln_x/{scale,bias}``; weights bf16, the mix coefficients, decay, bonus
+and ``ln_x`` f32.  Each sequence mixer runs the whole sequence one of
+two ways, chosen by ``impl`` as the attention mixers are:
 
 * ``"blockwise"`` / ``"reference"`` — the chunked plain form of the JAX
-  package (``ssm.py:292-322``): exact pair decays inside a chunk, the
-  ``[K, V]`` state carried across chunks by a Python loop.
-* ``"pallas"`` — the hand-written Hopper kernel
-  (:func:`repro_torch.kernels.ops.rwkv6_scan`), which walks the tokens
-  itself and returns the final state; on CPU tensors its plain version
-  runs.  The JAX model never reaches its Pallas scan (``ssm.py:322``
-  runs ``lax.scan``); the port's prefill does.
+  package.  RWKV6 (``ssm.py:292-322``): exact pair decays inside a
+  chunk, the ``[K, V]`` state carried across chunks by a Python loop.
+  Mamba (``ssm.py:94-157``): the chunk's decays and inputs materialised
+  as JAX's are, and JAX's in-chunk ``associative_scan`` replaced by the
+  sequential recurrence over the chunk's tokens (the same ``h_t = a_t
+  h_{t-1} + u_t``, summed in order rather than as a tree).
+* ``"pallas"`` — the hand-written Hopper kernels
+  (:func:`repro_torch.kernels.ops.rwkv6_scan`,
+  :func:`repro_torch.kernels.ops.mamba_scan`), which walk the tokens
+  themselves and return the final state; on CPU tensors their plain
+  versions run.  The JAX model never reaches its Pallas scans
+  (``ssm.py:133-146`` runs ``lax.associative_scan``, ``ssm.py:322``
+  ``lax.scan``); the port's prefill does.
 
 Decode (one token) is the exact recurrence in plain PyTorch, as it is
 plain ``jnp`` in JAX.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -33,9 +43,225 @@ _MIX_STREAMS = ("r", "k", "v", "w", "g")
 _GROUP_NORM_EPS = 64e-5
 
 
-# ---------------------------------------------------------------------------
-# Weights
-# ---------------------------------------------------------------------------
+# ===========================================================================
+# Mamba (v1 selective SSM, as interleaved in Jamba)
+# ===========================================================================
+
+def _dt_rank(d_model: int, dt_rank: int | None) -> int:
+    return dt_rank or max(1, math.ceil(d_model / 16))
+
+
+def mamba_weight_shapes(*, d_model: int, d_state: int = 16,
+                        d_conv: int = 4, expand: int = 2,
+                        dt_rank: int | None = None) -> dict:
+    """Name -> (shape, dtype) of a mamba mixer's weights."""
+    f32, I = torch.float32, expand * d_model
+    R = _dt_rank(d_model, dt_rank)
+    return {
+        "in_proj": ((d_model, 2 * I), DEFAULT_DTYPE),
+        "conv_w": ((d_conv, I), DEFAULT_DTYPE),
+        "conv_b": ((I,), DEFAULT_DTYPE),
+        "x_proj": ((I, R + 2 * d_state), DEFAULT_DTYPE),
+        "dt_proj": ((R, I), DEFAULT_DTYPE),
+        "dt_bias": ((I,), f32),
+        "A_log": ((I, d_state), f32),
+        "D": ((I,), f32),
+        "out_proj": ((I, d_model), DEFAULT_DTYPE),
+    }
+
+
+@torch.no_grad()
+def mamba_init(gen: torch.Generator, p, *, d_model: int, d_state: int = 16,
+               d_conv: int = 4, expand: int = 2,
+               dt_rank: int | None = None):
+    """Fill ``p`` (a dict-like of :func:`mamba_weight_shapes`) in place
+    with the JAX ``mamba_init`` values drawn from ``gen``: fan-in
+    truncated-normal projections, ``conv_w ~ N(0, 1/d_conv)``, ``conv_b``
+    0, ``dt_bias = log(expm1(dt))`` for ``dt ~ U(0.001, 0.1)``, the
+    S4D-real ``A_log = log(1..N)`` on every channel, ``D`` 1."""
+    I = expand * d_model
+    R = _dt_rank(d_model, dt_rank)
+    dev = p["A_log"].device
+    dense_init(gen, d_model, 2 * I, out=p["in_proj"])
+    conv = torch.empty((d_conv, I), dtype=torch.float32, device=dev)
+    p["conv_w"].copy_(conv.normal_(generator=gen).mul_(
+        1.0 / math.sqrt(d_conv)))
+    p["conv_b"].zero_()
+    dense_init(gen, I, R + 2 * d_state, out=p["x_proj"])
+    dense_init(gen, R, I, out=p["dt_proj"])
+    dt = torch.empty((I,), dtype=torch.float32, device=dev)
+    dt = torch.clamp(dt.uniform_(generator=gen) * 0.099 + 0.001, min=1e-4)
+    p["dt_bias"].copy_(torch.log(torch.expm1(dt)))
+    p["A_log"].copy_(torch.log(torch.arange(
+        1, d_state + 1, dtype=torch.float32, device=dev)).expand(I, d_state))
+    p["D"].fill_(1.0)
+    dense_init(gen, I, d_model, out=p["out_proj"])
+
+
+def _mamba_project(params, x):
+    """x: [B,L,D] -> (xs, z), each [B,L,d_inner] in x's dtype (views of
+    one f32-accumulated projection, rounded once)."""
+    xz = proj(x, params["in_proj"], out_dtype=x.dtype)
+    return xz.chunk(2, dim=-1)
+
+
+def _mamba_ssm_inputs(params, xs, *, d_state: int, dt_rank: int):
+    """-> (dt [B,L,I] f32, Bc [B,L,N] f32, Cc [B,L,N] f32).  Bc and Cc are
+    column slices of the ``x_proj`` output (no copy)."""
+    xp = proj(xs, params["x_proj"])                        # f32
+    dt_in = xp[..., :dt_rank]
+    Bc = xp[..., dt_rank:dt_rank + d_state]
+    Cc = xp[..., dt_rank + d_state:]
+    dt = dt_in @ params["dt_proj"].float()
+    dt = dt + params["dt_bias"]
+    dt = torch.logaddexp(dt, torch.zeros((), device=dt.device))  # softplus
+    return dt, Bc, Cc
+
+
+def _conv1d_causal(params, xs, conv_state=None):
+    """Depthwise causal conv over time, then silu.  xs: [B,L,C];
+    conv_state: [B,d_conv-1,C], the tail of the previous segment (decode)
+    or None (zeros)."""
+    w = params["conv_w"].float()                           # [K,C]
+    K = w.shape[0]
+    if conv_state is None:
+        pad = F.pad(xs, (0, 0, K - 1, 0))
+    else:
+        pad = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
+    L = xs.shape[1]
+    acc = torch.zeros(xs.shape, dtype=torch.float32, device=xs.device)
+    for i in range(K):
+        acc = acc + pad[:, i:i + L].float() * w[i]
+    acc = acc + params["conv_b"].float()
+    return F.silu(acc).to(xs.dtype)
+
+
+def _conv_tail(xs, d_conv: int, conv0=None):
+    """The last ``d_conv - 1`` conv inputs [B,d_conv-1,C], taken before
+    the convolution, as JAX takes them.  A segment shorter than that is
+    preceded by ``conv0`` (zeros at the start): JAX would return a short
+    tail there, which its cache cannot hold."""
+    n = d_conv - 1
+    if xs.shape[1] < n:
+        prev = (torch.zeros((xs.shape[0], n, xs.shape[2]), dtype=xs.dtype,
+                            device=xs.device)
+                if conv0 is None else conv0.to(xs.dtype))
+        xs = torch.cat([prev, xs], dim=1)
+    return xs[:, xs.shape[1] - n:]
+
+
+def _mamba_chunked_scan(xs, dt, Bc, Cc, A, Dskip, *, chunk: int, h0=None):
+    """The JAX chunked form with a sequential in-chunk recurrence:
+    xs [B,T,I], dt [B,T,I] f32, Bc/Cc [B,T,N] f32, A [I,N] -> (y [B,T,I]
+    f32 including the ``D`` skip, h_T [B,I,N] f32).  Padded tokens carry
+    dt = 0: decay 1, input 0, the state untouched."""
+    B, T, I = xs.shape
+    N = A.shape[-1]
+    chunk = min(chunk, T)
+    nch = -(-T // chunk)
+    Tp = nch * chunk
+    xs = xs.float()
+    if Tp != T:
+        xs, dt, Bc, Cc = (F.pad(t, (0, 0, 0, Tp - T))
+                          for t in (xs, dt, Bc, Cc))
+    h = (torch.zeros((B, I, N), dtype=torch.float32, device=xs.device)
+         if h0 is None else h0.float())
+    ys = []
+    for c in range(nch):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xc, dtc, bc, cc = xs[:, sl], dt[:, sl], Bc[:, sl], Cc[:, sl]
+        a = torch.exp(dtc[..., None] * A)                  # [B,L,I,N]
+        u = (dtc * xc)[..., None] * bc[:, :, None, :]
+        hs = []
+        for t in range(chunk):
+            h = a[:, t] * h + u[:, t]
+            hs.append(h)
+        h_t = torch.stack(hs, dim=1)                       # [B,L,I,N]
+        ys.append(torch.einsum("blin,bln->bli", h_t, cc) + Dskip * xc)
+    return torch.cat(ys, dim=1)[:, :T], h
+
+
+def mamba_apply(params, x, *, d_state: int = 16, d_conv: int = 4,
+                dt_rank: int | None = None, chunk: int = 256, h0=None,
+                conv0=None, return_state: bool = False,
+                impl: str = "blockwise"):
+    """Full-sequence selective scan.  x: [B,T,D] -> y [B,T,D]; with
+    ``return_state`` also the final (h [B,d_inner,N] f32, conv tail
+    [B,d_conv-1,d_inner]).
+
+    ``impl="pallas"`` runs the ``mamba_scan`` kernel on ``xdt = dt·xs``
+    and adds the ``D`` skip, the ``silu(z)`` gate and ``out_proj`` outside
+    it, as the Pallas kernel's docstring says; the kernel starts from a
+    zero state, so ``h0`` must be None there (the LM never passes it)."""
+    B, T, D = x.shape
+    dt_rank = _dt_rank(D, dt_rank)
+    xs, z = _mamba_project(params, x)
+    conv_tail = _conv_tail(xs, d_conv, conv0) if return_state else None
+    xs = _conv1d_causal(params, xs, conv0)
+    dt, Bc, Cc = _mamba_ssm_inputs(params, xs, d_state=d_state,
+                                   dt_rank=dt_rank)
+    A = -torch.exp(params["A_log"])                        # [I,N] < 0
+    if impl == "pallas":
+        if h0 is not None:
+            raise ValueError("the mamba_scan kernel starts from a zero "
+                             "state; h0 is not supported with "
+                             "impl='pallas'")
+        xsf = xs.float()
+        y, h_fin = ops.mamba_scan(dt * xsf, dt, Bc, Cc, A, chunk=chunk,
+                                  return_state=True)
+        y = y + params["D"] * xsf
+    elif impl in ("blockwise", "reference"):
+        y, h_fin = _mamba_chunked_scan(xs, dt, Bc, Cc, A, params["D"],
+                                       chunk=chunk, h0=h0)
+    else:
+        raise ValueError(f"unknown mamba impl {impl!r}")
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = proj(y, params["out_proj"], out_dtype=x.dtype)
+    if return_state:
+        return out, (h_fin, conv_tail)
+    return out
+
+
+def mamba_state_init(batch: int, *, d_model: int, d_state: int = 16,
+                     d_conv: int = 4, expand: int = 2,
+                     dtype=DEFAULT_DTYPE, device=None) -> dict:
+    I = expand * d_model
+    return {
+        "h": torch.zeros((batch, I, d_state), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((batch, d_conv - 1, I), dtype=dtype,
+                            device=device),
+    }
+
+
+def mamba_decode_step(params, x, state, *, d_state: int = 16,
+                      d_conv: int = 4, dt_rank: int | None = None):
+    """One-token recurrence.  x: [B,1,D]; state: {'h', 'conv'} ->
+    (out [B,1,D], {'h', 'conv'}), new tensors."""
+    B, _, D = x.shape
+    dt_rank = _dt_rank(D, dt_rank)
+    xs, z = _mamba_project(params, x)
+    conv = state["conv"]
+    new_conv = torch.cat([conv[:, 1:], xs.to(conv.dtype)], dim=1) \
+        if d_conv > 1 else conv
+    xs = _conv1d_causal(params, xs, conv)
+    dt, Bc, Cc = _mamba_ssm_inputs(params, xs, d_state=d_state,
+                                   dt_rank=dt_rank)
+    A = -torch.exp(params["A_log"])
+    x0 = xs[:, 0].float()
+    dA = torch.exp(dt[:, 0, :, None] * A)                  # [B,I,N]
+    u = (dt[:, 0] * x0)[..., None] * Bc[:, 0, None, :]
+    h = dA * state["h"] + u
+    y = torch.einsum("bin,bn->bi", h, Cc[:, 0])
+    y = y + params["D"] * x0
+    y = (y * F.silu(z[:, 0].float())).to(x.dtype)
+    out = proj(y, params["out_proj"], out_dtype=x.dtype)
+    return out[:, None], {"h": h, "conv": new_conv}
+
+
+# ===========================================================================
+# RWKV6 ("Finch": data-dependent decay)
+# ===========================================================================
 
 def rwkv6_weight_shapes(d_model: int) -> dict:
     """Nested name -> (shape, dtype) of the time-mix weights."""

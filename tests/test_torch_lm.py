@@ -391,9 +391,9 @@ def test_lm_defaults_to_the_card_and_raises_without_it(monkeypatch):
         TLM(tget_config("stablelm-12b").reduced())
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
-                                  "jamba-1.5-large-398b", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen2-vl-72b"])
 def test_unported_layers_raise(arch):
-    """MLA/MoE, Mamba/MoE and M-RoPE configs are refused, not run wrong."""
+    """MLA and M-RoPE configs are refused, not run wrong (Mamba and MoE
+    layers are ported: ``tests/test_torch_jamba.py``)."""
     with pytest.raises(NotImplementedError):
         TLM(tget_config(arch).reduced(), device="cpu")

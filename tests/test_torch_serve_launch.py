@@ -33,6 +33,15 @@ def test_serve_launcher_rwkv6_reduced_on_cpu(capsys):
     assert "singles: 18  prefills: 6" in out
 
 
+def test_serve_launcher_jamba_reduced_on_cpu(capsys):
+    assert tserve.main(["--arch", "jamba-1.5-large-398b", "--reduced",
+                        "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "served 6/6 requests" in out
+    assert "decode events: 43  fused batches: 7 (mean len 4.00)" in out
+    assert "singles: 18  prefills: 6" in out
+
+
 def test_serve_launcher_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -63,6 +72,25 @@ def test_serve_launcher_rwkv6_prints_what_the_jax_launcher_prints():
     def run(module, extra):
         proc = subprocess.run(
             [sys.executable, "-m", module, "--arch", "rwkv6-1.6b",
+             "--reduced", *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env={"PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
+                 "PATH": "/usr/bin:/bin"})
+        assert proc.returncode == 0, proc.stderr
+        return [line for line in proc.stdout.splitlines()
+                if "s wall" not in line]
+
+    assert run("repro_torch.launch.serve", ["--device", "cpu"]) == \
+        run("repro.launch.serve", [])
+
+
+def test_serve_launcher_jamba_prints_what_the_jax_launcher_prints():
+    """The reduced jamba (one 8-layer block of gqa/mamba mixers and
+    mlp/moe FFNs) under the launcher's defaults: the same control plane
+    and finish times, the wall-clock line aside."""
+    def run(module, extra):
+        proc = subprocess.run(
+            [sys.executable, "-m", module, "--arch", "jamba-1.5-large-398b",
              "--reduced", *extra],
             cwd=ROOT, capture_output=True, text=True, timeout=300,
             env={"PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",

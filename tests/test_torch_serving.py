@@ -14,7 +14,11 @@ equal too.  That is asserted only where it is decidable: each scenario
 runs on a weight seed whose every greedy choice has a JAX top-1/top-2
 logit margin above 0.1 (the margins are recomputed and asserted here,
 by teacher-forcing JAX's own stream), far above the ~3e-2 the two
-packages' logits differ by (``tests/test_torch_lm.py``).
+packages' logits differ by (``tests/test_torch_lm.py``).  The fusion
+scenario also runs the reduced jamba (``(gqa, mlp)``, ``(mamba, moe)``,
+... one 8-layer block), a recurrent stack too: its prompts are at least
+``d_conv - 1 = 3`` tokens, since a shorter one gives JAX a conv tail its
+cache cannot hold (``repro/models/ssm.py:106``).
 """
 
 from __future__ import annotations
@@ -36,11 +40,13 @@ from repro_torch.models.model import params_from_jax
 from repro_torch.serving.engine import ServingEngine as TEngine
 
 MARGIN = 0.1
+SEED_J = 9
 STAT_FIELDS = ("decode_events", "fused_batches", "fused_events", "singles",
                "prefills")
 
 ARCH = "stablelm-12b"
 RWKV = "rwkv6-1.6b"
+JAMBA = "jamba-1.5-large-398b"
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,7 +87,7 @@ def _greedy_margins(seed: int, prompt, stream, max_len: int,
     from decode steps on the prefilled cache."""
     params, _ = _weights(seed, arch)
     forward, prefill, step = _jax_programs(max_len, arch)
-    recurrent = arch == RWKV
+    recurrent = arch in (RWKV, JAMBA)
     toks = np.zeros((1, len(prompt) if recurrent else 32), np.int32)
     toks[0, :len(prompt)] = prompt
     logits, _ = forward(params, jnp.asarray(toks))
@@ -142,6 +148,52 @@ def test_serving_rwkv6_fuses_decode_runs():
     jstats, tstats = jeng.run(), teng.run()
     assert tstats.fused_batches > 0 and tstats.mean_fused_length > 1.5
     _check_same(jeng, teng, jstats, tstats, 27, 64, RWKV)
+
+
+def test_serving_jamba_fuses_decode_runs():
+    """The fusion scenario on the reduced jamba: the control plane
+    exactly equal, the token streams equal past the margin (weight seed
+    9: every JAX greedy margin above 0.1, asserted)."""
+    kw = dict(max_slots=2, max_len=64, max_batch_len=4, arrival_lookahead=5.0)
+    jeng, teng = _engines(SEED_J, JAMBA, **kw)
+    for eng in (jeng, teng):
+        eng.submit(0, [5, 6, 7], max_new_tokens=6, at=0.0)
+        eng.submit(1, [8, 9, 10, 11, 12], max_new_tokens=6, at=6.0)
+        eng.schedule_decode_grid(1.0, 40.0)
+    jstats, tstats = jeng.run(), teng.run()
+    assert tstats.fused_batches > 0 and tstats.mean_fused_length > 1.5
+    _check_same(jeng, teng, jstats, tstats, SEED_J, 64, JAMBA)
+
+
+def test_serving_jamba_prefills_prompts_at_their_exact_length():
+    """A hybrid prompt is not padded to a bucket either (the mamba
+    layers' recurrence would run through the padding); the spliced slot
+    holds exactly the prefill of the bare prompt, every leaf (K/V rows,
+    mamba states and conv tails) through ``_splice_slot``."""
+    jeng, teng = _engines(SEED_J, JAMBA, max_slots=2, max_len=64)
+    for n in (3, 5, 31, 33, 200):
+        assert teng._prefill_bucket(n) == jeng._prefill_bucket(n) == n
+    prompt = [3, 1, 4, 1, 5]
+    teng.submit(0, [9, 9, 9, 9], 4, at=0.0)
+    teng.waiting.append(teng.requests[0])
+    teng._h_prefill(None, 0.0, None)
+    before = {lj: {n: t.clone() for n, t in layer.items()}
+              for lj, layer in teng.cache["stages"][0].items()}
+    teng.submit(1, prompt, 4, at=0.0)
+    teng.waiting.append(teng.requests[1])
+    teng._h_prefill(None, 0.0, None)
+    slot, other = teng.requests[1].slot, teng.requests[0].slot
+    _, own = teng.model.prefill(torch.tensor([prompt], dtype=torch.int32),
+                                max_len=64)
+    names = set()
+    for lj, layer in teng.cache["stages"][0].items():
+        for name, leaf in layer.items():
+            names.add(name)
+            assert torch.equal(leaf[:, slot],
+                               own["stages"][0][lj][name][:, 0]), (lj, name)
+            assert torch.equal(leaf[:, other], before[lj][name][:, other])
+    assert names == {"k", "v", "h", "conv"}
+    assert int(teng.cache["lengths"][slot]) == len(prompt)
 
 
 def test_serving_rwkv6_prefills_prompts_at_their_exact_length():
