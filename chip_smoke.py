@@ -15,10 +15,15 @@ Phases, each printed on its own line:
    row masks and a finite ``t_cap``.
 3. attn_kernels — ``flash_attention`` and ``decode_attention`` against
    their plain versions on the same N(0,1) CUDA inputs, in float32
-   (max abs error at most 1e-4) and bfloat16 (at most 2e-2), at the
-   serving paths' head layouts (stablelm-12b: H 32, KV 8, head_dim 160;
-   jamba: H 64, KV 8, head_dim 128, flash at its exact prompt lengths)
-   and others; a sequence of length 0 must come out 0.
+   (max abs error at most 1e-4) and bfloat16 (at most 2e-2, and each
+   element one bf16 rounding from the plain version's at most:
+   ``BF16_ROUNDING``), every output finite, at the serving paths' head
+   layouts (stablelm-12b: H 32, KV 8, head_dim 160; jamba: H 64, KV 8,
+   head_dim 128, flash at its exact prompt lengths) and the designs'
+   edges (``FLASH_SHAPES``, ``DECODE_SHAPES``: T off the query tile, G 1
+   to 16, S != T, decode lengths at split boundaries and 0 beside long
+   ones); a sequence of length 0 must come out 0.  The worst bf16
+   errors are printed beside those of the kernels these replaced.
 3b. rwkv_kernel — ``rwkv6_scan`` against its plain version (the
    sequential recurrence in f32) on the same CUDA inputs, f32 and bf16:
    the serving prefill's shapes (B 1, H 32, K 64, T 4, 13, 16), T 2048 at
@@ -64,17 +69,19 @@ Phases, each printed on its own line:
    finish, with ``mamba_scan`` launched 2 * mamba layers * prefills times,
    ``flash_attention`` 2 * gqa layers * prefills and ``decode_attention``
    gqa layers * decode events, the other kernels not at all.  Then the
-   teacher-forced check against ``attn_impl="blockwise"`` in bf16: one
-   MoE router sits between the scan and the logits, so routing choices
-   that differ between the routes are counted with their margins (each
-   must be a near tie, under 1e-3 of the token's router-logit spread),
-   rows whose routing agrees must reach a cosine of 0.999, and the mamba
-   layer's output, kernel against plain, 0.9999.
+   teacher-forced check against ``attn_impl="blockwise"`` in bf16, with
+   the routing teacher-forced too: one MoE router sits between the scan
+   and the logits, so the kernel route takes ``blockwise``'s expert
+   choices (its own choices are compared and each difference printed
+   with its margins), every logit row must reach a cosine of 0.999, and
+   the mamba layer's output, kernel against plain, 0.9999.
 7. timing — each kernel and its plain version at the main path's shapes
-   (CUDA events over back-to-back calls), beside the least time the
-   card could take for the bytes each call must move and the operations
-   it must do, and, for attention, one
-   ``scaled_dot_product_attention`` call on the same inputs;
+   (CUDA events over back-to-back calls: ``ms``), the kernel's device
+   time with the host taken out (calls captured in a CUDA graph:
+   ``device_ms``), beside the least time the card could take for the
+   bytes each call must move and the operations it must do, and, for
+   attention, one ``scaled_dot_product_attention`` call on the same
+   inputs, timed both ways (``library_ms``, ``library_device_ms``);
    ``rwkv6_scan`` and ``mamba_scan`` at the serving prefill's T 16 and at
    T 2048 (no PyTorch call computes either).
 
@@ -113,17 +120,43 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 
 # The serving path's attention shapes (stablelm-12b: 32 heads, 8 KV
-# heads, head_dim 160): (B, H, KV, T=S, D, causal) for flash and
-# (B, H, KV, S, D, lengths) for decode.
-FLASH_SHAPES = [(1, 32, 8, 32, 160, True), (1, 32, 8, 128, 160, True),
-                (1, 32, 8, 2048, 160, True), (1, 24, 8, 512, 128, True),
-                (1, 4, 4, 256, 64, False),
+# heads, head_dim 160) and the new designs' edges: (B, H, KV, T, S, D,
+# causal) for flash -- T off the 128-row tile (7, 16, 100, 1000), G 1, 3,
+# 4 and 8, D 64, 128 and 160 (bf16 takes only these), S != T without the
+# causal mask, and a head dim only the f32 route takes -- and (B, H, KV,
+# S, D, lengths) for decode, where "edges" puts lengths at 0 and at the
+# first split boundary +- 1 beside long ones (``choose_splits`` of the
+# card), G 1 to 16 (two head chunks) and D 48 to 256.
+FLASH_SHAPES = [(1, 32, 8, 32, 32, 160, True), (1, 32, 8, 128, 128, 160, True),
+                (1, 32, 8, 2048, 2048, 160, True),
+                (1, 24, 8, 512, 512, 128, True),
+                (1, 4, 4, 256, 256, 64, False),
                 # jamba (64 heads, 8 KV heads, head_dim 128), exact lengths
-                (1, 64, 8, 7, 128, True), (1, 64, 8, 16, 128, True)]
+                (1, 64, 8, 7, 7, 128, True), (1, 64, 8, 16, 16, 128, True),
+                (2, 32, 8, 100, 100, 160, True),
+                (1, 8, 8, 1000, 1000, 64, True),
+                (1, 32, 8, 100, 300, 160, False),
+                (2, 16, 2, 48, 17, 128, False),
+                (1, 8, 2, 50, 50, 48, True)]
 DECODE_SHAPES = [(4, 32, 8, 256, 160, (1, 31, 200, 256)),
                  (4, 32, 8, 4096, 160, (4096, 1000, 17, 2049)),
-                 (4, 64, 8, 256, 128, (1, 31, 200, 256))]
+                 (4, 64, 8, 256, 128, (1, 31, 200, 256)),
+                 (6, 32, 8, 4096, 160, "edges"),
+                 (6, 8, 8, 4096, 64, "edges"),
+                 (6, 64, 8, 4096, 128, "edges"),
+                 (2, 32, 2, 300, 64, (7, 300)),
+                 (3, 8, 2, 77, 48, (77, 5, 40)),
+                 (2, 16, 8, 128, 256, (128, 64))]
+# Worst bf16 errors of the earlier CUDA-core versions of these kernels,
+# measured on one H100, printed beside this run's.
+CUDA_CORE_BF16_ERR = {"flash_attention": 0.0039, "decode_attention": 0.00098}
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# A bf16 output and the plain version's (f32 sums rounded once) are each
+# within half a bf16 ulp (at most 2^-8 of the value) of their f32 sums, so
+# each element must also lie within BF16_ROUNDING of the larger magnitude
+# plus the f32 tolerance: one rounding apart.  Unlike the absolute 2e-2,
+# this holds late rows of a long sequence (|o| about 0.04) to their size.
+BF16_ROUNDING = 2.0 ** -7
 SERVE_ARGS = ["--arch", "stablelm-12b"]
 TEACHER_STEPS = 8
 MIN_COSINE = 0.999
@@ -156,7 +189,6 @@ MAMBA_CASES = [(1, 4, 16384, 16, "proj", "model"),
                (3, 33, 100, 4, "contiguous", "strong")]
 MAMBA_TOL = 1e-5           # of the reference's largest |y| or |h|
 SFU_OPS_PER_S = 132 * 16 * 1.98e9   # H100 SXM special-function units (exp)
-ROUTE_NEAR_TIE = 1e-3      # of the token's router-logit spread
 MIN_MAMBA_COSINE = 0.9999
 
 WINDOW_SHAPES = [(256, 4), (256, 16), (16, 4)]     # (front_cap, k)
@@ -321,6 +353,18 @@ def _randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
+def _edge_lengths(B, KV, S):
+    """0, the first split boundary - 1, + 0, + 1, the second + 1, S."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    dev = torch.device("cuda")
+    _, chunk = da.choose_splits(B, KV, S, da.sm_count(dev))
+    lengths = (0, chunk - 1, chunk, chunk + 1, 2 * chunk + 1, S)
+    return tuple(min(n, S) for n in lengths)[:B]
+
+
 def check_attention() -> dict:
     """Each attention kernel against its plain version on the same CUDA
     inputs (model layout, read by the kernels through strides); returns
@@ -332,24 +376,55 @@ def check_attention() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(12)
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    bf16_errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    # The worst bf16 error as a share of its one-rounding limit.
+    bf16_rounding = {"flash_attention": 0.0, "decode_attention": 0.0}
     cases = []
+
+    def gate(kind, label, got, want, tol, dtype):
+        g, w = got.float(), want.float()
+        err = float((g - w).abs().max())
+        errs[kind] = max(errs[kind], err)
+        line = f"{label} {err:.3g}"
+        share = 0.0
+        if dtype == torch.bfloat16:
+            bf16_errs[kind] = max(bf16_errs[kind], err)
+            limit = (BF16_ROUNDING * torch.maximum(g.abs(), w.abs())
+                     + ATTN_TOL["float32"])
+            share = float(((g - w).abs() / limit).max())
+            bf16_rounding[kind] = max(bf16_rounding[kind], share)
+            line += f" ({share:.3f} of one rounding)"
+        cases.append(line)
+        if not bool(torch.isfinite(got).all()):
+            raise PhaseError(f"{kind} {label}: output not finite")
+        if not err <= tol:
+            raise PhaseError(f"{kind} {label}: error {err} above {tol}")
+        if not share <= 1.0:
+            raise PhaseError(f"{kind} {label}: an output is {share} times "
+                             "one bf16 rounding from the plain version's")
+
     for dtype in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL[str(dtype).split(".")[1]]
-        for B, H, KV, T, D, causal in FLASH_SHAPES:
+        for B, H, KV, T, S, D, causal in FLASH_SHAPES:
             q = _randn(gen, (B, T, H, D), dtype).transpose(1, 2)
-            k = _randn(gen, (B, T, KV, D), dtype).transpose(1, 2)
-            v = _randn(gen, (B, T, KV, D), dtype).transpose(1, 2)
+            k = _randn(gen, (B, S, KV, D), dtype).transpose(1, 2)
+            v = _randn(gen, (B, S, KV, D), dtype).transpose(1, 2)
+            label = (f"flash {str(dtype)[6:]} B{B} H{H} KV{KV} T{T} S{S} "
+                     f"D{D} {'causal' if causal else 'full'}")
+            if dtype == torch.bfloat16 and D not in fa.WGMMA_HEAD_DIMS:
+                try:
+                    fa.flash_attention_cuda(q, k, v, causal=causal)
+                except ValueError:
+                    cases.append(f"{label} refused, as it must be")
+                    continue
+                raise PhaseError(f"flash_attention {label}: not refused")
             got = fa.flash_attention_cuda(q, k, v, causal=causal)
             want = fa.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            errs["flash_attention"] = max(errs["flash_attention"], err)
-            cases.append(f"flash {str(dtype)[6:]} B{B} H{H} KV{KV} T{T} "
-                         f"D{D} {'causal' if causal else 'full'} {err:.3g}")
-            if not err <= tol:
-                raise PhaseError(f"flash_attention {cases[-1]}: error "
-                                 f"above {tol}")
+            gate("flash_attention", label, got, want, tol, dtype)
         for B, H, KV, S, D, lengths in DECODE_SHAPES:
+            if lengths == "edges":
+                lengths = _edge_lengths(B, KV, S)
             q = _randn(gen, (B, H, D), dtype)
             kc = _randn(gen, (B, S, KV, D), dtype).transpose(1, 2)
             vc = _randn(gen, (B, S, KV, D), dtype).transpose(1, 2)
@@ -357,13 +432,15 @@ def check_attention() -> dict:
             got = da.decode_attention_cuda(q, kc, vc, lens)
             want = da.decode_attention_plain(q, kc, vc, lens)
             torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            errs["decode_attention"] = max(errs["decode_attention"], err)
-            cases.append(f"decode {str(dtype)[6:]} B{B} H{H} KV{KV} S{S} "
-                         f"D{D} lengths{list(lengths)} {err:.3g}")
-            if not err <= tol:
-                raise PhaseError(f"decode_attention {cases[-1]}: error "
-                                 f"above {tol}")
+            splits, _ = da.choose_splits(B, KV, S, da.sm_count(q.device))
+            gate("decode_attention",
+                 f"decode {str(dtype)[6:]} B{B} H{H} KV{KV} S{S} D{D} "
+                 f"lengths{list(lengths)} splits {splits}", got, want, tol,
+                 dtype)
+            zero = [i for i, n in enumerate(lengths) if n == 0]
+            if zero and not bool((got[zero] == 0).all()):
+                raise PhaseError(f"decode_attention: a length-0 sequence "
+                                 f"is not 0 ({cases[-1]})")
     # A sequence of length 0: no key is read and the output is 0.
     q = _randn(gen, (2, 32, 160), torch.bfloat16)
     kc = _randn(gen, (2, 64, 8, 160), torch.bfloat16).transpose(1, 2)
@@ -375,7 +452,10 @@ def check_attention() -> dict:
     for line in cases:
         print(f"  {line}")
     phase("attn_kernels", cases=len(cases) + 1,
-          max_abs_err=json.dumps(errs))
+          max_abs_err=json.dumps(errs),
+          bf16_max_abs_err=json.dumps(bf16_errs),
+          bf16_share_of_one_rounding=json.dumps(bf16_rounding),
+          cuda_core_bf16_max_abs_err=json.dumps(CUDA_CORE_BF16_ERR))
     return errs
 
 
@@ -877,16 +957,19 @@ def _uncounted_params(cfg) -> int:
 
 def teacher_force_jamba(model) -> None:
     """The teacher-forced check of the jamba truncation's kernel route
-    against ``blockwise``, in bf16.  The MoE router after the mamba layer
-    is discontinuous: a token whose k-th and (k+1)-th router logits are
-    nearly tied may go to another expert on the two routes, which is no
-    fault of the kernel.  So the routing choices of both runs are
-    compared: each difference must be a near tie (under
-    ``ROUTE_NEAR_TIE`` of the token's router-logit spread); the logit rows
-    whose routing agrees (a row agrees when every MoE call up to it
-    routed every token alike) must reach ``MIN_COSINE``; and the mamba
-    layer's output on the prefill's own layer input, kernel against the
-    chunked plain scan, ``MIN_MAMBA_COSINE``."""
+    against ``blockwise``, in bf16, with the routing teacher-forced too.
+    The MoE router after the mamba layer is discontinuous: a token whose
+    k-th and (k+1)-th router logits are nearly tied may go to other
+    experts on the two routes, and every later row then differs for
+    that reason alone.  So ``blockwise`` runs first and the top-k expert
+    indices of each of its routings are kept; the kernel route's
+    routings take those indices, weighted by its own router logits, and
+    every logit row must reach ``MIN_COSINE``.  The kernel route's own
+    choices are compared with ``blockwise``'s, and each difference is
+    printed with the k-th/(k+1)-th gap in both routes' logits, as a share
+    of the token's router-logit spread.  The mamba layer's output on the
+    kernel route's prefill layer input, kernel against the chunked plain
+    scan, must reach ``MIN_MAMBA_COSINE``."""
     import torch
     import torch.nn.functional as F
 
@@ -894,74 +977,67 @@ def teacher_force_jamba(model) -> None:
     from repro_torch.models import moe as moe_module
     from repro_torch.models import ssm as ssm_module
 
-    routers: dict = {}
+    # Each route's routings: (router logits [tokens, E], top-k [tokens, k]).
+    routings: dict = {"blockwise": [], "pallas": []}
     mamba_in: list = []
+    top_k = moe_module._top_k
 
-    def recording(fn):
-        def wrapped(params, x, *, num_experts, top_k, **kw):
-            logits = moe_module.proj(x.reshape(-1, x.shape[-1]).float(),
-                                     params["router"])
-            routers.setdefault(model.attn_impl, []).append(logits)
-            return fn(params, x, num_experts=num_experts, top_k=top_k, **kw)
-        return wrapped
+    def teacher_top_k(logits, k):
+        vals, idx = top_k(logits, k)
+        flat = routings[model.attn_impl]
+        flat.append((logits.reshape(-1, logits.shape[-1]),
+                     idx.reshape(-1, k)))
+        if model.attn_impl == "blockwise":
+            return vals, idx
+        i = len(flat) - 1
+        if i >= len(routings["blockwise"]):
+            raise PhaseError("teacher_force_jamba: the kernel route routes "
+                             "more often than blockwise")
+        pinned = routings["blockwise"][i][1].reshape(idx.shape)
+        return torch.gather(logits, -1, pinned), pinned
 
     def mamba_recording(params, x, **kw):
-        if not mamba_in:
+        if model.attn_impl == "pallas" and not mamba_in:
             mamba_in.append((params, x.clone(), kw))
         return ssm_module.mamba_apply(params, x, **kw)
 
-    saved = (lm_module.moe_apply, lm_module.moe_apply_dense,
-             lm_module.mamba_apply)
-    lm_module.moe_apply = recording(moe_module.moe_apply)
-    lm_module.moe_apply_dense = recording(moe_module.moe_apply_dense)
+    saved = (moe_module._top_k, lm_module.mamba_apply)
+    moe_module._top_k = teacher_top_k
     lm_module.mamba_apply = mamba_recording
     try:
         runs = _teacher_rows(model, "blockwise")
     finally:
-        (lm_module.moe_apply, lm_module.moe_apply_dense,
-         lm_module.mamba_apply) = saved
-    k = model.cfg.moe.top_k
-    diffs, agree_rows, calls_agree = [], [], True
-    a_calls, b_calls = routers["pallas"], routers["blockwise"]
-    if len(a_calls) != len(b_calls):
-        raise PhaseError("teacher_force_jamba: the routes made "
-                         f"{len(a_calls)} and {len(b_calls)} MoE calls")
-    # Calls per row: the prefill (its MoE layers) and each decode step.
-    per_row = len(a_calls) // (TEACHER_STEPS + 1)
-    for i, (la, lb) in enumerate(zip(a_calls, b_calls)):
-        ia = torch.sort(torch.topk(la, k, dim=-1).indices, dim=-1).values
-        ib = torch.sort(torch.topk(lb, k, dim=-1).indices, dim=-1).values
+        moe_module._top_k, lm_module.mamba_apply = saved
+    a_calls, b_calls = routings["pallas"], routings["blockwise"]
+    if not b_calls or len(a_calls) != len(b_calls):
+        raise PhaseError("teacher_force_jamba: the routes routed "
+                         f"{len(a_calls)} and {len(b_calls)} times")
+    diffs = []
+    for i, ((la, ia), (lb, ib)) in enumerate(zip(a_calls, b_calls)):
+        ia, ib = torch.sort(ia, dim=-1).values, torch.sort(ib, dim=-1).values
+        k = ia.shape[-1]
         for tok in torch.nonzero((ia != ib).any(dim=-1)).flatten().tolist():
-            margins = []
+            gaps = []
             for lg in (la[tok], lb[tok]):
                 top = torch.sort(lg.double(), descending=True).values
-                margins.append(float((top[k - 1] - top[k])
-                                     / (top[0] - top[-1])))
-            diffs.append({"call": i, "token": tok,
-                          "margin_of_spread": max(margins)})
-            calls_agree = False
-        if (i + 1) % per_row == 0:
-            agree_rows.append(calls_agree)
+                gaps.append(float((top[k - 1] - top[k]) / (top[0] - top[-1])))
+            diffs.append((i, tok, *gaps))
     cos, diff, finite = _compare(runs, "blockwise")
-    agreeing = [float(c) for c, ok in zip(cos, agree_rows) if ok]
     params, x, kw = mamba_in[0]
     kw = dict(kw, impl="pallas")
     y_k = ssm_module.mamba_apply(params, x, **kw)[0]
     y_p = ssm_module.mamba_apply(params, x, **dict(kw, impl="blockwise"))[0]
     mamba_cos = float(F.cosine_similarity(y_k.float().flatten(),
                                           y_p.float().flatten(), dim=0))
-    for d in diffs:
-        print(f"  routing differs: MoE call {d['call']} token {d['token']}, "
-              f"k-th/(k+1)-th gap {d['margin_of_spread']:.3g} of the "
-              "token's router-logit spread")
+    for i, tok, gap_a, gap_b in diffs:
+        print(f"  own routing differs (blockwise's taken): routing {i} "
+              f"token {tok}, k-th/(k+1)-th gap {gap_a:.3g} (kernel route), "
+              f"{gap_b:.3g} (blockwise) of the token's router-logit spread")
     problems = []
     if not finite:
         problems.append("logits not finite")
-    if any(d["margin_of_spread"] >= ROUTE_NEAR_TIE for d in diffs):
-        problems.append(f"a routing difference is no near tie: {diffs}")
-    if not agreeing or min(agreeing) < MIN_COSINE:
-        problems.append(f"cosine {agreeing} on the rows whose routing "
-                        f"agrees (min {MIN_COSINE})")
+    if float(cos.min()) < MIN_COSINE:
+        problems.append(f"cosine {cos.tolist()} (min {MIN_COSINE})")
     if not mamba_cos >= MIN_MAMBA_COSINE:
         problems.append(f"mamba layer cosine {mamba_cos} (min "
                         f"{MIN_MAMBA_COSINE})")
@@ -969,11 +1045,10 @@ def teacher_force_jamba(model) -> None:
         raise PhaseError("teacher_force_jamba: " + "; ".join(problems))
     phase("teacher_force_jamba", arch=model.cfg.name, against="blockwise",
           dtype=str(model.embed.dtype)[6:], steps=TEACHER_STEPS + 1,
-          moe_calls=len(a_calls), routing_differences=len(diffs),
-          rows_routing_agrees=len(agreeing),
-          min_cosine_agreeing=f"{min(agreeing):.6f}",
-          min_cosine_all=f"{float(cos.min()):.6f}",
-          max_abs_diff=f"{diff:.4f}", mamba_layer_cosine=f"{mamba_cos:.7f}")
+          routings=len(a_calls), routing="blockwise's",
+          own_routing_differences=len(diffs),
+          min_cosine=f"{float(cos.min()):.6f}", max_abs_diff=f"{diff:.4f}",
+          mamba_layer_cosine=f"{mamba_cos:.7f}")
 
 
 def teacher_force_rwkv(model) -> None:
@@ -1013,7 +1088,7 @@ def _teacher_rows(model, plain_impl: str) -> dict:
                                      (TEACHER_STEPS, 1, 1)),
                         dtype=torch.int32, device=model.device)
     runs = {}
-    for impl in ("pallas", plain_impl):
+    for impl in (plain_impl, "pallas"):
         model.attn_impl = impl
         logits, cache = model.prefill(prompt, max_len=64)
         rows = [logits[0]]
@@ -1075,6 +1150,35 @@ def _time_ms(fn, reps: int = 300, warmup: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, calls: int = 50, replays: int = 10) -> float:
+    """Per-call device time with the host taken out: ``calls`` calls of
+    ``fn`` captured in one CUDA graph, its replays timed with CUDA events.
+    A ctypes launch on the current stream is captured like any other."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1118,37 +1222,34 @@ def time_kernels(final_queue, lookaheads, launches, errs) -> list:
     out = []
     for name, line, kernel, plain, nbytes, ops in records:
         ms = _time_ms(kernel)
+        device_ms = _device_ms(kernel)
         plain_ms = _time_ms(plain)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_OPS_PER_S * 1e3
-        out.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/queue_front.cu",
-            "replaces": f"src/repro/kernels/queue_front.py:{line}",
-            "launches": launches[name],
-            "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-        })
+        rec = _record(name, "src/repro_torch/csrc/queue_front.cu",
+                      f"src/repro/kernels/queue_front.py:{line}",
+                      launches[name], errs[name], ms, device_ms, plain_ms,
+                      nbytes, ops, F32_OPS_PER_S, None, None)
+        out.append(rec)
         phase("timing", kernel=name, F=F, bytes=nbytes, ops=ops,
-              ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}",
-              bound_ms=f"{max(bytes_ms, ops_ms):.9f}")
+              ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}",
+              plain_ms=f"{plain_ms:.6f}", bound_ms=f"{rec['bound_ms']:.9f}")
     return out
 
 
-def _record(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-            ops, ops_per_s, library_ms):
+def _record(name, source, replaces, launches, err, ms, device_ms, plain_ms,
+            nbytes, ops, ops_per_s, library_ms, library_device_ms):
+    """One kernel's JSON record.  ``ms`` is a wrapper call timed back to
+    back, ``device_ms`` the same call with the host taken out
+    (:func:`_device_ms`); ``library_*`` the same for one PyTorch call of
+    the same function, where there is one."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ops_per_s * 1e3
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
     }
 
 
@@ -1168,56 +1269,84 @@ def time_attention(launches, errs) -> list:
     bf16 = torch.bfloat16
     src = "src/repro_torch/csrc/attention.cu"
     out = []
-    for T, reps in ((32, 300), (2048, 20)):
+    for T, reps, calls in ((32, 300, 50), (2048, 20, 10)):
         B, H, KV, D = 1, 32, 8, 160
         q = _randn(gen, (B, T, H, D), bf16).transpose(1, 2)
         k = _randn(gen, (B, T, KV, D), bf16).transpose(1, 2)
         v = _randn(gen, (B, T, KV, D), bf16).transpose(1, 2)
         o = fa.flash_attention_cuda(q, k, v)
-        ms = _time_ms(lambda: fa.flash_attention_cuda(q, k, v), reps)
+
+        def kernel():
+            return fa.flash_attention_cuda(q, k, v)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+        ms = _time_ms(kernel, reps)
+        device_ms = _device_ms(kernel, calls)
         plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), reps)
-        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), reps)
+        lib_ms = _time_ms(library, reps)
+        lib_device_ms = _device_ms(library, calls)
         nbytes = _nbytes([q, k, v, o])
         ops = 4 * D * H * B * T * (T + 1) // 2       # causal QK^T and PV
         rec = _record("flash_attention", src,
                       "src/repro/kernels/flash_attention.py:108",
                       launches["flash_attention"], errs["flash_attention"],
-                      ms, plain_ms, nbytes, ops, BF16_OPS_PER_S, lib_ms)
+                      ms, device_ms, plain_ms, nbytes, ops, BF16_OPS_PER_S,
+                      lib_ms, lib_device_ms)
         phase("timing", kernel="flash_attention", T=T, S=T, H=H, KV=KV,
               D=D, bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
-              plain_ms=f"{plain_ms:.6f}", library_ms=f"{lib_ms:.6f}",
+              device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+              library_ms=f"{lib_ms:.6f}",
+              library_device_ms=f"{lib_device_ms:.6f}",
               bound_ms=f"{rec['bound_ms']:.9f}", bound_by=rec["bound_by"])
         if T == 32:
             out.append(rec)
 
-    B, H, KV, S, D = 4, 32, 8, 256, 160
-    lengths = (1, 31, 200, 256)
-    q = _randn(gen, (B, H, D), bf16)
-    kc = _randn(gen, (B, S, KV, D), bf16).transpose(1, 2)
-    vc = _randn(gen, (B, S, KV, D), bf16).transpose(1, 2)
-    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    mask = (torch.arange(S, device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]          # [B,1,1,S]
-    o = da.decode_attention_cuda(q, kc, vc, lens)
-    ms = _time_ms(lambda: da.decode_attention_cuda(q, kc, vc, lens))
-    plain_ms = _time_ms(lambda: da.decode_attention_plain(q, kc, vc, lens))
-    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
-    keys = sum(min(n, S) for n in lengths)     # cache rows actually read
-    nbytes = (_nbytes([q, o, lens])
-              + 2 * keys * KV * D * kc.element_size())
-    ops = 4 * D * H * keys
-    rec = _record("decode_attention", src,
-                  "src/repro/kernels/decode_attention.py:112",
-                  launches["decode_attention"], errs["decode_attention"],
-                  ms, plain_ms, nbytes, ops, BF16_OPS_PER_S, lib_ms)
-    phase("timing", kernel="decode_attention", B=B, S=S, H=H, KV=KV, D=D,
-          lengths=json.dumps(list(lengths)), bytes=nbytes, ops=ops,
-          ms=f"{ms:.6f}", plain_ms=f"{plain_ms:.6f}",
-          library_ms=f"{lib_ms:.6f}", bound_ms=f"{rec['bound_ms']:.9f}",
-          bound_by=rec["bound_by"])
-    out.append(rec)
+    # stablelm-12b's decode (the record) and jamba's head layout.
+    for B, H, KV, S, D in ((4, 32, 8, 256, 160), (4, 64, 8, 256, 128)):
+        lengths = (1, 31, 200, 256)
+        q = _randn(gen, (B, H, D), bf16)
+        kc = _randn(gen, (B, S, KV, D), bf16).transpose(1, 2)
+        vc = _randn(gen, (B, S, KV, D), bf16).transpose(1, 2)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]          # [B,1,1,S]
+        o = da.decode_attention_cuda(q, kc, vc, lens)
+
+        def kernel():
+            return da.decode_attention_cuda(q, kc, vc, lens)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)
+
+        ms = _time_ms(kernel)
+        device_ms = _device_ms(kernel)
+        plain_ms = _time_ms(
+            lambda: da.decode_attention_plain(q, kc, vc, lens))
+        lib_ms = _time_ms(library)
+        lib_device_ms = _device_ms(library)
+        keys = sum(min(n, S) for n in lengths)     # cache rows actually read
+        nbytes = (_nbytes([q, o, lens])
+                  + 2 * keys * KV * D * kc.element_size())
+        ops = 4 * D * H * keys
+        rec = _record("decode_attention", src,
+                      "src/repro/kernels/decode_attention.py:112",
+                      launches["decode_attention"], errs["decode_attention"],
+                      ms, device_ms, plain_ms, nbytes, ops, BF16_OPS_PER_S,
+                      lib_ms, lib_device_ms)
+        phase("timing", kernel="decode_attention", B=B, S=S, H=H, KV=KV,
+              D=D, lengths=json.dumps(list(lengths)),
+              splits=da.choose_splits(B, KV, S, da.sm_count(q.device))[0],
+              bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
+              device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
+              library_ms=f"{lib_ms:.6f}",
+              library_device_ms=f"{lib_device_ms:.6f}",
+              bound_ms=f"{rec['bound_ms']:.9f}", bound_by=rec["bound_by"])
+        if H == 32:
+            out.append(rec)
     return out
 
 
@@ -1231,11 +1360,12 @@ def time_rwkv(launches, errs) -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     out = []
-    for T, reps, plain_reps in ((16, 300, 20), (2048, 20, 3)):
+    for T, reps, plain_reps, calls in ((16, 300, 20, 50), (2048, 20, 3, 10)):
         B, H, K = 1, 32, 64
         xs = rwkv_inputs(gen, B, H, T, K, torch.float32)
         y, S = rs.rwkv6_scan_cuda(*xs)
         ms = _time_ms(lambda: rs.rwkv6_scan_cuda(*xs), reps)
+        device_ms = _device_ms(lambda: rs.rwkv6_scan_cuda(*xs), calls)
         plain_ms = _time_ms(lambda: rs.rwkv6_scan_plain(*xs), plain_reps,
                             warmup=1)
         nbytes = _nbytes(xs) + _nbytes([y, S])
@@ -1243,10 +1373,12 @@ def time_rwkv(launches, errs) -> list:
         rec = _record("rwkv6_scan", "src/repro_torch/csrc/rwkv6_scan.cu",
                       "src/repro/kernels/rwkv6_scan.py:92",
                       launches["rwkv6_scan"], errs["rwkv6_scan"], ms,
-                      plain_ms, nbytes, ops, F32_OPS_PER_S, None)
+                      device_ms, plain_ms, nbytes, ops, F32_OPS_PER_S, None,
+                      None)
         rec["shape"] = f"B{B} H{H} T{T} K{K} f32"
         phase("timing", kernel="rwkv6_scan", B=B, H=H, T=T, K=K,
               bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
+              device_ms=f"{device_ms:.6f}",
               plain_ms=f"{plain_ms:.6f}", bound_ms=f"{rec['bound_ms']:.9f}",
               bound_by=rec["bound_by"])
         out.append(rec)
@@ -1265,11 +1397,12 @@ def time_mamba(launches, errs) -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     out = []
-    for T, reps, plain_reps in ((16, 300, 20), (2048, 20, 3)):
+    for T, reps, plain_reps, calls in ((16, 300, 20, 50), (2048, 20, 3, 10)):
         B, I, N = 1, 16384, 16
         xs = mamba_inputs(gen, B, T, I, N, torch.float32)
         y, h = ms.mamba_scan_cuda(*xs)
         ms_ = _time_ms(lambda: ms.mamba_scan_cuda(*xs), reps)
+        device_ms = _device_ms(lambda: ms.mamba_scan_cuda(*xs), calls)
         plain_ms = _time_ms(lambda: ms.mamba_scan_plain(*xs), plain_reps,
                             warmup=1)
         nbytes = sum(x.numel() * x.element_size() for x in xs) + \
@@ -1279,10 +1412,12 @@ def time_mamba(launches, errs) -> list:
         rec = _record("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
                       "src/repro/kernels/mamba_scan.py:87",
                       launches["mamba_scan"], errs["mamba_scan"], ms_,
-                      plain_ms, nbytes, ops, F32_OPS_PER_S, None)
+                      device_ms, plain_ms, nbytes, ops, F32_OPS_PER_S, None,
+                      None)
         rec["shape"] = f"B{B} T{T} I{I} N{N} f32"
         phase("timing", kernel="mamba_scan", B=B, T=T, I=I, N=N,
               bytes=nbytes, ops=ops, exps=exps, ms=f"{ms_:.6f}",
+              device_ms=f"{device_ms:.6f}",
               plain_ms=f"{plain_ms:.6f}", bound_ms=f"{rec['bound_ms']:.9f}",
               bound_by=rec["bound_by"],
               exp_sfu_ms=f"{exps / SFU_OPS_PER_S * 1e3:.9f}")

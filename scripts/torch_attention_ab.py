@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Time the attention kernels of two checkouts on one card, in turns.
+
+    python3 scripts/torch_attention_ab.py --before DIR [--after DIR]
+
+``DIR`` is the root of a checkout of the repository (for example an
+unpacked ``git archive`` of the parent commit); ``--after`` defaults to
+this script's own checkout.  Each round runs one child process per
+checkout in the order before, after, after, before, so that both meet
+the card in the same states.  A child imports ``repro_torch`` from its
+checkout, builds its ``attention.cu`` and times, at the serving paths'
+shapes in bf16, ``flash_attention`` (B 1, H 32, KV 8, head_dim 160,
+T = S = 32 and 2048, causal) and ``decode_attention`` (B 4, S 256,
+lengths 1/31/200/256; H 32, KV 8, head_dim 160 and H 64, KV 8, head_dim
+128): ``ms`` per wrapper call back to back and ``device_ms`` per call
+inside a CUDA graph (``chip_smoke.py``'s ``_time_ms`` and
+``_device_ms``), and one ``scaled_dot_product_attention`` call both
+ways.  Prints one JSON line per child and a summary line per checkout,
+shape and metric (the median over its children), with the card's
+``nvidia-smi`` name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+# (kernel, B, H, KV, T or S, D)
+SHAPES = [("flash_attention", 1, 32, 8, 32, 160),
+          ("flash_attention", 1, 32, 8, 2048, 160),
+          ("decode_attention", 4, 32, 8, 256, 160),
+          ("decode_attention", 4, 64, 8, 256, 128)]
+DECODE_LENGTHS = (1, 31, 200, 256)
+
+
+def child(tree: pathlib.Path) -> None:
+    sys.path.insert(0, str(tree / "src"))
+    sys.path.insert(1, str(ROOT))
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+    out = {"tree": str(tree)}
+    for kernel, B, H, KV, N, D in SHAPES:
+        if kernel == "flash_attention":
+            q = cs._randn(gen, (B, N, H, D), bf16).transpose(1, 2)
+            k = cs._randn(gen, (B, N, KV, D), bf16).transpose(1, 2)
+            v = cs._randn(gen, (B, N, KV, D), bf16).transpose(1, 2)
+
+            def run(q=q, k=k, v=v):
+                return fa.flash_attention_cuda(q, k, v)
+
+            def lib(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+        else:
+            q = cs._randn(gen, (B, H, D), bf16)
+            k = cs._randn(gen, (B, N, KV, D), bf16).transpose(1, 2)
+            v = cs._randn(gen, (B, N, KV, D), bf16).transpose(1, 2)
+            lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32,
+                                device="cuda")
+            mask = (torch.arange(N, device="cuda")[None, :]
+                    < lens[:, None])[:, None, None, :]
+
+            def run(q=q, k=k, v=v, lens=lens):
+                return da.decode_attention_cuda(q, k, v, lens)
+
+            def lib(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+        long = N >= 2048
+        reps, calls = (20, 10) if long else (300, 50)
+        name = f"{kernel} H{H} D{D} {'T' if 'flash' in kernel else 'S'}{N}"
+        out[name] = {
+            "ms": cs._time_ms(run, reps),
+            "device_ms": cs._device_ms(run, calls),
+            "library_ms": cs._time_ms(lib, reps),
+            "library_device_ms": cs._device_ms(lib, calls),
+        }
+    print(json.dumps(out), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--before", required=True, type=pathlib.Path)
+    ap.add_argument("--after", type=pathlib.Path, default=ROOT)
+    ap.add_argument("--child", type=pathlib.Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child is not None:
+        child(args.child.resolve())
+        return 0
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    runs: dict = {"before": [], "after": []}
+    for label in ("before", "after", "after", "before"):
+        tree = getattr(args, label).resolve()
+        proc = subprocess.run([sys.executable, __file__, "--before", str(tree),
+                               "--child", str(tree)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"{label}: {json.dumps(rec)}", flush=True)
+        runs[label].append(rec)
+    for label, recs in runs.items():
+        for key in recs[0]:
+            if key == "tree":
+                continue
+            med = {m: statistics.median(r[key][m] for r in recs)
+                   for m in recs[0][key]}
+            print(f"SUMMARY {label} {key} "
+                  + " ".join(f"{m}={v:.6f}" for m, v in med.items()),
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,7 +13,14 @@ them through their strides, so the model-layout wrapper
 (:func:`repro_torch.kernels.ref.flash_attention_ref`) for tensors on the
 CPU and the CUDA kernel (``src/repro_torch/csrc/attention.cu``, built at
 first use) for tensors on a CUDA device; anything else raises.
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts wrapper calls that launched the kernel.
+
+Routes on the card: bf16 inputs (what serving passes) go to the tensor-
+core kernel (``wgmma`` for both products, head dims 64, 128 and 160,
+16-byte-aligned rows; the softmax weights enter the P V product as three
+bf16 terms, so the sums keep f32 precision as the Pallas kernel's do);
+f32 inputs go to the exact-f32 kernel on the CUDA cores (any head dim of
+:func:`check_head_dim`).  A call launches one kernel.
 """
 
 from __future__ import annotations
@@ -30,10 +37,16 @@ from repro_torch.kernels.ref import flash_attention_ref
 LAUNCHES = {"flash_attention": 0}
 
 MAX_HEAD_DIM = 256
+WGMMA_HEAD_DIMS = (64, 128, 160)   # head dims of the bf16 (wgmma) kernel
 SMEM_LIMIT = 232_448        # dynamic shared memory a block may use (H100)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB = None
+# Call signature (each operand's shape, strides, dtype and device) -> its
+# launch arguments, built once by the full checks; a call whose signature
+# was checked before re-checks only its data pointers.
+PLANS: dict = {}
+MAX_PLANS = 1024
 
 
 def reset_launches() -> None:
@@ -52,8 +65,18 @@ def _lib():
             [c.c_int] + [c.c_void_p] * 4 + [c.c_int] * 6
             + [c.POINTER(c.c_longlong), c.c_int, c.c_float, c.c_void_p])
         lib.flash_attention_launch.restype = c.c_int
-        lib.flash_attention_smem_bytes.argtypes = [c.c_int]
-        lib.flash_attention_smem_bytes.restype = c.c_longlong
+        lib.decode_attention_launch.argtypes = (
+            [c.c_int] + [c.c_void_p] * 6 + [c.c_int] * 7
+            + [c.POINTER(c.c_longlong), c.c_float, c.c_void_p])
+        lib.decode_attention_launch.restype = c.c_int
+        for fn in (lib.flash_attention_smem_bytes,
+                   lib.decode_attention_smem_bytes):
+            fn.argtypes = [c.c_int, c.c_int]
+            fn.restype = c.c_longlong
+        status = lib.attention_init()
+        if status != 0:
+            raise RuntimeError(f"attention kernels: setting their shared-"
+                               f"memory limits failed: cudaError {status}")
         _LIB = lib
     return _LIB
 
@@ -74,15 +97,65 @@ def check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
         raise ValueError(f"{name} must have a contiguous last dim")
 
 
+def check_rows_aligned(name: str, t: torch.Tensor) -> None:
+    """Every row starts on 16 bytes, as the kernels' 16-byte copies read."""
+    step = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(s % step for s in t.stride()[:-1]):
+        raise ValueError(f"{name}'s rows must start on 16-byte boundaries "
+                         f"(data_ptr {t.data_ptr()}, strides {t.stride()})")
+
+
+def check_smem(kind: str, code: int, D: int, smem_bytes) -> None:
+    """Raises if a launch of this (dtype, head_dim) needs more shared
+    memory than a block may use."""
+    smem = smem_bytes(code, D)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{kind}: head_dim {D} needs {smem} bytes of "
+                         "shared memory")
+
+
+def signature(*tensors) -> tuple:
+    """What the checks of a call read: each operand's shape, strides,
+    dtype and device."""
+    return tuple((t.shape, t.stride(), t.dtype, t.device) for t in tensors)
+
+
+def remember(key, plan):
+    if len(PLANS) >= MAX_PLANS:
+        PLANS.clear()
+    PLANS[key] = plan
+    return plan
+
+
+def check_data_aligned(*named) -> None:
+    """Each operand's first element on 16 bytes (checked every call: the
+    pointers change from call to call)."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}'s data must start on 16 bytes "
+                             f"(data_ptr {t.data_ptr()})")
+
+
+def launch_on(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` with ``device`` current and its current
+    stream; ``torch.cuda.device`` is entered only when ``device`` is not
+    current already."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
 # The plain version: full score matrices in f32.
 flash_attention_plain = flash_attention_ref
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True):
-    """The same function as one launch of the CUDA kernel."""
+def _flash_plan(q, k, v):
+    """Every check of a call, and its launch arguments."""
     B, H, T, D = q.shape
     KV, S = k.shape[1], k.shape[2]
-    if q.dtype not in DTYPES:
+    code = DTYPES.get(q.dtype)
+    if code is None:
         raise TypeError(f"flash_attention takes float32 or bfloat16, "
                         f"not {q.dtype}")
     for name, t in (("k", k), ("v", v)):
@@ -94,20 +167,32 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     check_head_dim(D)
     if KV < 1 or H % KV:
         raise ValueError(f"H={H} is not a multiple of KV={KV}")
+    if code == 1:
+        if D not in WGMMA_HEAD_DIMS:
+            raise ValueError(f"bfloat16 flash_attention takes head_dim in "
+                             f"{WGMMA_HEAD_DIMS}, not {D}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_rows_aligned(name, t)
     lib = _lib()
-    smem = lib.flash_attention_smem_bytes(D)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"head_dim {D} needs {smem} bytes of shared memory")
-    scale = 1.0 / math.sqrt(D)
-    o = torch.empty_like(q)          # q's strides: [B,T,H,D] views stay so
+    check_smem("flash_attention", code, D, lib.flash_attention_smem_bytes)
+    o_stride = torch.empty_like(q).stride()     # what each call's o gets
     strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = lib.flash_attention_launch(
-            DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), B, H, KV, T, S, D, strides, int(causal),
-            float(scale), stream)
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o_stride[:3])
+    return (lib.flash_attention_launch, code, (B, H, KV, T, S, D), strides,
+            1.0 / math.sqrt(D))
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True):
+    """The same function as one launch of the CUDA kernel."""
+    key = ("flash",) + signature(q, k, v)
+    plan = PLANS.get(key) or remember(key, _flash_plan(q, k, v))
+    launch, code, dims, strides, scale = plan
+    if code == 1:
+        check_data_aligned(("q", q), ("k", k), ("v", v))
+    o = torch.empty_like(q)          # q's strides: [B,T,H,D] views stay so
+    status = launch_on(q.device, launch, code, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), o.data_ptr(), *dims, strides,
+                       int(causal), scale)
     if status != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError "
                            f"{status}")
