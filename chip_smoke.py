@@ -11,19 +11,23 @@ Phases, each printed on its own line:
    card (``nvidia-smi`` name and power limit).
 2. kernels — each queue kernel against its plain PyTorch version on the
    same CUDA inputs, bit for bit (``torch.equal`` on every output), over
-   random fronts, time ties, partial and empty fronts, empty and full
-   row masks and a finite ``t_cap``.
+   random fronts, time ties, all-tie fronts, partial and empty fronts,
+   empty and full row masks, a finite ``t_cap`` and 40 lookahead types,
+   at the shapes of ``WINDOW_SHAPES`` and ``MERGE_SHAPES``.
 3. attn_kernels — ``flash_attention`` and ``decode_attention`` against
    their plain versions on the same N(0,1) CUDA inputs, in float32
    (max abs error at most 1e-4) and bfloat16 (at most 2e-2, and each
    element one bf16 rounding from the plain version's at most:
    ``BF16_ROUNDING``), every output finite, at the serving paths' head
    layouts (stablelm-12b: H 32, KV 8, head_dim 160; jamba: H 64, KV 8,
-   head_dim 128, flash at its exact prompt lengths) and the designs'
-   edges (``FLASH_SHAPES``, ``DECODE_SHAPES``: T off the query tile, G 1
-   to 16, S != T, decode lengths at split boundaries and 0 beside long
-   ones); a sequence of length 0 must come out 0.  The worst bf16
-   errors are printed beside those of the kernels these replaced.
+   head_dim 128, flash at its exact prompt lengths; hubert-xlarge: H 16,
+   KV 16, head_dim 80, bidirectional, T = S = 499 and 32), every head
+   dim from 16 to 256 in steps of 16 on the route each dtype takes, and
+   the designs' edges (``FLASH_SHAPES``, ``DECODE_SHAPES``: T off the
+   query tile, G 1 to 16, S != T, decode lengths at split boundaries and
+   0 beside long ones); a sequence of length 0 must come out 0.  The
+   worst bf16 errors are printed beside those of the kernels these
+   replaced.
 3b. rwkv_kernel — ``rwkv6_scan`` against its plain version (the
    sequential recurrence in f32) on the same CUDA inputs, f32 and bf16:
    the serving prefill's shapes (B 1, H 32, K 64, T 4, 13, 16), T 2048 at
@@ -75,18 +79,29 @@ Phases, each printed on its own line:
    choices (its own choices are compared and each difference printed
    with its margins), every logit row must reach a cosine of 0.999, and
    the mamba layer's output, kernel against plain, 0.9999.
+6d. hubert — hubert-xlarge at full width (d_model 1280, 16 heads of 80,
+   d_ff 5120, layernorm, gelu, bidirectional), depth cut to 2 of its 48
+   layers, bf16, random weights from seed 0: ``LM(cfg,
+   attn_impl="pallas").forward`` on one sequence of 512 token positions
+   (the port's ``LM`` takes tokens through the 504-entry table, not
+   frame embeddings) against ``attn_impl="blockwise"`` on the same
+   weights.  Every row's logits must reach a cosine of 0.999, with
+   ``flash_attention`` launched once a layer and no other kernel.
 7. timing — each kernel and its plain version at the main path's shapes
    (CUDA events over back-to-back calls: ``ms``), the kernel's device
    time with the host taken out (calls captured in a CUDA graph:
-   ``device_ms``), beside the least time the card could take for the
-   bytes each call must move and the operations it must do, and, for
+   ``device_ms``; for the queue kernels beside ``launch_floor_ms``, the
+   device time of a one-element ``fill_`` timed the same way), beside
+   the least time the card could take for the bytes each call must move
+   and the operations it must do, and, for
    attention, one ``scaled_dot_product_attention`` call on the same
    inputs, timed both ways (``library_ms``, ``library_device_ms``);
    ``rwkv6_scan`` and ``mamba_scan`` at the serving prefill's T 16 and at
    T 2048 (no PyTorch call computes either).
 
-Each path (PHOLD, PoC, each served model) runs with every kernel's
-launch count set to 0 just before it and read just after.
+Each path (PHOLD, PoC, each served model, hubert's forward) runs with
+every kernel's launch count set to 0 just before it and read just
+after.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
@@ -119,25 +134,39 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 
+HUBERT = "hubert-xlarge"
+HUBERT_LAYERS = 2          # of 48
+# 512 frames (10.24 s of audio at 20 ms): both packages' flash_attention
+# take T only as a multiple of its 128-row block_q past 128, so the 499
+# frames of 10 s run through the kernel directly (FLASH_SHAPES).
+HUBERT_T = 512
+
 # The serving path's attention shapes (stablelm-12b: 32 heads, 8 KV
-# heads, head_dim 160) and the new designs' edges: (B, H, KV, T, S, D,
-# causal) for flash -- T off the 128-row tile (7, 16, 100, 1000), G 1, 3,
-# 4 and 8, D 64, 128 and 160 (bf16 takes only these), S != T without the
-# causal mask, and a head dim only the f32 route takes -- and (B, H, KV,
-# S, D, lengths) for decode, where "edges" puts lengths at 0 and at the
+# heads, head_dim 160) and the designs' edges: (B, H, KV, T, S, D,
+# causal) for flash -- T off the 128-row tile (7, 16, 100, 499, 1000), G
+# 1, 3, 4 and 8, S != T without the causal mask, hubert-xlarge's layout
+# (16 heads, MHA, head_dim 80, bidirectional; the hubert phase's
+# HUBERT_T, and 499 frames, 10 s of audio at 20 ms) -- and (B, H, KV, S,
+# D, lengths) for decode, where "edges" puts lengths at 0 and at the
 # first split boundary +- 1 beside long ones (``choose_splits`` of the
-# card), G 1 to 16 (two head chunks) and D 48 to 256.
+# card), G 1 to 16 (two head chunks) and D 48 to 256.  FLASH_HEAD_DIMS adds every head dim the wrappers
+# take, in both dtypes.
 FLASH_SHAPES = [(1, 32, 8, 32, 32, 160, True), (1, 32, 8, 128, 128, 160, True),
                 (1, 32, 8, 2048, 2048, 160, True),
                 (1, 24, 8, 512, 512, 128, True),
                 (1, 4, 4, 256, 256, 64, False),
                 # jamba (64 heads, 8 KV heads, head_dim 128), exact lengths
                 (1, 64, 8, 7, 7, 128, True), (1, 64, 8, 16, 16, 128, True),
+                # hubert-xlarge: the hubert phase's T, and 10 s off the tile
+                (1, 16, 16, HUBERT_T, HUBERT_T, 80, False),
+                (1, 16, 16, 499, 499, 80, False),
+                (1, 16, 16, 32, 32, 80, False),
                 (2, 32, 8, 100, 100, 160, True),
                 (1, 8, 8, 1000, 1000, 64, True),
                 (1, 32, 8, 100, 300, 160, False),
                 (2, 16, 2, 48, 17, 128, False),
                 (1, 8, 2, 50, 50, 48, True)]
+FLASH_HEAD_DIMS = range(16, 257, 16)     # at (1, 6, 2, 100, 100, D, D % 32)
 DECODE_SHAPES = [(4, 32, 8, 256, 160, (1, 31, 200, 256)),
                  (4, 32, 8, 4096, 160, (4096, 1000, 17, 2049)),
                  (4, 64, 8, 256, 128, (1, 31, 200, 256)),
@@ -191,8 +220,16 @@ MAMBA_TOL = 1e-5           # of the reference's largest |y| or |h|
 SFU_OPS_PER_S = 132 * 16 * 1.98e9   # H100 SXM special-function units (exp)
 MIN_MAMBA_COSINE = 0.9999
 
-WINDOW_SHAPES = [(256, 4), (256, 16), (16, 4)]     # (front_cap, k)
-MERGE_SHAPES = [(256, 4), (256, 32)]               # (front_cap, R)
+# The queue kernels' cases: (front_cap, k, W) and (front_cap, R, W).
+# PHOLD's (256, 4, 4), then the designs' edges: F off a warp (40, 100,
+# 300: window_extract loops past its 256 threads), W 1 and 3 (scalar arg
+# copies) and 6 (args left in memory), R 1, 31, 32 (one warp of rows), 33
+# and 64, and F + R past 512 (the general merge kernel).
+WINDOW_SHAPES = [(256, 4, 4), (256, 16, 4), (16, 4, 4), (40, 32, 1),
+                 (100, 7, 3), (256, 32, 3), (300, 4, 6)]
+MERGE_SHAPES = [(256, 4, 4), (256, 32, 4), (40, 1, 1), (100, 31, 3),
+                (100, 33, 4), (256, 64, 4), (480, 32, 4), (600, 4, 4),
+                (256, 4, 6)]
 
 
 class PhaseError(RuntimeError):
@@ -291,14 +328,18 @@ def check_kernels(device) -> dict:
 
     errs = {"window_extract": 0.0, "front_merge": 0.0}
     cases = 0
-    la = torch.tensor([0.5, 1.0, 0.0], device=device)
+    t_hi = {"ties": 2, "all_ties": 1}
     seed = 0
-    for F, k in WINDOW_SHAPES:
-        for case in ("seed0", "seed1", "ties", "partial", "empty", "cap"):
+    for F, k, W in WINDOW_SHAPES:
+        for case in ("seed0", "seed1", "ties", "all_ties", "partial", "empty",
+                     "cap", "types40"):
             seed += 1
             rng = np.random.default_rng(seed)
             front_n = {"partial": k // 2, "empty": 0}.get(case, F)
-            cols = cuda(_front(rng, F, front_n, 2 if case == "ties" else 8))
+            types = 40 if case == "types40" else 3
+            cols = cuda(_front(rng, F, front_n, t_hi.get(case, 8), W, types))
+            la = torch.tensor(rng.integers(0, 3, types) * 0.5,
+                              dtype=torch.float32, device=device)
             t_cap = 1.5 if case == "cap" else None
             got = qf.window_extract_cuda(*cols, la, t_cap, k=k)
             want = qf.window_extract_plain(*cols, la, t_cap, k=k)
@@ -307,21 +348,21 @@ def check_kernels(device) -> dict:
             errs["window_extract"] = max(errs["window_extract"],
                                          _max_abs_err(got, want))
             if not ok:
-                raise PhaseError(f"window_extract F={F} k={k} {case}: "
+                raise PhaseError(f"window_extract F={F} k={k} W={W} {case}: "
                                  "kernel differs from plain version")
             cases += 1
-    for F, R in MERGE_SHAPES:
-        for case in ("seed0", "seed1", "ties", "partial", "empty",
+    for F, R, W in MERGE_SHAPES:
+        for case in ("seed0", "seed1", "ties", "all_ties", "partial", "empty",
                      "none_front", "all_front"):
             seed += 1
             rng = np.random.default_rng(seed)
             front_n = {"partial": F // 3, "empty": 0}.get(case, F)
-            cols = _front(rng, F, front_n, 2 if case == "ties" else 8)
-            t_hi = 2 if case == "ties" else 10
+            cols = _front(rng, F, front_n, t_hi.get(case, 8), W)
             rows = [
-                (rng.integers(0, t_hi, R) * 0.5).astype(np.float32),
+                (rng.integers(0, t_hi.get(case, 10), R) * 0.5).astype(
+                    np.float32),
                 rng.integers(0, 3, R).astype(np.int32),
-                rng.random((R, 4)).astype(np.float32),
+                rng.random((R, W)).astype(np.float32),
                 (10_000 + rng.permutation(R)).astype(np.int32),
                 {"none_front": np.zeros(R, bool),
                  "all_front": np.ones(R, bool)}.get(
@@ -335,7 +376,7 @@ def check_kernels(device) -> dict:
             errs["front_merge"] = max(errs["front_merge"],
                                       _max_abs_err(got, want))
             if not ok:
-                raise PhaseError(f"front_merge F={F} R={R} {case}: "
+                raise PhaseError(f"front_merge F={F} R={R} W={W} {case}: "
                                  "kernel differs from plain version")
             cases += 1
     phase("kernels", cases=cases, bit_identical=True,
@@ -403,21 +444,16 @@ def check_attention() -> dict:
             raise PhaseError(f"{kind} {label}: an output is {share} times "
                              "one bf16 rounding from the plain version's")
 
+    sweep = [(1, 6, 2, 100, 100, D, D % 32 == 0) for D in FLASH_HEAD_DIMS]
     for dtype in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL[str(dtype).split(".")[1]]
-        for B, H, KV, T, S, D, causal in FLASH_SHAPES:
+        for B, H, KV, T, S, D, causal in FLASH_SHAPES + sweep:
             q = _randn(gen, (B, T, H, D), dtype).transpose(1, 2)
             k = _randn(gen, (B, S, KV, D), dtype).transpose(1, 2)
             v = _randn(gen, (B, S, KV, D), dtype).transpose(1, 2)
             label = (f"flash {str(dtype)[6:]} B{B} H{H} KV{KV} T{T} S{S} "
-                     f"D{D} {'causal' if causal else 'full'}")
-            if dtype == torch.bfloat16 and D not in fa.WGMMA_HEAD_DIMS:
-                try:
-                    fa.flash_attention_cuda(q, k, v, causal=causal)
-                except ValueError:
-                    cases.append(f"{label} refused, as it must be")
-                    continue
-                raise PhaseError(f"flash_attention {label}: not refused")
+                     f"D{D} {'causal' if causal else 'full'} "
+                     f"{fa.flash_route(dtype, D)}")
             got = fa.flash_attention_cuda(q, k, v, causal=causal)
             want = fa.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
@@ -946,6 +982,76 @@ def run_serve_jamba() -> dict:
             ("mamba_scan", "flash_attention", "decode_attention")}
 
 
+def run_hubert() -> dict:
+    """hubert-xlarge's encoder forward on the card in bf16 through
+    ``LM(cfg, attn_impl="pallas").forward``, against ``blockwise`` on the
+    same weights; returns the kernels' launches in the kernel route's
+    forward."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The published widths (d_model 1280, 16 heads of 80, d_ff 5120,
+    # layernorm, gelu, bidirectional), depth cut to HUBERT_LAYERS.
+    full = get_config(HUBERT)
+    cfg = dataclasses.replace(full, num_layers=HUBERT_LAYERS)
+    model = LM(cfg, attn_impl="pallas").init(0)
+    rng = np.random.default_rng(4)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (1, HUBERT_T)),
+                          dtype=torch.int32, device=model.device)
+    # The main path: counts are zeroed just before and read just after.
+    reset_launches()
+    with torch.no_grad():
+        logits, _ = model.forward(tokens)
+    torch.cuda.synchronize()
+    every = read_launches()
+    model.attn_impl = "blockwise"
+    with torch.no_grad():
+        plain, _ = model.forward(tokens)
+    torch.cuda.synchronize()
+    plain_launches = read_launches()
+    # The vocabulary's 504 entries (the padded tail holds -1e30).
+    a = logits[0, :, :cfg.vocab_size].float()
+    b = plain[0, :, :cfg.vocab_size].float()
+    cos = F.cosine_similarity(a, b, dim=-1)
+    want = {name: 0 for name in every}
+    want["flash_attention"] = mixer_layers(cfg).get("gqa", 0)
+    problems = []
+    if every != want:
+        problems.append(f"launches {every}, expected {want}")
+    if plain_launches != every:
+        problems.append(f"blockwise launched {plain_launches}")
+    if not bool(torch.isfinite(a).all()):
+        problems.append("logits not finite")
+    if tuple(logits.shape) != (1, HUBERT_T, cfg.padded_vocab):
+        problems.append(f"logits of shape {tuple(logits.shape)}")
+    if float(cos.min()) < MIN_COSINE:
+        problems.append(f"min cosine {float(cos.min())} (min {MIN_COSINE})")
+    if problems:
+        raise PhaseError("hubert: " + "; ".join(problems))
+    phase("hubert", arch=cfg.name,
+          layers=f"{cfg.num_layers}_of_{full.num_layers}",
+          d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+          head_dim=cfg.resolved_head_dim, causal=cfg.causal,
+          dtype=str(model.embed.dtype)[6:], T=HUBERT_T,
+          input="tokens_through_the_504-entry_table_not_frame_embeddings",
+          against="blockwise", rows=HUBERT_T,
+          min_cosine=f"{float(cos.min()):.6f}",
+          max_abs_diff=f"{float((a - b).abs().max()):.4f}",
+          launches=json.dumps(every, separators=(",", ":")))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": every["flash_attention"]}
+
+
 def _uncounted_params(cfg) -> int:
     """Parameters the port holds that ``ArchConfig.param_count`` leaves
     out: the norm scales (two a layer and the final one), the mamba
@@ -1183,7 +1289,10 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def time_kernels(final_queue, lookaheads, launches, errs) -> list:
+def queue_cases(final_queue, lookaheads) -> list:
+    """The queue kernels at PHOLD's shapes, on the run's final front
+    tier: ``(name, Pallas line, kernel, plain, bytes, operations)`` each
+    (``scripts/torch_attention_ab.py`` times the same calls)."""
     import torch
 
     from repro_torch.kernels import queue_front as qf
@@ -1191,16 +1300,16 @@ def time_kernels(final_queue, lookaheads, launches, errs) -> list:
     q = final_queue
     F, W = q.f_args.shape
     k = 4
-    records = []
+    out = []
 
     # window_extract on the run's final front tier.
     w_in = [q.f_times, q.f_types, q.f_args, q.f_seqs, lookaheads]
     w_out = qf.window_extract_cuda(*w_in, None, k=k)
     ops = k * k + k * 4                      # cummin + take rule compares
-    records.append(("window_extract", 130,
-                    lambda: qf.window_extract_cuda(*w_in, None, k=k),
-                    lambda: qf.window_extract_plain(*w_in, None, k=k),
-                    _nbytes(w_in) + _nbytes(w_out), ops))
+    out.append(("window_extract", 130,
+                lambda: qf.window_extract_cuda(*w_in, None, k=k),
+                lambda: qf.window_extract_plain(*w_in, None, k=k),
+                _nbytes(w_in) + _nbytes(w_out), ops))
 
     # front_merge of one PHOLD emit block (R = max_batch_len rows) bound
     # for that front: times inside the front's span, fresh seqs.
@@ -1214,13 +1323,28 @@ def time_kernels(final_queue, lookaheads, launches, errs) -> list:
             torch.ones(R, dtype=torch.bool, device=dev)]
     m_out = qf.front_merge_cuda(*m_in)
     ops = 5 * R * R + R * F + 2 * (F + R) * R  # rank, insertion, rebuild
-    records.append(("front_merge", 249,
-                    lambda: qf.front_merge_cuda(*m_in),
-                    lambda: qf.front_merge_plain(*m_in),
-                    _nbytes(m_in) + _nbytes(m_out), ops))
+    out.append(("front_merge", 249,
+                lambda: qf.front_merge_cuda(*m_in),
+                lambda: qf.front_merge_plain(*m_in),
+                _nbytes(m_in) + _nbytes(m_out), ops))
+    return out
 
+
+def launch_floor_ms() -> float:
+    """The device time of the least kernel: a one-element ``fill_``,
+    captured and timed as :func:`_device_ms` times every kernel."""
+    import torch
+
+    x = torch.empty(1, device="cuda")
+    return _device_ms(lambda: x.fill_(1.0))
+
+
+def time_kernels(final_queue, lookaheads, launches, errs) -> list:
+    F = final_queue.f_args.shape[0]
+    floor_ms = launch_floor_ms()
     out = []
-    for name, line, kernel, plain, nbytes, ops in records:
+    for name, line, kernel, plain, nbytes, ops in queue_cases(final_queue,
+                                                              lookaheads):
         ms = _time_ms(kernel)
         device_ms = _device_ms(kernel)
         plain_ms = _time_ms(plain)
@@ -1228,9 +1352,11 @@ def time_kernels(final_queue, lookaheads, launches, errs) -> list:
                       f"src/repro/kernels/queue_front.py:{line}",
                       launches[name], errs[name], ms, device_ms, plain_ms,
                       nbytes, ops, F32_OPS_PER_S, None, None)
+        rec["launch_floor_ms"] = floor_ms
         out.append(rec)
         phase("timing", kernel=name, F=F, bytes=nbytes, ops=ops,
               ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}",
+              launch_floor_ms=f"{floor_ms:.6f}",
               plain_ms=f"{plain_ms:.6f}", bound_ms=f"{rec['bound_ms']:.9f}")
     return out
 
@@ -1253,12 +1379,14 @@ def _record(name, source, replaces, launches, err, ms, device_ms, plain_ms,
     }
 
 
-def time_attention(launches, errs) -> list:
+def time_attention(launches, errs, hubert_launches) -> list:
     """Each attention kernel, its plain version and one
     ``scaled_dot_product_attention`` call at the serving path's shapes
     (bf16, H 32, KV 8, head_dim 160).  Returns the JSON records at the
     main path's own shapes (the prompt bucket T = S = 32; B = 4 slots,
-    S = max_len 256); flash at T = S = 2048 is printed beside them."""
+    S = max_len 256; hubert's forward: H 16, head_dim 80, T = S =
+    ``HUBERT_T``, bidirectional); flash at T = S = 2048 is printed beside
+    them."""
     import torch
     import torch.nn.functional as F
 
@@ -1269,39 +1397,48 @@ def time_attention(launches, errs) -> list:
     bf16 = torch.bfloat16
     src = "src/repro_torch/csrc/attention.cu"
     out = []
-    for T, reps, calls in ((32, 300, 50), (2048, 20, 10)):
-        B, H, KV, D = 1, 32, 8, 160
+    for T, H, KV, D, causal, reps, calls in (
+            (32, 32, 8, 160, True, 300, 50), (2048, 32, 8, 160, True, 20, 10),
+            (HUBERT_T, 16, 16, 80, False, 100, 20)):
+        B = 1
         q = _randn(gen, (B, T, H, D), bf16).transpose(1, 2)
         k = _randn(gen, (B, T, KV, D), bf16).transpose(1, 2)
         v = _randn(gen, (B, T, KV, D), bf16).transpose(1, 2)
-        o = fa.flash_attention_cuda(q, k, v)
+        o = fa.flash_attention_cuda(q, k, v, causal=causal)
 
         def kernel():
-            return fa.flash_attention_cuda(q, k, v)
+            return fa.flash_attention_cuda(q, k, v, causal=causal)
 
         def library():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=True)
 
         ms = _time_ms(kernel, reps)
         device_ms = _device_ms(kernel, calls)
-        plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), reps)
+        plain_ms = _time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, causal=causal), reps)
         lib_ms = _time_ms(library, reps)
         lib_device_ms = _device_ms(library, calls)
         nbytes = _nbytes([q, k, v, o])
-        ops = 4 * D * H * B * T * (T + 1) // 2       # causal QK^T and PV
+        # QK^T and PV over the keys each query sees
+        pairs = T * (T + 1) // 2 if causal else T * T
+        ops = 4 * D * H * B * pairs
         rec = _record("flash_attention", src,
                       "src/repro/kernels/flash_attention.py:108",
-                      launches["flash_attention"], errs["flash_attention"],
-                      ms, device_ms, plain_ms, nbytes, ops, BF16_OPS_PER_S,
-                      lib_ms, lib_device_ms)
+                      launches["flash_attention"] if H == 32
+                      else hubert_launches["flash_attention"],
+                      errs["flash_attention"], ms, device_ms, plain_ms,
+                      nbytes, ops, BF16_OPS_PER_S, lib_ms, lib_device_ms)
         phase("timing", kernel="flash_attention", T=T, S=T, H=H, KV=KV,
-              D=D, bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
+              D=D, causal=causal, bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
               device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
               library_ms=f"{lib_ms:.6f}",
               library_device_ms=f"{lib_device_ms:.6f}",
               bound_ms=f"{rec['bound_ms']:.9f}", bound_by=rec["bound_by"])
         if T == 32:
+            out.append(rec)
+        elif H == 16:
+            rec["shape"] = f"hubert B{B} H{H} T{T} D{D} bidirectional bf16"
             out.append(rec)
 
     # stablelm-12b's decode (the record) and jamba's head layout.
@@ -1475,10 +1612,11 @@ def main() -> int:
     attn_launches = run_serve()
     rwkv_launches = run_serve_rwkv()
     jamba_launches = run_serve_jamba()
+    hubert_launches = run_hubert()
     lookaheads = torch.tensor([1.0], device="cuda")
     kernels = time_kernels(res.raw["final_queue"], lookaheads, launches,
                            errs)
-    kernels += time_attention(attn_launches, attn_errs)
+    kernels += time_attention(attn_launches, attn_errs, hubert_launches)
     kernels += time_rwkv(rwkv_launches, rwkv_errs)
     kernels += time_mamba(jamba_launches, mamba_errs)
 

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time the attention kernels of two checkouts on one card, in turns.
+"""Time the attention and queue kernels of two checkouts on one card, in
+turns.
 
     python3 scripts/torch_attention_ab.py --before DIR [--after DIR]
+        [--only attention|queue]
 
 ``DIR`` is the root of a checkout of the repository (for example an
 unpacked ``git archive`` of the parent commit); ``--after`` defaults to
@@ -15,9 +17,14 @@ lengths 1/31/200/256; H 32, KV 8, head_dim 160 and H 64, KV 8, head_dim
 128): ``ms`` per wrapper call back to back and ``device_ms`` per call
 inside a CUDA graph (``chip_smoke.py``'s ``_time_ms`` and
 ``_device_ms``), and one ``scaled_dot_product_attention`` call both
-ways.  Prints one JSON line per child and a summary line per checkout,
-shape and metric (the median over its children), with the card's
-``nvidia-smi`` name and power limit.
+ways.  Then the queue kernels at PHOLD's shapes (``chip_smoke.py``'s
+``queue_cases``: ``window_extract`` at k 4 and ``front_merge`` of 4 rows
+on the front tier PHOLD at ``chip_smoke.py``'s size leaves after
+``PHOLD_AB_BATCHES`` super-steps, run by the child's own package), both
+ways, beside the launch floor (``launch_floor_ms``: a one-element
+``fill_``).  Prints one JSON line per child and a summary line per
+checkout, shape and metric (the median over its children), with the
+card's ``nvidia-smi`` name and power limit.
 """
 
 from __future__ import annotations
@@ -37,9 +44,30 @@ SHAPES = [("flash_attention", 1, 32, 8, 32, 160),
           ("decode_attention", 4, 32, 8, 256, 160),
           ("decode_attention", 4, 64, 8, 256, 128)]
 DECODE_LENGTHS = (1, 31, 200, 256)
+PHOLD_AB_BATCHES = 256
 
 
-def child(tree: pathlib.Path) -> None:
+def queue_child(cs, out: dict) -> None:
+    """The queue kernels on PHOLD's front tier, with this child's
+    package."""
+    import torch
+
+    from repro_torch.examples import phold
+
+    prog = phold.build_program(num_lps=cs.PHOLD_LPS, t_stop=cs.PHOLD_T_STOP,
+                               max_batch_len=4, capacity=cs.PHOLD_CAPACITY)
+    sim = prog.build(backend="device", device="cuda", dispatch_mode="switch")
+    res = sim.run(phold.initial_state(cs.PHOLD_LPS, "cuda"),
+                  max_batches=PHOLD_AB_BATCHES)
+    lookaheads = torch.tensor([1.0], device="cuda")
+    for name, _, kernel, _, _, _ in cs.queue_cases(res.raw["final_queue"],
+                                                   lookaheads):
+        out[f"{name} PHOLD"] = {"ms": cs._time_ms(kernel),
+                                "device_ms": cs._device_ms(kernel)}
+    out["launch_floor"] = {"device_ms": cs.launch_floor_ms()}
+
+
+def child(tree: pathlib.Path, only) -> None:
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(1, str(ROOT))
     import torch
@@ -52,7 +80,7 @@ def child(tree: pathlib.Path) -> None:
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16 = torch.bfloat16
     out = {"tree": str(tree)}
-    for kernel, B, H, KV, N, D in SHAPES:
+    for kernel, B, H, KV, N, D in SHAPES if only != "queue" else ():
         if kernel == "flash_attention":
             q = cs._randn(gen, (B, N, H, D), bf16).transpose(1, 2)
             k = cs._randn(gen, (B, N, KV, D), bf16).transpose(1, 2)
@@ -88,6 +116,8 @@ def child(tree: pathlib.Path) -> None:
             "library_ms": cs._time_ms(lib, reps),
             "library_device_ms": cs._device_ms(lib, calls),
         }
+    if only != "attention":
+        queue_child(cs, out)
     print(json.dumps(out), flush=True)
 
 
@@ -95,10 +125,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--before", required=True, type=pathlib.Path)
     ap.add_argument("--after", type=pathlib.Path, default=ROOT)
+    ap.add_argument("--only", choices=("attention", "queue"))
     ap.add_argument("--child", type=pathlib.Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        child(args.child.resolve())
+        child(args.child.resolve(), args.only)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -109,7 +140,8 @@ def main() -> int:
     for label in ("before", "after", "after", "before"):
         tree = getattr(args, label).resolve()
         proc = subprocess.run([sys.executable, __file__, "--before", str(tree),
-                               "--child", str(tree)],
+                               "--child", str(tree)]
+                              + (["--only", args.only] if args.only else []),
                               capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)

@@ -115,7 +115,7 @@ def main() -> int:
         lib = ctypes.CDLL(str(so))
         _build._LIBS["attention"] = lib
         fa._LIB = None
-        fa.PLANS.clear()
+        _build.PLANS.clear()
         if fa._lib() is not lib:
             raise SystemExit("the wrapper did not load the build under test")
         got = fa.flash_attention_cuda(q, k, v)

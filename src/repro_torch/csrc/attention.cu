@@ -35,17 +35,21 @@
 //    at position r / G), so every K/V tile read serves all G heads and a
 //    short prompt still fills a 64-row wgmma tile.  Two consumer
 //    warpgroups each own 64 rows.  S = Q K^T runs on wgmma m64n64k16
-//    (Q and K from shared memory, K-major), the online softmax runs on
-//    the accumulator fragment in registers, and P is the register A
-//    operand of O += P V on wgmma m64nDk16 with V read MN-major from
-//    shared memory.  P goes in as three bf16 terms (hi + mid + lo, f32
-//    precision): rounding P once to bf16, as FlashAttention does, put
-//    38,770 of the 131,072 bf16 outputs of jamba's prefill an ulp off
-//    the f32 plain version, two terms 206, three 14, about as many as
-//    the plain version itself misrounds (scripts/torch_flash_pterms.py),
-//    at twice the tensor-core work of one term.  K/V tiles of
-//    64 keys come through a 2-stage ring filled by 16-byte cp.async, the
-//    copy of tile k+1 in flight while tile k is multiplied.  Shared
+//    (Q and K from shared memory, K-major, D / 16 k-steps), the online
+//    softmax runs on the accumulator fragment in registers, and P is the
+//    register A operand of O += P V with V read MN-major from shared
+//    memory, on wgmma m64nNk16 over pieces of N that sum to D (one piece
+//    at 64, 80, 128 and 160; at most three, 256 = 160 + 80 + 16), so
+//    every head dim from 16 to 256 in steps of 16 runs here, spill-free
+//    (hubert-xlarge's 80 on m64n80k16).  P goes in as three bf16 terms
+//    (hi + mid + lo, f32 precision): rounding P once to bf16, as
+//    FlashAttention does, put 38,770 of the 131,072 bf16 outputs of
+//    jamba's prefill an ulp off the f32 plain version, two terms 206,
+//    three 14, about as many as the plain version itself misrounds
+//    (scripts/torch_flash_pterms.py), at twice the tensor-core work of
+//    one term.  K/V tiles of 64 keys come through a 2-stage ring filled
+//    by 16-byte cp.async, the copy of tile k+1 in flight while tile k is
+//    multiplied.  Shared
 //    memory holds the canonical no-swizzle core-matrix layout (8 rows x
 //    16 bytes contiguous) that the wgmma descriptors name.  Key tiles
 //    wholly in the future of the whole query tile are skipped; rows at
@@ -192,98 +196,133 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (bf16 pairs),
-// B from shared memory, MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
+// D[64 x N] += A[64 x 16] * B[16 x N], A in registers (bf16 pairs), B
+// from shared memory, MN-major (transposed); d holds the N / 2
+// accumulators of the fragment.  N is 16, 32, 64, 80, 128 or 160.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
-      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
-      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      " %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] * B[16 x 128], A in registers (bf16 pairs),
-// B from shared memory, MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
-      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
-      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      " %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 160] += A[64 x 16] * B[16 x 160], A in registers (bf16 pairs),
-// B from shared memory, MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[80],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
-      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
-      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
-      " %70, %71, %72, %73, %74, %75, %76, %77, %78, %79},"
-      " {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7},"
+        " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        " %10, %11, %12, %13, %14, %15},"
+        " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31},"
+        " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 80) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39},"
+        " {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        " %60, %61, %62, %63},"
+        " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 160) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+        " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+        " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+        " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+        " %70, %71, %72, %73, %74, %75, %76, %77, %78, %79},"
+        " {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(N < 0, "no wgmma form for this width");
+  }
 }
 
 // --------------------------------------------------------------------
@@ -440,6 +479,25 @@ __device__ __forceinline__ uint32_t tile_off(int row, int dc, int rows) {
   return (row & 7) * 16 + (row >> 3) * 128 + dc * rows * 16;
 }
 
+// The P V product's N = D is split into pieces of the widths that have a
+// wgmma_rs form, widest first: at most three (256 = 160 + 80 + 16).
+__host__ __device__ constexpr int pv_piece(int rem) {
+  return rem >= 160 ? 160 : rem >= 128 ? 128 : rem >= 80 ? 80
+       : rem >= 64 ? 64 : rem >= 32 ? 32 : rem >= 16 ? 16 : 0;
+}
+
+// O[:, Off, Off + Rem) += P V[:, Off, Off + Rem): one wgmma per piece, V
+// tile columns Off / 8 core matrices in (kWgKeys * 16 bytes apart).
+template <int Off, int Rem>
+__device__ __forceinline__ void pv_product(float* acc, const uint32_t (&a)[4],
+                                           uint32_t v_addr) {
+  constexpr int n = pv_piece(Rem);
+  static_assert(n > 0, "D must be a multiple of 16");
+  wgmma_rs<n>(acc + Off / 2, a,
+              make_desc(v_addr + (Off / 8) * kWgKeys * 16, 128, kWgKeys * 16));
+  if constexpr (Rem > n) pv_product<Off + n, Rem - n>(acc, a, v_addr);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -448,8 +506,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
     long long qst, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long ost, int causal, float scale_log2) {
-  static_assert(D % 32 == 0 && D <= 256, "D: a multiple of 32, at most 256");
-  constexpr int kDc4 = D / 32;                    // 4-chunk column groups
+  static_assert(D % 16 == 0 && D <= 256, "D: a multiple of 16, at most 256");
+  constexpr int kDc = D / 8;                      // 16-byte chunks a row
   constexpr uint32_t kQBytes = kWgRows * D * 2;
   constexpr uint32_t kTileBytes = kWgKeys * D * 2;
   extern __shared__ __align__(128) unsigned char wg_smem[];
@@ -465,12 +523,12 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int rows_total = Tq * G;
 
-  // Copies: lane (rl, dsub) moves chunk (8 u' + rl, 4 u'' + dsub) of warp
-  // step u, so each warp writes whole core matrices (conflict-free) and
-  // reads 64 contiguous bytes of each of 8 rows.
-  const int rl = lane & 7, dsub = lane >> 3;
-  for (int u = warp; u < (kWgRows / 8) * kDc4; u += kWgThreads / 32) {
-    const int row = (u / kDc4) * 8 + rl, dc = (u % kDc4) * 4 + dsub;
+  // Copies: copy c moves row 8 (m / kDc) + c % 8, chunk m % kDc of core
+  // matrix m = c / 8, so 8 lanes write one core matrix (conflict-free) and
+  // a warp reads 64 contiguous bytes of each of 8 rows.
+  const int rl = lane & 7;
+  for (int c = tid; c < kWgRows * kDc; c += kWgThreads) {
+    const int m = c >> 3, row = (m / kDc) * 8 + rl, dc = m % kDc;
     const int R = R0 + row;
     const bool in = R < rows_total;
     const int t = in ? R / G : 0, g = in ? R - (R / G) * G : 0;
@@ -485,8 +543,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
   const __nv_bfloat16* vb = v + b * vsb + kvh * vsh;
   auto load_kv = [&](int kt, int st) {
     const uint32_t dK = sKV + st * 2 * kTileBytes, dV = dK + kTileBytes;
-    for (int u = warp; u < (kWgKeys / 8) * kDc4; u += kWgThreads / 32) {
-      const int row = (u / kDc4) * 8 + rl, dc = (u % kDc4) * 4 + dsub;
+    for (int c = tid; c < kWgKeys * kDc; c += kWgThreads) {
+      const int m = c >> 3, row = (m / kDc) * 8 + rl, dc = m % kDc;
       const int s = kt * kWgKeys + row;
       const bool in = s < S;  // keys past S are zero-filled, never read
       const long long sr = in ? s : 0;
@@ -601,10 +659,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_wgmma_kernel(
     fence_regs(acc);
 #pragma unroll
     for (int kk = 0; kk < kWgKeys / 16; ++kk) {
-      const uint64_t dv = make_desc(dV + kk * 256, 128, kWgKeys * 16);
 #pragma unroll
       for (int term = 0; term < kPTerms; ++term)
-        wgmma_rs(acc, pa[term][kk], dv);
+        pv_product<0, D>(acc, pa[term][kk], dV + kk * 256);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -916,6 +973,35 @@ int flash_bf16_launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// The bf16 wgmma kernel at every head dim the wrappers take (16 to 256
+// in steps of 16): ptxas reports no spills at any of them (140
+// registers at 16, 193 at 80, 245 at 256; the O accumulator alone is
+// D / 2 a thread).
+template <int... Ds>
+struct WgmmaDims {
+  static cudaError_t allow() {
+    cudaError_t e = cudaSuccess;
+    ((e = e == cudaSuccess
+              ? allow_smem(flash_wgmma_kernel<Ds>, wgmma_smem_bytes(Ds))
+              : e),
+     ...);
+    return e;
+  }
+  static int launch(int d, const void* q, const void* k, const void* v,
+                    void* o, int B, int H, int KV, int Tq, int S,
+                    const long long* st, int causal, float scale,
+                    cudaStream_t s) {
+    int status = (int)cudaErrorInvalidValue;
+    ((d == Ds ? (status = flash_bf16_launch<Ds>(q, k, v, o, B, H, KV, Tq, S,
+                                                 st, causal, scale, s))
+              : 0),
+     ...);
+    return status;
+  }
+};
+using FlashWgmma = WgmmaDims<16, 32, 48, 64, 80, 96, 112, 128, 144, 160, 176,
+                             192, 208, 224, 240, 256>;
+
 template <typename T, int NJ>
 int decode_launch_t(const void* q, const void* k, const void* v,
                     const int32_t* lengths, void* o, float* ws, int B, int H,
@@ -957,8 +1043,6 @@ bool shape_ok(int H, int KV, int D) {
          D <= kMaxHeadDim;
 }
 
-bool wgmma_head_dim(int D) { return D == 64 || D == 128 || D == 160; }
-
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // Every row a cp.async copy starts must be 16-byte aligned.
@@ -974,14 +1058,12 @@ bool strides_aligned(const long long* st, int n, int elem) {
 // (a launch then makes no other CUDA call, and a CUDA graph can capture
 // it).  Returns the first error, or 0.
 extern "C" int attention_init() {
-  cudaError_t e[15] = {
+  cudaError_t e[13] = {
       allow_smem(flash_attention_kernel<16>, flash_smem_bytes(64)),
       allow_smem(flash_attention_kernel<32>, flash_smem_bytes(128)),
       allow_smem(flash_attention_kernel<40>, flash_smem_bytes(160)),
       allow_smem(flash_attention_kernel<64>, flash_smem_bytes(256)),
-      allow_smem(flash_wgmma_kernel<64>, wgmma_smem_bytes(64)),
-      allow_smem(flash_wgmma_kernel<128>, wgmma_smem_bytes(128)),
-      allow_smem(flash_wgmma_kernel<160>, wgmma_smem_bytes(160)),
+      FlashWgmma::allow(),
       allow_smem(decode_split_kernel<float, 2>, decode_smem_bytes<float>(64)),
       allow_smem(decode_split_kernel<float, 4>,
                  decode_smem_bytes<float>(128)),
@@ -1004,8 +1086,8 @@ extern "C" int attention_init() {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  strides (elements, last dim 1):
-// q (b, h, t), k (b, kv, s), v (b, kv, s), o (b, h, t).  bf16 takes head
-// dims 64, 128 and 160 and 16-byte-aligned rows.
+// q (b, h, t), k (b, kv, s), v (b, kv, s), o (b, h, t).  bf16 needs
+// 16-byte-aligned rows.
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v, void* o,
                                       int B, int H, int KV, int Tq, int S,
@@ -1028,17 +1110,11 @@ extern "C" int flash_attention_launch(int dtype, const void* q,
     return flash_f32_launch<64>(q, k, v, o, B, H, KV, Tq, S, D, strides,
                                 causal, scale, s);
   }
-  if (dtype != 1 || !wgmma_head_dim(D) || !aligned16(q) || !aligned16(k) ||
-      !aligned16(v) || !strides_aligned(strides, 9, 2))
+  if (dtype != 1 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      !strides_aligned(strides, 9, 2))
     return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return flash_bf16_launch<64>(q, k, v, o, B, H, KV, Tq, S, strides,
-                                 causal, scale, s);
-  if (D == 128)
-    return flash_bf16_launch<128>(q, k, v, o, B, H, KV, Tq, S, strides,
-                                  causal, scale, s);
-  return flash_bf16_launch<160>(q, k, v, o, B, H, KV, Tq, S, strides, causal,
-                                scale, s);
+  return FlashWgmma::launch(D, q, k, v, o, B, H, KV, Tq, S, strides, causal,
+                            scale, s);
 }
 
 // strides (elements, last dim 1): q (b, h), k (b, kv, s), v (b, kv, s),

@@ -4,6 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by
 ``nvcc`` for ``sm_90a`` into ``src/repro_torch/_build/`` (listed in
 ``.gitignore``) at first use, keyed by the source's hash, and loaded
 with :mod:`ctypes`.  Nothing is compiled when a module is imported.
+
+The wrappers of every kernel family share the launch helpers here: the
+plan cache (``PLANS``, keyed by :func:`signature`, filled by
+:func:`remember`) and :func:`launch_on`.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import os
 import pathlib
 import shutil
 import subprocess
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,6 +36,13 @@ NVCC_FLAGS = (
 # name -> compiler log (ptxas register / shared-memory report)
 BUILD_LOG: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+# Call signature (each operand's shape, strides, dtype and device, and the
+# host arguments that the checks read) -> its launch arguments, built once
+# by a wrapper's full checks; a call whose signature was checked before
+# skips them.  The keys start with the kernel's name.
+PLANS: dict = {}
+MAX_PLANS = 1024
 
 
 def _nvcc() -> str:
@@ -71,3 +84,28 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LIBS[name] = lib
     return lib
+
+
+def signature(*tensors) -> tuple:
+    """What the checks of a call read: each operand's shape, strides,
+    dtype and device."""
+    return tuple((t.shape, t.stride(), t.dtype, t.device) for t in tensors)
+
+
+def remember(key, plan):
+    if len(PLANS) >= MAX_PLANS:
+        PLANS.clear()
+    PLANS[key] = plan
+    return plan
+
+
+def launch_on(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` with ``device`` current and its current
+    stream; ``torch.cuda.device`` is entered only when ``device`` is not
+    current already.  The stream is read raw, as PyTorch's generated
+    kernels read it: ``torch.cuda.current_stream()`` builds a Stream
+    object on every call."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))

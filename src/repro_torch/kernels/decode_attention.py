@@ -36,18 +36,15 @@ import math
 
 import torch
 
+from repro_torch.kernels._build import PLANS, launch_on, remember, signature
 from repro_torch.kernels.flash_attention import (
     DTYPES,
-    PLANS,
     _lib,
     check_data_aligned,
     check_head_dim,
     check_operand,
     check_rows_aligned,
     check_smem,
-    launch_on,
-    remember,
-    signature,
 )
 from repro_torch.kernels.ref import decode_attention_ref
 

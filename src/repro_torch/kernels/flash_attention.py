@@ -15,12 +15,12 @@ CPU and the CUDA kernel (``src/repro_torch/csrc/attention.cu``, built at
 first use) for tensors on a CUDA device; anything else raises.
 ``LAUNCHES`` counts wrapper calls that launched the kernel.
 
-Routes on the card: bf16 inputs (what serving passes) go to the tensor-
-core kernel (``wgmma`` for both products, head dims 64, 128 and 160,
+Routes on the card (:func:`flash_route`): bf16 inputs (what serving
+passes) go to the tensor-core kernel (``wgmma`` for both products,
 16-byte-aligned rows; the softmax weights enter the P V product as three
 bf16 terms, so the sums keep f32 precision as the Pallas kernel's do);
-f32 inputs go to the exact-f32 kernel on the CUDA cores (any head dim of
-:func:`check_head_dim`).  A call launches one kernel.
+f32 inputs go to the exact-f32 kernel on the CUDA cores.  Both take
+every head dim of :func:`check_head_dim`.  A call launches one kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from repro_torch.kernels._build import PLANS, launch_on, remember, signature
 from repro_torch.kernels.ref import flash_attention_ref
 
 # Kernel launches since the last reset.  Only the CUDA route adds to it,
@@ -37,16 +38,10 @@ from repro_torch.kernels.ref import flash_attention_ref
 LAUNCHES = {"flash_attention": 0}
 
 MAX_HEAD_DIM = 256
-WGMMA_HEAD_DIMS = (64, 128, 160)   # head dims of the bf16 (wgmma) kernel
 SMEM_LIMIT = 232_448        # dynamic shared memory a block may use (H100)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIB = None
-# Call signature (each operand's shape, strides, dtype and device) -> its
-# launch arguments, built once by the full checks; a call whose signature
-# was checked before re-checks only its data pointers.
-PLANS: dict = {}
-MAX_PLANS = 1024
 
 
 def reset_launches() -> None:
@@ -87,6 +82,13 @@ def check_head_dim(D: int) -> None:
                          f"[16, {MAX_HEAD_DIM}]")
 
 
+def flash_route(dtype: torch.dtype, D: int) -> str:
+    """Which kernel a call of this dtype and head dim launches:
+    ``"wgmma"`` (bf16, on the tensor cores) or ``"cuda_core"`` (f32)."""
+    check_head_dim(D)
+    return "wgmma" if dtype == torch.bfloat16 else "cuda_core"
+
+
 def check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
     """Device, dtype and a contiguous last dim, as the kernels read."""
     if t.device != like.device:
@@ -114,19 +116,6 @@ def check_smem(kind: str, code: int, D: int, smem_bytes) -> None:
                          "shared memory")
 
 
-def signature(*tensors) -> tuple:
-    """What the checks of a call read: each operand's shape, strides,
-    dtype and device."""
-    return tuple((t.shape, t.stride(), t.dtype, t.device) for t in tensors)
-
-
-def remember(key, plan):
-    if len(PLANS) >= MAX_PLANS:
-        PLANS.clear()
-    PLANS[key] = plan
-    return plan
-
-
 def check_data_aligned(*named) -> None:
     """Each operand's first element on 16 bytes (checked every call: the
     pointers change from call to call)."""
@@ -134,16 +123,6 @@ def check_data_aligned(*named) -> None:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}'s data must start on 16 bytes "
                              f"(data_ptr {t.data_ptr()})")
-
-
-def launch_on(device: torch.device, fn, *args) -> int:
-    """``fn(*args, stream)`` with ``device`` current and its current
-    stream; ``torch.cuda.device`` is entered only when ``device`` is not
-    current already."""
-    if device.index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(device):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 # The plain version: full score matrices in f32.
@@ -168,9 +147,6 @@ def _flash_plan(q, k, v):
     if KV < 1 or H % KV:
         raise ValueError(f"H={H} is not a multiple of KV={KV}")
     if code == 1:
-        if D not in WGMMA_HEAD_DIMS:
-            raise ValueError(f"bfloat16 flash_attention takes head_dim in "
-                             f"{WGMMA_HEAD_DIMS}, not {D}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             check_rows_aligned(name, t)
     lib = _lib()

@@ -19,6 +19,16 @@ CUDA kernel (``src/repro_torch/csrc/queue_front.cu``, built at first
 use) for tensors on a CUDA device; anything else raises.  Both kernels
 are bit-identical to their plain versions.  ``LAUNCHES`` counts kernel
 launches per kernel name.
+
+The CUDA wrappers run their full checks once per call signature (each
+operand's shape, strides, dtype and device, and the host arguments):
+:func:`window_extract_plan` and :func:`front_merge_plan` remember the
+launch arguments in the plan cache that every kernel's wrapper shares
+(:mod:`repro_torch.kernels._build`).  A later call with the same
+signature only allocates its outputs and launches, with the tensors'
+pointers passed in one ctypes array; the kernels take any data pointer
+(they pick 16-byte copies themselves where the pointers allow), so none
+is re-checked.
 """
 
 from __future__ import annotations
@@ -37,12 +47,13 @@ from repro_torch.core.queue import (
     shift_left,
     window_prefix_mask,
 )
+from repro_torch.kernels._build import PLANS, launch_on, remember, signature
 
 # Kernel launches since the last reset, by kernel name.  Only the CUDA
 # route adds to them, at the launch.
 LAUNCHES = {"window_extract": 0, "front_merge": 0}
 
-MAX_WINDOW = 32      # the kernel keeps the window in 32-slot shared arrays
+MAX_WINDOW = 32      # the kernel runs the take rule in one warp
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
@@ -61,11 +72,9 @@ def _lib():
 
         lib = load("queue_front")
         lib.window_extract_launch.argtypes = (
-            [_ptr] * 5 + [_int, ctypes.c_float, _int, _int, _int]
-            + [_ptr] * 8 + [_ptr])
+            [_ptr, _int, ctypes.c_float, _int, _int, _int, _ptr])
         lib.window_extract_launch.restype = _int
-        lib.front_merge_launch.argtypes = (
-            [_ptr] * 10 + [_int, _int, _int] + [_ptr] * 4 + [_ptr])
+        lib.front_merge_launch.argtypes = [_ptr, _int, _int, _int, _ptr]
         lib.front_merge_launch.restype = _int
         _LIB = lib
     return _LIB
@@ -122,9 +131,9 @@ def window_extract_plain(f_times, f_types, f_args, f_seqs, lookaheads,
             shift_left(f_seqs, I32_MAX, length, k))
 
 
-def window_extract_cuda(f_times, f_types, f_args, f_seqs, lookaheads,
-                        t_cap=None, *, k: int):
-    """The same function as one launch of the CUDA kernel."""
+def _window_plan(f_times, f_types, f_args, f_seqs, lookaheads, t_cap, k):
+    """Every check of a ``window_extract`` call, and its launch
+    arguments."""
     dev = f_times.device
     F = f_times.shape[0]
     W = f_args.shape[1] if f_args.dim() == 2 else -1
@@ -139,26 +148,45 @@ def window_extract_cuda(f_times, f_types, f_args, f_seqs, lookaheads,
                          f"min(front_cap={F}, {MAX_WINDOW})]")
     if T < 1:
         raise ValueError("lookaheads must name at least one type")
+    if W < 1:
+        raise ValueError("f_args must have at least one column")
     if t_cap is not None and not isinstance(t_cap, (int, float)):
         raise TypeError("t_cap must be a host number or None")
     cap = INF if t_cap is None else _f32(t_cap)
-    ts = torch.empty((k,), dtype=torch.float32, device=dev)
-    tys = torch.empty((k,), dtype=torch.int32, device=dev)
-    args = torch.empty((k, W), dtype=torch.float32, device=dev)
-    length = torch.empty((), dtype=torch.int32, device=dev)
-    nt = torch.empty_like(f_times)
-    ny = torch.empty_like(f_types)
-    na = torch.empty_like(f_args)
-    ns = torch.empty_like(f_seqs)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.window_extract_launch(
-            f_times.data_ptr(), f_types.data_ptr(), f_args.data_ptr(),
-            f_seqs.data_ptr(), lookaheads.data_ptr(), T, cap, F, W, k,
-            ts.data_ptr(), tys.data_ptr(), args.data_ptr(), length.data_ptr(),
-            nt.data_ptr(), ny.data_ptr(), na.data_ptr(), ns.data_ptr(),
-            stream)
+    return dev, (T, cap, F, W, k)
+
+
+def window_extract_plan(f_times, f_types, f_args, f_seqs, lookaheads,
+                        t_cap=None, *, k: int):
+    """The launch plan of this call signature, built by
+    :func:`_window_plan` the first time it is seen."""
+    key = ("window_extract", k, t_cap) + signature(
+        f_times, f_types, f_args, f_seqs, lookaheads)
+    return PLANS.get(key) or remember(key, _window_plan(
+        f_times, f_types, f_args, f_seqs, lookaheads, t_cap, k))
+
+
+def window_extract_cuda(f_times, f_types, f_args, f_seqs, lookaheads,
+                        t_cap=None, *, k: int):
+    """The same function as one launch of the CUDA kernel."""
+    dev, dims = window_extract_plan(f_times, f_types, f_args, f_seqs,
+                                    lookaheads, t_cap, k=k)
+    F, W = dims[2], dims[3]
+    f32, i32 = torch.float32, torch.int32
+    ts = torch.empty(k, dtype=f32, device=dev)
+    tys = torch.empty(k, dtype=i32, device=dev)
+    args = torch.empty(k, W, dtype=f32, device=dev)
+    length = torch.empty((), dtype=i32, device=dev)
+    nt = torch.empty(F, dtype=f32, device=dev)
+    ny = torch.empty(F, dtype=i32, device=dev)
+    na = torch.empty(F, W, dtype=f32, device=dev)
+    ns = torch.empty(F, dtype=i32, device=dev)
+    ptrs = (ctypes.c_void_p * 13)(
+        f_times.data_ptr(), f_types.data_ptr(), f_args.data_ptr(),
+        f_seqs.data_ptr(), lookaheads.data_ptr(), ts.data_ptr(),
+        tys.data_ptr(), args.data_ptr(), length.data_ptr(), nt.data_ptr(),
+        ny.data_ptr(), na.data_ptr(), ns.data_ptr())
+    status = launch_on(dev, _lib().window_extract_launch, ptrs, *dims)
     _launch_status("window_extract", status)
     LAUNCHES["window_extract"] += 1
     return ts, tys, args, length, nt, ny, na, ns
@@ -211,9 +239,10 @@ def front_merge_plain(f_times, f_types, f_args, f_seqs, front_n,
             fmerge(f_args, rarg, 0.0), fmerge(f_seqs, rseq, I32_MAX))
 
 
-def front_merge_cuda(f_times, f_types, f_args, f_seqs, front_n,
-                     t_r, ty_r, arg_r, seq_r, to_front):
-    """The same function as one launch of the CUDA kernel."""
+def _merge_plan(f_times, f_types, f_args, f_seqs, front_n, t_r, ty_r,
+                arg_r, seq_r, to_front):
+    """Every check of a ``front_merge`` call, and its launch
+    arguments."""
     dev = f_times.device
     F, R = f_times.shape[0], t_r.shape[0]
     W = f_args.shape[1] if f_args.dim() == 2 else -1
@@ -229,19 +258,39 @@ def front_merge_cuda(f_times, f_types, f_args, f_seqs, front_n,
     _check("to_front", to_front, torch.bool, (R,), dev)
     if not 1 <= R <= 1024:
         raise ValueError(f"{R} emit rows; the kernel takes 1..1024")
-    outs = (torch.empty((F + R,), dtype=torch.float32, device=dev),
-            torch.empty((F + R,), dtype=torch.int32, device=dev),
-            torch.empty((F + R, W), dtype=torch.float32, device=dev),
-            torch.empty((F + R,), dtype=torch.int32, device=dev))
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.front_merge_launch(
-            f_times.data_ptr(), f_types.data_ptr(), f_args.data_ptr(),
-            f_seqs.data_ptr(), front_n.data_ptr(), t_r.data_ptr(),
-            ty_r.data_ptr(), arg_r.data_ptr(), seq_r.data_ptr(),
-            to_front.data_ptr(), F, R, W,
-            *(o.data_ptr() for o in outs), stream)
+    if W < 1:
+        raise ValueError("f_args must have at least one column")
+    return dev, (F, R, W)
+
+
+def front_merge_plan(f_times, f_types, f_args, f_seqs, front_n, t_r, ty_r,
+                     arg_r, seq_r, to_front):
+    """The launch plan of this call signature, built by
+    :func:`_merge_plan` the first time it is seen."""
+    key = ("front_merge",) + signature(f_times, f_types, f_args, f_seqs,
+                                       front_n, t_r, ty_r, arg_r, seq_r,
+                                       to_front)
+    return PLANS.get(key) or remember(key, _merge_plan(
+        f_times, f_types, f_args, f_seqs, front_n, t_r, ty_r, arg_r, seq_r,
+        to_front))
+
+
+def front_merge_cuda(f_times, f_types, f_args, f_seqs, front_n,
+                     t_r, ty_r, arg_r, seq_r, to_front):
+    """The same function as one launch of the CUDA kernel."""
+    dev, dims = front_merge_plan(f_times, f_types, f_args, f_seqs, front_n,
+                                 t_r, ty_r, arg_r, seq_r, to_front)
+    F, R, W = dims
+    outs = (torch.empty(F + R, dtype=torch.float32, device=dev),
+            torch.empty(F + R, dtype=torch.int32, device=dev),
+            torch.empty(F + R, W, dtype=torch.float32, device=dev),
+            torch.empty(F + R, dtype=torch.int32, device=dev))
+    ptrs = (ctypes.c_void_p * 14)(
+        f_times.data_ptr(), f_types.data_ptr(), f_args.data_ptr(),
+        f_seqs.data_ptr(), front_n.data_ptr(), t_r.data_ptr(),
+        ty_r.data_ptr(), arg_r.data_ptr(), seq_r.data_ptr(),
+        to_front.data_ptr(), *(o.data_ptr() for o in outs))
+    status = launch_on(dev, _lib().front_merge_launch, ptrs, *dims)
     _launch_status("front_merge", status)
     LAUNCHES["front_merge"] += 1
     return outs

@@ -8,6 +8,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
 
@@ -20,8 +21,12 @@ def _flash_inputs(D=64, dtype=torch.bfloat16, T=8, H=4, KV=2):
 
 @pytest.mark.parametrize("D", [16, 48, 96, 256])
 def test_bf16_flash_takes_only_the_wgmma_head_dims(D):
-    q, k, v = _flash_inputs(D)
-    with pytest.raises(ValueError, match="takes head_dim in"):
+    """The wgmma kernel is instantiated at every multiple of 16 up to 256
+    (``tests/test_torch_flash_head_dims.py`` plans a bf16 launch at each);
+    the wrapper refuses a bf16 call at a head dim between them before
+    any build."""
+    q, k, v = _flash_inputs(D + 8)
+    with pytest.raises(ValueError, match="multiple of 16"):
         tflash.flash_attention_cuda(q, k, v)
 
 
@@ -75,17 +80,17 @@ def test_decode_keeps_its_checks(bad):
 
 def test_signature_tells_layouts_apart():
     q, k, v = _flash_inputs()
-    same = tflash.signature(q, k, v)
-    assert tflash.signature(q, k, v) == same
-    assert tflash.signature(q.contiguous(), k, v) != same
-    assert tflash.signature(q.float(), k, v) != same
+    same = _build.signature(q, k, v)
+    assert _build.signature(q, k, v) == same
+    assert _build.signature(q.contiguous(), k, v) != same
+    assert _build.signature(q.float(), k, v) != same
 
 
 def test_remember_bounds_the_plan_cache(monkeypatch):
-    monkeypatch.setattr(tflash, "PLANS", {})
-    monkeypatch.setattr(tflash, "MAX_PLANS", 3)
+    monkeypatch.setattr(_build, "PLANS", {})
+    monkeypatch.setattr(_build, "MAX_PLANS", 3)
     for i in range(7):
-        assert tflash.remember(("key", i), i) == i
-        assert len(tflash.PLANS) <= 3
-    assert tflash.PLANS[("key", 6)] == 6
+        assert _build.remember(("key", i), i) == i
+        assert len(_build.PLANS) <= 3
+    assert _build.PLANS[("key", 6)] == 6
 
