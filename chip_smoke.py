@@ -33,14 +33,20 @@ Phases, each printed on its own line:
    the serving prefill's shapes (B 1, H 32, K 64, T 4, 13, 16), T 2048 at
    B 1 and B 4, K 16 and 32, strided views of the model's ``[B,T,H,K]``
    streams and contiguous inputs, the model's decay range and a strong
-   decay (log w near -20).  y and the final state must agree within
-   1e-4 of the reference's largest magnitude: both sum the same f32
-   products, in another order, and a state error decays with w <= 1.
+   decay (log w near -20); and the kernel's edges (``RWKV_CASES``): T at
+   its 16-token tile - 1 and + 1, B 3, one, two and four column groups a
+   head (K 16, 32, 64), rows at odd strides (narrow copies) and log w at
+   the model's clamp floor, -e^4.  y and the final state must agree
+   within 1e-4 of the reference's largest magnitude: both sum the same
+   f32 products, in another order, and a state error decays with w <= 1.
 3c. mamba_kernel — ``mamba_scan`` against its plain version (the
    sequential recurrence in f32) on the same CUDA inputs, f32 and bf16:
    the serving prefill's shapes (B 1, I 16384, N 16, T 4, 13, 16) with
    B_t/C_t as column slices of the model's ``x_proj`` output, T 2048,
-   N 4 and 8, contiguous inputs, and a strong decay (dt near 15).  y and
+   N 4 and 8, contiguous inputs, and a strong decay (dt near 15); and the
+   kernel's edges (``MAMBA_CASES``): T at its 32-token tile - 1, the tile
+   and + 1, B 3, I off the block's 32 channels, one, two and four states
+   a lane (N 4, 8, 16) and ``x_proj`` slices at an odd column.  y and
    the final state must agree within 1e-5 of the reference's largest
    magnitude (both printed).
 4. phold — PHOLD at a GPU PDES deployment's size (917,504 LPs, one
@@ -92,8 +98,9 @@ Phases, each printed on its own line:
    time with the host taken out (calls captured in a CUDA graph:
    ``device_ms``; for the queue kernels beside ``launch_floor_ms``, the
    device time of a one-element ``fill_`` timed the same way), beside
-   the least time the card could take for the bytes each call must move
-   and the operations it must do, and, for
+   the least time the card could take for the bytes each call must move,
+   the f32 operations it must do and its exps on the special-function
+   units, and, for
    attention, one ``scaled_dot_product_attention`` call on the same
    inputs, timed both ways (``library_ms``, ``library_device_ms``);
    ``rwkv6_scan`` and ``mamba_scan`` at the serving prefill's T 16 and at
@@ -192,7 +199,11 @@ MIN_COSINE = 0.999
 
 RWKV_SERVE_ARGS = ["--arch", "rwkv6-1.6b"]
 # (B, H, T, K, layout, decay): the serving prefill (H 32, K 64, prompts
-# of 4-16 tokens), long sequences, the reduced and JAX-sweep head dims.
+# of 4-16 tokens), long sequences, the reduced and JAX-sweep head dims;
+# then the kernel's edges: T at its 16-token tile - 1 and + 1, B 3, every
+# K (one, two and four column groups a head), rows at odd strides (the
+# "odd" layout: 4-byte copies in f32, plain loads in bf16) and log w at
+# the model's clamp floor (-e^4 every token: "clamp").
 RWKV_CASES = [(1, 32, 4, 64, "view", "model"),
               (1, 32, 13, 64, "view", "model"),
               (1, 32, 16, 64, "view", "model"),
@@ -201,13 +212,26 @@ RWKV_CASES = [(1, 32, 4, 64, "view", "model"),
               (2, 8, 100, 16, "contiguous", "model"),
               (2, 8, 77, 32, "view", "model"),
               (1, 32, 64, 64, "view", "strong"),
-              (2, 4, 33, 16, "contiguous", "strong")]
+              (2, 4, 33, 16, "contiguous", "strong"),
+              (1, 32, 15, 64, "view", "model"),
+              (1, 32, 17, 64, "view", "model"),
+              (3, 5, 33, 64, "view", "model"),
+              (3, 3, 17, 32, "contiguous", "strong"),
+              (2, 3, 16, 16, "view", "model"),
+              (3, 2, 31, 32, "view", "model"),
+              (2, 3, 17, 64, "odd", "model"),
+              (1, 2, 40, 16, "odd", "strong"),
+              (1, 32, 33, 64, "view", "clamp")]
 RWKV_TOL = 1e-4            # of the reference's largest |y| or |S| (>= 1)
 
 JAMBA = "jamba-1.5-large-398b"
 JAMBA_LAYERS = 2           # the block's first two: (gqa, mlp), (mamba, moe)
 # (B, T, I, N, layout, decay): the serving prefill (I 16384, N 16, prompts
-# of 4-16 tokens), a long sequence, the reduced and other state dims.
+# of 4-16 tokens), a long sequence, the reduced and other state dims;
+# then the kernel's edges: T at its 32-token tile - 1, the tile and + 1,
+# B 3, I off the block's 32 channels, every N (one, two and four states
+# a lane) and x_proj slices at an odd column ("proj_odd": 4-byte copies
+# of B/C in f32, plain loads in bf16).
 MAMBA_CASES = [(1, 4, 16384, 16, "proj", "model"),
                (1, 13, 16384, 16, "proj", "model"),
                (1, 16, 16384, 16, "proj", "model"),
@@ -215,7 +239,16 @@ MAMBA_CASES = [(1, 4, 16384, 16, "proj", "model"),
                (2, 100, 128, 4, "contiguous", "model"),
                (2, 77, 256, 8, "proj", "model"),
                (1, 64, 16384, 16, "proj", "strong"),
-               (3, 33, 100, 4, "contiguous", "strong")]
+               (3, 33, 100, 4, "contiguous", "strong"),
+               (1, 31, 16384, 16, "proj", "model"),
+               (1, 32, 16384, 16, "proj", "model"),
+               (1, 33, 16384, 16, "proj", "model"),
+               (3, 33, 100, 8, "proj", "model"),
+               (2, 17, 40, 4, "proj", "model"),
+               (1, 5, 31, 16, "contiguous", "model"),
+               (2, 33, 96, 16, "proj_odd", "model"),
+               (3, 20, 100, 4, "proj_odd", "model"),
+               (1, 64, 16384, 16, "proj_odd", "strong")]
 MAMBA_TOL = 1e-5           # of the reference's largest |y| or |h|
 SFU_OPS_PER_S = 132 * 16 * 1.98e9   # H100 SXM special-function units (exp)
 MIN_MAMBA_COSINE = 0.9999
@@ -502,9 +535,11 @@ def check_attention() -> dict:
 def rwkv_inputs(gen, B, H, T, K, dtype, layout="view", decay="model"):
     """r, k, v, logw ``[B,H,T,K]`` and u ``[H,K]`` on the card.  "view":
     transposed views of ``[B,T,H,K]`` tensors, as the model hands them
-    over.  "model" decay: the init's per-channel ``linspace(-6, -0.5)``
-    plus N(0, 0.5²) in the log-log domain (w from 0.9975 down to about
-    0.1); "strong": log w near -20."""
+    over; "odd": slices at element 1 of ``[B,H,T,K+1]`` tensors (odd
+    strides).  "model" decay: the init's per-channel ``linspace(-6,
+    -0.5)`` plus N(0, 0.5²) in the log-log domain (w from 0.9975 down to
+    about 0.1); "strong": log w near -20; "clamp": log w = -e^4, the
+    floor of the model's clamp (``models/ssm.py``), every token."""
     import torch
 
     def t(shape):
@@ -516,12 +551,22 @@ def rwkv_inputs(gen, B, H, T, K, dtype, layout="view", decay="model"):
         base = base.view(H, K)
         base = base if layout == "view" else base[:, None, :]   # [H,(T,)K]
         logw = -torch.exp(base + 0.5 * t(shape))
-    else:
+    elif decay == "strong":
         logw = -torch.exp(3.0 + 0.5 * t(shape))
+    else:
+        logw = torch.full(shape, -float(torch.exp(torch.tensor(4.0))),
+                          device=gen.device)
     xs = [t(shape), t(shape), t(shape), logw]
     if layout == "view":
         xs = [x.transpose(1, 2) for x in xs]
-    return [x.to(dtype) for x in xs] + [(0.1 * t((H, K))).to(dtype)]
+    xs = [x.to(dtype) for x in xs]
+    if layout == "odd":
+        wide = [torch.zeros((B, H, T, K + 1), dtype=dtype,
+                            device=gen.device) for _ in xs]
+        for w, x in zip(wide, xs):
+            w[..., 1:] = x
+        xs = [w[..., 1:] for w in wide]
+    return xs + [(0.1 * t((H, K))).to(dtype)]
 
 
 def check_rwkv() -> dict:
@@ -571,7 +616,8 @@ def mamba_inputs(gen, B, T, I, N, dtype, layout="proj", decay="model"):
     """xdt, dt ``[B,T,I]``, bc, cc ``[B,T,N]`` and a ``[I,N]`` on the card.
     "proj": bc and cc are column slices of one ``[B,T,R+2N]`` tensor
     (R = I/32, jamba's dt_rank), as the model's ``x_proj`` output hands
-    them over.  "model" decay: the init's ``A = -(1..N)`` (each entry
+    them over; "proj_odd": the same with R odd (the slices start at an
+    odd column).  "model" decay: the init's ``A = -(1..N)`` (each entry
     jittered by a factor exp(0.1·N(0,1))) and ``dt = softplus(N(0,1) +
     log(expm1(U(0.001, 0.1))))``, as ``dt_proj`` plus ``dt_bias`` give
     it; "strong": dt near 15 (10 to 20), every decay exp(dt·A) below
@@ -592,9 +638,11 @@ def mamba_inputs(gen, B, T, I, N, dtype, layout="proj", decay="model"):
     a = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(I, N)
     a = a.contiguous() * torch.exp(0.1 * t((I, N)))
     R = max(1, I // 32)
-    proj = t((B, T, R + 2 * N))
+    if layout == "proj_odd":
+        R |= 1
+    proj = t((B, T, R + 2 * N)).to(dtype)     # sliced in its own dtype
     bc, cc = proj[..., R:R + N], proj[..., R + N:]
-    if layout != "proj":
+    if layout == "contiguous":
         bc, cc = bc.contiguous(), cc.contiguous()
     xs = [dt * t((B, T, I)), dt, bc, cc]
     return [x.to(dtype) for x in xs] + [a]
@@ -1362,19 +1410,27 @@ def time_kernels(final_queue, lookaheads, launches, errs) -> list:
 
 
 def _record(name, source, replaces, launches, err, ms, device_ms, plain_ms,
-            nbytes, ops, ops_per_s, library_ms, library_device_ms):
+            nbytes, ops, ops_per_s, library_ms, library_device_ms, exps=0):
     """One kernel's JSON record.  ``ms`` is a wrapper call timed back to
     back, ``device_ms`` the same call with the host taken out
     (:func:`_device_ms`); ``library_*`` the same for one PyTorch call of
-    the same function, where there is one."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ops_per_s * 1e3
+    the same function, where there is one.  The bound is the largest of
+    three times: the bytes over the memory rate, the operations over
+    ``ops_per_s`` and the ``exps`` over the special-function units
+    (``SFU_OPS_PER_S``); ``bound_by`` is "bytes" or "operations", and
+    ``bound_op`` names the operations' kind ("f32" or "exp") when they
+    win."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32": ops / ops_per_s * 1e3,
+             "exp": exps / SFU_OPS_PER_S * 1e3}
+    top = max(terms, key=terms.get)
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
         "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": terms[top],
+        "bound_by": "bytes" if top == "bytes" else "operations",
+        "bound_op": None if top == "bytes" else top,
         "library_ms": library_ms, "library_device_ms": library_device_ms,
     }
 
@@ -1507,17 +1563,19 @@ def time_rwkv(launches, errs) -> list:
                             warmup=1)
         nbytes = _nbytes(xs) + _nbytes([y, S])
         ops = B * H * T * (5 * K * K + 4 * K)   # kv, r.S, decay, bonus, exp
+        exps = B * H * T * K                    # w = exp(log w)
         rec = _record("rwkv6_scan", "src/repro_torch/csrc/rwkv6_scan.cu",
                       "src/repro/kernels/rwkv6_scan.py:92",
                       launches["rwkv6_scan"], errs["rwkv6_scan"], ms,
                       device_ms, plain_ms, nbytes, ops, F32_OPS_PER_S, None,
-                      None)
+                      None, exps)
         rec["shape"] = f"B{B} H{H} T{T} K{K} f32"
         phase("timing", kernel="rwkv6_scan", B=B, H=H, T=T, K=K,
               bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
               device_ms=f"{device_ms:.6f}",
               plain_ms=f"{plain_ms:.6f}", bound_ms=f"{rec['bound_ms']:.9f}",
-              bound_by=rec["bound_by"])
+              bound_by=rec["bound_by"], bound_op=rec["bound_op"],
+              exp_sfu_ms=f"{exps / SFU_OPS_PER_S * 1e3:.9f}")
         out.append(rec)
     return out
 
@@ -1550,13 +1608,13 @@ def time_mamba(launches, errs) -> list:
                       "src/repro/kernels/mamba_scan.py:87",
                       launches["mamba_scan"], errs["mamba_scan"], ms_,
                       device_ms, plain_ms, nbytes, ops, F32_OPS_PER_S, None,
-                      None)
+                      None, exps)
         rec["shape"] = f"B{B} T{T} I{I} N{N} f32"
         phase("timing", kernel="mamba_scan", B=B, T=T, I=I, N=N,
               bytes=nbytes, ops=ops, exps=exps, ms=f"{ms_:.6f}",
               device_ms=f"{device_ms:.6f}",
               plain_ms=f"{plain_ms:.6f}", bound_ms=f"{rec['bound_ms']:.9f}",
-              bound_by=rec["bound_by"],
+              bound_by=rec["bound_by"], bound_op=rec["bound_op"],
               exp_sfu_ms=f"{exps / SFU_OPS_PER_S * 1e3:.9f}")
         out.append(rec)
     return out

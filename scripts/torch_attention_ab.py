@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the attention and queue kernels of two checkouts on one card, in
-turns.
+"""Time the attention, queue and scan kernels of two checkouts on one
+card, in turns.
 
     python3 scripts/torch_attention_ab.py --before DIR [--after DIR]
-        [--only attention|queue]
+        [--only attention|queue|scans]
 
 ``DIR`` is the root of a checkout of the repository (for example an
 unpacked ``git archive`` of the parent commit); ``--after`` defaults to
@@ -22,7 +22,10 @@ ways.  Then the queue kernels at PHOLD's shapes (``chip_smoke.py``'s
 on the front tier PHOLD at ``chip_smoke.py``'s size leaves after
 ``PHOLD_AB_BATCHES`` super-steps, run by the child's own package), both
 ways, beside the launch floor (``launch_floor_ms``: a one-element
-``fill_``).  Prints one JSON line per child and a summary line per
+``fill_``).  Then the scans (``--only scans``: ``rwkv6_scan`` at
+rwkv6-1.6b's heads, B 1, H 32, K 64, and ``mamba_scan`` at jamba's, B 1,
+I 16384, N 16, both in f32 at T 16 and 2048, with ``chip_smoke.py``'s
+inputs), both ways.  Prints one JSON line per child and a summary line per
 checkout, shape and metric (the median over its children), with the
 card's ``nvidia-smi`` name and power limit.
 """
@@ -44,6 +47,7 @@ SHAPES = [("flash_attention", 1, 32, 8, 32, 160),
           ("decode_attention", 4, 32, 8, 256, 160),
           ("decode_attention", 4, 64, 8, 256, 128)]
 DECODE_LENGTHS = (1, 31, 200, 256)
+SCAN_TS = (16, 2048)
 PHOLD_AB_BATCHES = 256
 
 
@@ -67,6 +71,37 @@ def queue_child(cs, out: dict) -> None:
     out["launch_floor"] = {"device_ms": cs.launch_floor_ms()}
 
 
+def scans_child(cs, out: dict) -> None:
+    """The scans at the serving prefill's T 16 and at T 2048, f32:
+    ``rwkv6_scan`` at rwkv6-1.6b's heads (B 1, H 32, K 64, views of the
+    model's streams), ``mamba_scan`` at jamba's (B 1, I 16384, N 16, B/C
+    as slices of the ``x_proj`` output), with this child's package."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import rwkv6_scan as rs
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for T in SCAN_TS:
+        reps, calls = (20, 10) if T >= 2048 else (300, 50)
+        xs = cs.rwkv_inputs(gen, 1, 32, T, 64, torch.float32)
+
+        def rwkv(xs=xs):
+            return rs.rwkv6_scan_cuda(*xs)
+
+        out[f"rwkv6_scan H32 K64 T{T}"] = {
+            "ms": cs._time_ms(rwkv, reps),
+            "device_ms": cs._device_ms(rwkv, calls)}
+        xs = cs.mamba_inputs(gen, 1, T, 16384, 16, torch.float32)
+
+        def mamba(xs=xs):
+            return ms.mamba_scan_cuda(*xs)
+
+        out[f"mamba_scan I16384 N16 T{T}"] = {
+            "ms": cs._time_ms(mamba, reps),
+            "device_ms": cs._device_ms(mamba, calls)}
+
+
 def child(tree: pathlib.Path, only) -> None:
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(1, str(ROOT))
@@ -80,7 +115,8 @@ def child(tree: pathlib.Path, only) -> None:
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16 = torch.bfloat16
     out = {"tree": str(tree)}
-    for kernel, B, H, KV, N, D in SHAPES if only != "queue" else ():
+    for kernel, B, H, KV, N, D in SHAPES if only in (None,
+                                                      "attention") else ():
         if kernel == "flash_attention":
             q = cs._randn(gen, (B, N, H, D), bf16).transpose(1, 2)
             k = cs._randn(gen, (B, N, KV, D), bf16).transpose(1, 2)
@@ -116,8 +152,10 @@ def child(tree: pathlib.Path, only) -> None:
             "library_ms": cs._time_ms(lib, reps),
             "library_device_ms": cs._device_ms(lib, calls),
         }
-    if only != "attention":
+    if only in (None, "queue"):
         queue_child(cs, out)
+    if only in (None, "scans"):
+        scans_child(cs, out)
     print(json.dumps(out), flush=True)
 
 
@@ -125,7 +163,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--before", required=True, type=pathlib.Path)
     ap.add_argument("--after", type=pathlib.Path, default=ROOT)
-    ap.add_argument("--only", choices=("attention", "queue"))
+    ap.add_argument("--only", choices=("attention", "queue", "scans"))
     ap.add_argument("--child", type=pathlib.Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:

@@ -7,7 +7,8 @@ with :mod:`ctypes`.  Nothing is compiled when a module is imported.
 
 The wrappers of every kernel family share the launch helpers here: the
 plan cache (``PLANS``, keyed by :func:`signature`, filled by
-:func:`remember`) and :func:`launch_on`.
+:func:`remember`), :func:`launch_on`, and for the ``cp.async`` rings of
+the scans :func:`copy_width` and :func:`pointer_width`.
 """
 
 from __future__ import annotations
@@ -97,6 +98,27 @@ def remember(key, plan):
         PLANS.clear()
     PLANS[key] = plan
     return plan
+
+
+def copy_width(itemsize: int, strides, row_bytes) -> int:
+    """The widest ``cp.async`` copy (16, 8 or 4 bytes) that every stride
+    (in elements) and every row length (in bytes) is a multiple of; else
+    ``itemsize`` (2 for bf16: the kernel copies such rows with plain
+    loads).  The pointers' own alignment is taken per call
+    (:func:`pointer_width`)."""
+    for width in (16, 8, 4):
+        if all(s * itemsize % width == 0 for s in strides) and \
+                all(b % width == 0 for b in row_bytes):
+            return width
+    return itemsize
+
+
+def pointer_width(width: int, *ptrs) -> int:
+    """``width`` narrowed to what every pointer is aligned to (16, 8, 4
+    or 2 bytes)."""
+    for p in ptrs:
+        width = min(width, p & -p)
+    return width
 
 
 def launch_on(device: torch.device, fn, *args) -> int:
