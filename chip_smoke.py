@@ -55,8 +55,34 @@ Phases, each printed on its own line:
    program on the CPU for the same super-steps: state, counters,
    word histogram and every final queue field must be bit-identical,
    and each kernel's launch count must equal the super-step count.
-5. poc — the paper's model (16 iterations, 256 events) under ``switch``
-   and ``masked`` dispatch; the final ``sum`` must match the oracle.
+4b. phold_fused — the same PHOLD under ``fused`` dispatch, its hot set
+   the switch run's most frequent word (``hot_words_from_counts``),
+   held bit for bit to phase 4's CPU run; its host syncs must equal the
+   switch run's.
+5. poc — the paper's model (16 iterations, 256 events) under
+   ``switch``, ``masked`` and ``fused`` (the switch run's top 4 words):
+   each card run bit for bit equal to one CPU ``switch`` run, the final
+   ``sum`` equal to the oracle, and fused's hot and fallback windows
+   both fired.
+5b. mmc — the M/M/c network (``examples/mmc_network.py``) under the
+   three modes (fused: the switch run's top 8 words), each card run held
+   bit for bit to one CPU ``switch`` run: (a) the example's own size, 4
+   stations, ``t_open`` 30, run until the queue drains; (b) 65,536
+   stations, windows of 4, a 1,048,576-event queue holding the TALLY
+   grid's 524,288 events, ``MMC_BATCHES`` super-steps.  The run path
+   must have fired, ``served`` and ``samples`` be non-zero and every
+   arrival be served, queued or in service.
+5c. serving_admission — the closed admission scenario
+   (``repro/serving/scenarios.py``: 64 slots, 65,536 requests, decode
+   budgets up to 6, windows of 4, a 65,536-event queue) for
+   ``ADMIT_BATCHES`` super-steps under the three modes, each held bit
+   for bit to one CPU ``switch`` run (the card's int32 wraparound in the
+   request hash included).
+   Every run of 4b-5c launches ``window_extract`` and ``front_merge``
+   once a super-step and no other kernel, and prints its setup seconds,
+   card seconds (the initial queue's build included), super-steps per
+   second, host syncs per super-step and the windows that took the run
+   path, a hot slot and the fallback.
 6. serve — stablelm-12b at full width (40 layers, d_model 5120, 12.1 B
    parameters in bf16) through ``repro_torch.launch.serve`` with its
    defaults: 6 requests, 12 new tokens each, 4 slots, ``max_len`` 256.
@@ -106,7 +132,8 @@ Phases, each printed on its own line:
    ``rwkv6_scan`` and ``mamba_scan`` at the serving prefill's T 16 and at
    T 2048 (no PyTorch call computes either).
 
-Each path (PHOLD, PoC, each served model, hubert's forward) runs with
+Each path (PHOLD, each run of PHOLD fused, PoC, the M/M/c network and
+the admission scenario, each served model, hubert's forward) runs with
 every kernel's launch count set to 0 just before it and read just
 after.
 
@@ -136,6 +163,22 @@ PHOLD_LPS = 917_504
 PHOLD_CAPACITY = 1_048_576
 PHOLD_T_STOP = 4_194_304.0
 PHOLD_BATCHES = 4096
+
+# The M/M/c network at full size: 65,536 stations, so the TALLY grid
+# (every 5.0 up to t_open + 10) alone schedules 8 x 65,536 = 524,288
+# events, half a million rows of a 1,048,576-event queue; windows of 4
+# keep the word histogram (3 types: 120 words).  The closed admission
+# scenario at 64 slots and 65,536 requests.  Both run 1,024 super-steps
+# a mode, which keeps the script within about a minute of its time
+# before these phases (2,048 and 4,096 took two).
+MMC_STATIONS = 65_536
+MMC_T_OPEN = 35.0
+MMC_CAPACITY = 1_048_576
+MMC_BATCH_LEN = 4
+MMC_BATCHES = 1024
+ADMIT_SLOTS = 64
+ADMIT_REQUESTS = 65_536
+ADMIT_BATCHES = 1024
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -693,11 +736,76 @@ def check_mamba() -> dict:
 # Phase 4: PHOLD at full width, card against CPU
 # ---------------------------------------------------------------------------
 
-def run_phold(device_name: str):
+def drive(sim, state, **run_kw):
+    """One card run of a path, with every kernel's launch count and the
+    engine's ``COUNTS`` zeroed just before it and read just after.
+    Returns ``(result, card seconds, launches, counts)``."""
+    import torch
+
+    from repro_torch.core import queue as q
+
+    reset_launches()
+    q.COUNTS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim.run(state, **run_kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    return res, card_s, read_launches(), dict(q.COUNTS)
+
+
+def _state_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _state_leaves(tree[k])]
+    return [tree]
+
+
+def parity_problems(res, ref) -> list:
+    """What differs between a card run and a CPU run of the port: the
+    counters, ``final_time`` (as f32), the word histogram, every state
+    leaf and every field of the final queue, each bit for bit."""
     import numpy as np
     import torch
 
     from repro_torch.core import queue as q
+
+    problems = []
+    for name in ("events", "batches", "dropped", "emitted", "pending"):
+        if getattr(res, name) != getattr(ref, name):
+            problems.append(f"{name}: card {getattr(res, name)} "
+                            f"cpu {getattr(ref, name)}")
+    if np.float32(res.final_time) != np.float32(ref.final_time):
+        problems.append(f"final_time {res.final_time} vs {ref.final_time}")
+    if (res.word_counts is None) != (ref.word_counts is None) or (
+            res.word_counts is not None
+            and not np.array_equal(res.word_counts, ref.word_counts)):
+        problems.append("word_counts differ")
+    got_leaves, want_leaves = (_state_leaves(res.state),
+                               _state_leaves(ref.state))
+    if len(got_leaves) != len(want_leaves) or not all(
+            torch.equal(a.cpu(), b.cpu())
+            for a, b in zip(got_leaves, want_leaves)):
+        problems.append("state differs")
+    got = q.tiered3_queue_to_arrays(res.raw["final_queue"])
+    want = q.tiered3_queue_to_arrays(ref.raw["final_queue"])
+    for name in want:
+        if not np.array_equal(got[name], want[name]):
+            problems.append(f"final queue field {name} differs")
+    return problems
+
+
+def launch_problems(launches: dict, batches: int) -> list:
+    """The queue kernels launch once a super-step, the others never."""
+    from repro_torch.kernels import queue_front as qf
+
+    return [f"{name} launched {n} times in {batches} super-steps"
+            for name, n in launches.items()
+            if n != (batches if name in qf.LAUNCHES else 0)]
+
+
+def run_phold(device_name: str):
+    """PHOLD at full width under ``switch``; returns the card run, the
+    queue kernels' launches, the CPU reference and the engine's counts."""
     from repro_torch.examples import phold
     from repro_torch.kernels import queue_front as qf
 
@@ -709,17 +817,10 @@ def run_phold(device_name: str):
     setup_s = time.perf_counter() - t0
 
     # The main path: counts are zeroed just before and read just after.
-    reset_launches()
-    q.COUNTS.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = gpu.run(phold.initial_state(PHOLD_LPS, device_name),
-                  max_batches=PHOLD_BATCHES)
-    torch.cuda.synchronize()
-    gpu_s = time.perf_counter() - t0
-    every = read_launches()
+    res, gpu_s, every, counts = drive(
+        gpu, phold.initial_state(PHOLD_LPS, device_name),
+        max_batches=PHOLD_BATCHES)
     launches = {name: every[name] for name in qf.LAUNCHES}
-    counts = dict(q.COUNTS)
 
     cpu = prog.build(backend="device", device="cpu", dispatch_mode="switch")
     t0 = time.perf_counter()
@@ -730,29 +831,10 @@ def run_phold(device_name: str):
     problems = []
     if res.batches != PHOLD_BATCHES:
         problems.append(f"ran {res.batches} of {PHOLD_BATCHES} super-steps")
-    for name in ("events", "batches", "dropped", "emitted", "pending"):
-        if getattr(res, name) != getattr(ref, name):
-            problems.append(f"{name}: card {getattr(res, name)} "
-                            f"cpu {getattr(ref, name)}")
     if res.dropped != 0:
         problems.append(f"dropped {res.dropped} events")
-    if np.float32(res.final_time) != np.float32(ref.final_time):
-        problems.append(f"final_time {res.final_time} vs {ref.final_time}")
-    if not np.array_equal(res.word_counts, ref.word_counts):
-        problems.append("word_counts differ")
-    if not torch.equal(res.state["counts"].cpu(), ref.state["counts"]):
-        problems.append("per-LP counts differ")
-    if int(res.state["checksum"]) != int(ref.state["checksum"]):
-        problems.append("checksum differs")
-    got = q.tiered3_queue_to_arrays(res.raw["final_queue"])
-    want = q.tiered3_queue_to_arrays(ref.raw["final_queue"])
-    for name in want:
-        if not np.array_equal(got[name], want[name]):
-            problems.append(f"final queue field {name} differs")
-    for name, n in every.items():
-        if n != (res.batches if name in launches else 0):
-            problems.append(f"{name} launched {n} times in "
-                            f"{res.batches} super-steps")
+    problems += parity_problems(res, ref) + launch_problems(every,
+                                                            res.batches)
     if problems:
         raise PhaseError("phold: " + "; ".join(problems))
 
@@ -768,36 +850,198 @@ def run_phold(device_name: str):
           rare_paths=json.dumps(rare, separators=(",", ":")),
           launches=json.dumps(launches, separators=(",", ":")),
           bit_identical_to_cpu=True)
-    return res, launches
+    return res, launches, ref, counts
+
+
+def run_timed(label: str, build, state, **run_kw):
+    """Build a path (setup seconds) and drive it once on the card;
+    returns ``(sim, result, counts, fields)`` with the fields every new
+    run prints (card seconds include building the initial queue)."""
+    t0 = time.perf_counter()
+    sim = build()
+    setup_s = time.perf_counter() - t0
+    res, card_s, launches, counts = drive(sim, state(), **run_kw)
+    problems = launch_problems(launches, res.batches)
+    if problems:
+        raise PhaseError(f"{label}: " + "; ".join(problems))
+    fields = dict(batches=res.batches, events=res.events,
+                  setup_s=f"{setup_s:.3f}", card_s=f"{card_s:.3f}",
+                  card_steps_per_s=f"{res.batches / card_s:.1f}",
+                  host_syncs_per_step=(
+                      f"{counts['host_syncs'] / res.batches:.4f}"),
+                  run_path=counts.get("run_path", 0),
+                  fused_hot=counts.get("fused_hot", 0),
+                  fused_fallback=counts.get("fused_fallback", 0))
+    return sim, res, counts, fields
+
+
+def run_phold_fused(device_name: str, switch_res, ref, switch_counts):
+    """PHOLD at the phold phase's size under ``fused`` with the switch
+    run's top word as the hot set, held to the phold phase's CPU run."""
+    from repro_torch.core.codec import DenseCodec
+    from repro_torch.core.composer import hot_words_from_counts
+    from repro_torch.examples import phold
+
+    # PHOLD's alphabet: one type, windows of 1-4 events.
+    hot = hot_words_from_counts(switch_res.word_counts, DenseCodec(1, 4), 1)
+    _, res, counts, fields = run_timed(
+        "phold_fused",
+        lambda: phold.build_program(
+            num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+            capacity=PHOLD_CAPACITY).build(
+                backend="device", device=device_name,
+                dispatch_mode="fused", hot_words=hot),
+        lambda: phold.initial_state(PHOLD_LPS, device_name),
+        max_batches=PHOLD_BATCHES)
+    problems = parity_problems(res, ref)
+    if counts["host_syncs"] != switch_counts["host_syncs"]:
+        problems.append(f"{counts['host_syncs']} host syncs, the switch "
+                        f"run {switch_counts['host_syncs']}")
+    if counts.get("fused_hot", 0) + counts.get("fused_fallback", 0) \
+            != res.batches:
+        problems.append("a window took neither fused route")
+    if problems:
+        raise PhaseError("phold_fused: " + "; ".join(problems))
+    phase("phold_fused", lps=PHOLD_LPS, hot_words=json.dumps(hot),
+          switch_host_syncs_per_step=(
+              f"{switch_counts['host_syncs'] / switch_res.batches:.4f}"),
+          bit_identical_to_cpu=True, **fields)
 
 
 # ---------------------------------------------------------------------------
 # Phase 5: the paper's model
 # ---------------------------------------------------------------------------
 
+def run_modes(label: str, build, state, device_name: str, top_w: int,
+              check=None, **run_kw) -> dict:
+    """A scenario under ``switch``, ``masked`` and ``fused`` on the card
+    (fused with the switch run's ``top_w`` most frequent words), each
+    held bit for bit to one CPU ``switch`` run of the port; ``check``
+    adds the scenario's own gates.  Returns the card runs by mode and
+    the switch run's sim."""
+    from repro_torch.core.composer import hot_words_from_counts
+
+    t0 = time.perf_counter()
+    ref = build(device="cpu", dispatch_mode="switch").run(
+        state("cpu"), **run_kw)
+    cpu_s = time.perf_counter() - t0
+    runs = {}
+    for mode in ("switch", "masked", "fused"):
+        kw = dict(device=device_name, dispatch_mode=mode)
+        hot = None
+        if mode == "fused":
+            hot = hot_words_from_counts(runs["switch"].word_counts,
+                                        switch_sim.engine.codec, top_w)
+            kw["hot_words"] = hot
+        sim, res, counts, fields = run_timed(
+            f"{label} {mode}", lambda: build(**kw),
+            lambda: state(device_name), **run_kw)
+        problems = parity_problems(res, ref)
+        if check is not None:
+            problems += check(res, counts, mode)
+        if problems:
+            raise PhaseError(f"{label} {mode}: " + "; ".join(problems))
+        runs[mode] = res
+        if mode == "switch":
+            switch_sim = sim
+        extra = {} if hot is None else dict(hot_words=json.dumps(hot))
+        phase(label, mode=mode, cpu_s=f"{cpu_s:.3f}", **fields, **extra,
+              bit_identical_to_cpu=True)
+    return runs, switch_sim
+
+
 def run_poc(device_name: str) -> None:
+    from repro_torch.api import Config
     from repro_torch.examples import poc
-    from repro_torch.kernels import queue_front as qf
 
     iters = 16
     evs = poc.schedule_poc_events(256, 0.3, seed=0)
     want = poc.reference_final_sum([ty for _, ty in evs], iters)
-    for mode in ("switch", "masked"):
-        sim = poc.build_program(iters).build(
-            backend="device", device=device_name, dispatch_mode=mode)
-        reset_launches()
-        res = sim.run(poc.initial_state(device_name), events=evs)
-        launches = read_launches()
+
+    def check(res, counts, mode):
+        problems = []
         got = int(res.state)
         if got != want or res.events != len(evs):
-            raise PhaseError(f"poc {mode}: sum {got} (want {want}), "
-                             f"{res.events} events")
-        if any(n != (res.batches if name in qf.LAUNCHES else 0)
-               for name, n in launches.items()):
-            raise PhaseError(f"poc {mode}: launches {launches} for "
-                             f"{res.batches} super-steps")
-        phase("poc", mode=mode, events=res.events, batches=res.batches,
-              sum=got, oracle=want)
+            problems.append(f"sum {got} (want {want}), {res.events} events")
+        if mode == "fused" and not (counts.get("fused_hot")
+                                    and counts.get("fused_fallback")):
+            problems.append(f"hot and fallback did not both fire: {counts}")
+        return problems
+
+    run_modes("poc",
+              lambda **kw: poc.build_program(
+                  iters, config=Config(max_batch_len=4)).build(
+                      backend="device", **kw),
+              poc.initial_state, device_name, 4, check=check, events=evs)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the M/M/c network, the example's size and full size
+# ---------------------------------------------------------------------------
+
+def run_mmc(device_name: str) -> None:
+    import torch
+
+    from repro_torch.examples import mmc_network as mmc
+
+    def check(res, counts, mode):
+        st = {k: v.cpu() for k, v in res.state.items()}
+        problems = []
+        if not counts.get("run_path"):
+            problems.append("no window took the run path")
+        if int(st["served"].sum()) == 0 or int(st["samples"].sum()) == 0:
+            problems.append("served or samples is zero")
+        if not torch.equal(st["arrived"],
+                           st["served"] + st["qlen"] + st["busy"]):
+            problems.append("arrived != served + qlen + busy")
+        return problems
+
+    for stations, t_open, cap, batches in (
+            (4, 30.0, 512, None),
+            (MMC_STATIONS, MMC_T_OPEN, MMC_CAPACITY, MMC_BATCHES)):
+        run_kw = {} if batches is None else dict(max_batches=batches)
+        mbl = None if batches is None else MMC_BATCH_LEN
+        runs, sim = run_modes(
+            "mmc",
+            lambda **kw: mmc.build_program(
+                num_stations=stations, t_open=t_open, max_batch_len=mbl,
+                capacity=cap).build(backend="device", **kw),
+            lambda dev: mmc.initial_state(stations, dev), device_name, 8,
+            check=check, **run_kw)
+        res = runs["switch"]
+        if batches is not None and res.batches != batches:
+            raise PhaseError(f"mmc: ran {res.batches} of {batches} "
+                             "super-steps")
+        if batches is None and res.pending != 0:
+            raise PhaseError(f"mmc: {res.pending} events left pending")
+        phase("mmc_size", stations=stations, t_open=t_open, capacity=cap,
+              max_batch_len=sim.engine.max_batch_len,
+              served=int(res.state["served"].sum()),
+              samples=int(res.state["samples"].sum()),
+              final_time=res.final_time)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the serving admission scenario at 64k requests
+# ---------------------------------------------------------------------------
+
+def run_serving_admission(device_name: str) -> None:
+    from repro_torch.api import Config
+    from repro_torch.serving import scenarios
+
+    runs, _ = run_modes(
+        "serving_admission",
+        lambda **kw: scenarios.build_admission_program(
+            num_slots=ADMIT_SLOTS, num_requests=ADMIT_REQUESTS,
+            max_decode=6,
+            config=Config(max_batch_len=4, capacity=65536,
+                          max_emit=2)).build(backend="device", **kw),
+        lambda dev: scenarios.initial_state(ADMIT_SLOTS, dev), device_name,
+        8, max_batches=ADMIT_BATCHES)
+    st = {k: v.tolist() for k, v in runs["switch"].state.items()
+          if k != "slots"}
+    phase("serving_admission_state", slots=ADMIT_SLOTS,
+          requests=ADMIT_REQUESTS, **st)
 
 
 # ---------------------------------------------------------------------------
@@ -1665,8 +1909,12 @@ def main() -> int:
     attn_errs = check_attention()
     rwkv_errs = check_rwkv()
     mamba_errs = check_mamba()
-    res, launches = run_phold("cuda")
+    res, launches, ref, counts = run_phold("cuda")
+    run_phold_fused("cuda", res, ref, counts)
+    del ref
     run_poc("cuda")
+    run_mmc("cuda")
+    run_serving_admission("cuda")
     attn_launches = run_serve()
     rwkv_launches = run_serve_rwkv()
     jamba_launches = run_serve_jamba()

@@ -13,8 +13,12 @@ on the PyTorch port.
     result = prog.build(backend="device").run(torch.tensor(0))
 
 ``build(backend="device")`` runs on the CUDA card; pass ``device="cpu"``
-to run the same program on the CPU.  This is the part of
-:mod:`repro.api` the port has so far.
+to run the same program on the CPU.  The port has :mod:`repro.api`'s
+device backend on the tiered3 queue: the three dispatch modes
+(``switch``, ``masked``, and ``fused`` with ``hot_words``) and the
+entity-parallel run path (``@prog.entity_handler``).  The host backend,
+the static analyzer (``hot_words="static"``), checkpoints, streaming
+and sharding are not ported yet.
 """
 
 from repro_torch.core.events import ARG_WIDTH, emits_events

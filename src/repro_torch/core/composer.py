@@ -13,21 +13,40 @@ runs the selected Python code:
 * :func:`build_switch_dispatcher` — one composed branch per dense
   codec word, indexed by the host-side word code;
 * :func:`build_masked_dispatcher` — one handler leg per window lane,
-  selected by the lane's type, no-op past ``length``.
+  selected by the lane's type, no-op past ``length``;
+* :func:`build_fused_dispatcher` — the two-level composition of
+  DESIGN.md §7: the hot words' composed branches, and the masked path
+  for every other word.
 
-Both run the identical handler sequence with the identical emit layout,
-so they are bit-identical to each other and to the JAX modes of the
-same names.
+All three run the identical handler sequence with the identical emit
+layout, so they are bit-identical to each other and to the JAX modes of
+the same names.
+
+How the fused slot is chosen on this stack: the engine already holds
+the window's word code on the host (it read the window's types and
+length once), so the slot is a host lookup in ``hot_slot_table`` and
+fused dispatch costs no device read beyond what ``switch`` costs.  A
+selection on the device (the slot as a tensor, the branches behind a
+device-side predicate) is what a captured CUDA graph would need, since
+a graph cannot take a host branch per step; that is for the captured
+loop (ROADMAP A5), which can also take the ``masked`` path with no
+read of the word at all.  In eager PyTorch a hot branch runs the same
+aten calls as the ``switch`` branch of its word: nothing compiles
+across the handlers here, so the paper's cross-event scope is not
+recovered on this stack until the hot branches are compiled or
+captured.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.codec import DenseCodec
 from repro_torch.core.events import ARG_WIDTH, EventRegistry
+from repro_torch.core.queue import COUNTS
 
 
 def _emit_layout(max_len: int, max_emit: int):
@@ -91,7 +110,8 @@ def build_switch_dispatcher(registry: EventRegistry, codec: DenseCodec, *,
 
     ``dispatch(code, state, ts, args) -> (state, emits)`` runs the
     composed branch of word ``codec.decode(code)``; ``code`` is a host
-    int.
+    int.  Attributes: ``num_batches`` and ``empty_emits(device)``, the
+    all-empty emit block.
     """
     _require_dense(codec, "on-device dispatch")
     registry.freeze()
@@ -105,6 +125,8 @@ def build_switch_dispatcher(registry: EventRegistry, codec: DenseCodec, *,
     def dispatch(code: int, state, ts, args):
         return branches[code](state, ts, args)
 
+    dispatch.num_batches = codec.num_batches
+    dispatch.empty_emits = empty_emits
     return dispatch
 
 
@@ -128,3 +150,91 @@ def build_masked_dispatcher(registry: EventRegistry, codec: DenseCodec, *,
         return state, emits
 
     return dispatch
+
+
+def build_fused_dispatcher(registry: EventRegistry, codec: DenseCodec,
+                           hot_words: Sequence[Sequence[int]], *,
+                           max_emit: int = 2):
+    """Two-level composition-specialized dispatch (DESIGN.md §7).
+
+    The hot words get their composed straight-line branches
+    (:func:`make_word_branch`, the same bodies the switch dispatcher
+    runs); every other word takes the masked path
+    (:func:`build_masked_dispatcher`).  ``hot_slot_table`` maps each
+    dense code to its hot slot, and slot ``num_hot`` is the fallback.
+
+    ``dispatch(code, state, ts, types, args, length) -> (state,
+    emits)`` with host ``code``, ``types`` and ``length``; each call
+    adds one to ``COUNTS["fused_hot"]`` or ``COUNTS["fused_fallback"]``.
+
+    Attributes: ``hot_words`` (the deduplicated tuple actually built),
+    ``num_hot``, ``hot_slot_table`` (numpy ``int32[num_batches]``) and
+    ``num_batches``.
+    """
+    _require_dense(codec, "fused dispatch")
+    registry.freeze()
+    max_len = codec.max_len
+    num_types = len(registry)
+    emit_width, empty_emits = _emit_layout(max_len, max_emit)
+
+    seen: dict[tuple[int, ...], None] = {}
+    for w in hot_words:
+        word = tuple(int(t) for t in w)
+        if not 1 <= len(word) <= max_len:
+            raise ValueError(
+                f"hot word {word} has length {len(word)}; expected "
+                f"1..{max_len} (= max_batch_len)")
+        for t in word:
+            if not 0 <= t < num_types:
+                raise ValueError(
+                    f"hot word {word} names type id {t}; registry has "
+                    f"{num_types} types")
+        seen.setdefault(word, None)
+    hot = tuple(seen)
+
+    fallback = build_masked_dispatcher(registry, codec, max_emit=max_emit)
+    branches = [
+        make_word_branch(registry, word, max_emit=max_emit,
+                         emit_width=emit_width, empty_emits=empty_emits)
+        for word in hot
+    ]
+    table = np.full((codec.num_batches,), len(hot), np.int32)
+    for slot, word in enumerate(hot):
+        table[codec.encode(list(word))] = slot
+
+    def dispatch(code: int, state, ts, types, args, length: int):
+        slot = int(table[min(max(code, 0), codec.num_batches - 1)])
+        if slot < len(hot):
+            COUNTS["fused_hot"] += 1
+            return branches[slot](state, ts, args)
+        COUNTS["fused_fallback"] += 1
+        return fallback(state, ts, types, args, length)
+
+    dispatch.hot_words = hot
+    dispatch.num_hot = len(hot)
+    dispatch.hot_slot_table = table
+    dispatch.num_batches = codec.num_batches
+    return dispatch
+
+
+def hot_words_from_counts(counts, codec: DenseCodec, top_w: int):
+    """Top-W batch words by observed frequency — the profile half of
+    "profile or statically declare".
+
+    ``counts`` is the engine's per-word histogram (``RunResult.
+    word_counts``, numpy or torch, over dense codes) or a ``dict`` of
+    code -> count.  Returns word tuples for ``build(...,
+    hot_words=...)``; ties break toward the smaller code, and words
+    never observed are never selected.
+    """
+    if hasattr(counts, "items"):
+        pairs = list(counts.items())
+    else:
+        if isinstance(counts, torch.Tensor):
+            counts = counts.cpu().numpy()
+        pairs = list(enumerate(np.asarray(counts).reshape(-1).tolist()))
+    ranked = sorted(
+        ((int(n), int(code)) for code, n in pairs if int(n) > 0),
+        key=lambda p: (-p[0], p[1]),
+    )
+    return [tuple(codec.decode(code)) for _, code in ranked[:int(top_w)]]

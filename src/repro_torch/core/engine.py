@@ -1,9 +1,10 @@
 """The on-device simulation engine (PyTorch port).
 
 Counterpart of :class:`repro.core.engine.DeviceEngine` for
-``queue_mode="tiered3"``, ``dispatch_mode`` in ``{"switch",
-"masked"}``, ``overflow="drop"`` and ``validate="off"``; any other mode
-raises :class:`NotImplementedError`.
+``queue_mode="tiered3"``, ``dispatch_mode`` in ``{"switch", "masked",
+"fused"}``, ``overflow="drop"`` and ``validate="off"``, with the
+entity-parallel run path; any other mode raises
+:class:`NotImplementedError`.
 
 JAX compiles the whole run into one ``lax.while_loop``.  Here the loop
 is a Python loop over eager super-steps, each of which:
@@ -12,16 +13,21 @@ is a Python loop over eager super-steps, each of which:
    host;
 2. extracts the §III-B window (:func:`tiered3_queue_extract`: the
    bounded refill, then the ``window_extract`` kernel);
-3. reads the window's types and length to the host once and runs the
-   composed branch (``switch``) or the per-lane legs (``masked``) as
-   straight-line eager code;
+3. reads the window's types and length to the host once and runs, as
+   straight-line eager code, the vmapped run handler when the window
+   is a run of one entity-parallel type, else the composed branch
+   (``switch``), the per-lane legs (``masked``) or the hot word's
+   branch or the masked fallback (``fused``, chosen by the host-side
+   word code);
 4. inserts the emitted rows (:func:`tiered3_queue_fill_rows`: the
    pre-flush check, then the ``front_merge`` kernel).
 
 So a common super-step costs four device-to-host reads (the guard, the
 refill check, the window, the pre-flush check), counted with the
-queue's rare-path reads in ``repro_torch.core.queue.COUNTS``.  The
-stats carry (``batches``, ``events``, ``emitted``, ``time``,
+queue's rare-path reads in ``repro_torch.core.queue.COUNTS``, which
+also counts the windows that took the run path (``run_path``), a hot
+slot (``fused_hot``) and the fallback (``fused_fallback``).  The stats
+carry (``batches``, ``events``, ``emitted``, ``time``,
 ``word_counts``) matches the JAX engine's field for field.
 """
 
@@ -33,11 +39,13 @@ import torch
 
 from repro_torch.core.codec import DenseCodec
 from repro_torch.core.composer import (
+    build_fused_dispatcher,
     build_masked_dispatcher,
     build_switch_dispatcher,
 )
 from repro_torch.core.events import EventRegistry
 from repro_torch.core.queue import (
+    COUNTS,
     _f32,
     host_list,
     host_read,
@@ -49,20 +57,23 @@ from repro_torch.core.queue import (
     tiered3_queue_occupancy,
 )
 from repro_torch.core.tree import tree_map
+from repro_torch.core.vectorize import make_masked_run_handler
 
-# Beyond this many batch words the per-word histogram is not carried
-# (the JAX engine's limit).
+# The fused mode's hot-set width when no hot_words are given (the first
+# W dense codes), and the word count beyond which the per-word
+# histogram is not carried (the JAX engine's values).
+_DEFAULT_HOT_W = 32
 _WORD_COUNT_LIMIT = 4096
 
 _UNPORTED = {
     "queue_mode": ("tiered", "flat", "reference"),
-    "dispatch_mode": ("fused",),
+    "dispatch_mode": (),
     "validate": ("cheap", "full"),
     "overflow": ("error", "spill"),
 }
 _PORTED = {
     "queue_mode": ("tiered3",),
-    "dispatch_mode": ("switch", "masked"),
+    "dispatch_mode": ("switch", "masked", "fused"),
     "validate": ("off",),
     "overflow": ("drop",),
 }
@@ -105,9 +116,11 @@ class DeviceEngine:
     stage_cap: int | None = None
     num_runs: int | None = None
     dispatch_mode: str = "switch"
+    hot_words: object = None
     validate: str = "off"
     overflow: str = "drop"
     device: object = None
+    entity_handlers: dict | None = None
 
     def __post_init__(self):
         self.registry.freeze()
@@ -119,6 +132,10 @@ class DeviceEngine:
                     f"ported: {ported}")
             if value not in ported:
                 raise ValueError(f"unknown {knob} {value!r}")
+        if self.hot_words is not None and self.dispatch_mode != "fused":
+            raise ValueError(
+                "hot_words only applies to dispatch_mode='fused' "
+                f"(got dispatch_mode={self.dispatch_mode!r})")
         self.device = resolve_device(self.device)
         emit_rows = self.max_batch_len * self.max_emit
         if self.front_cap is None:
@@ -135,12 +152,35 @@ class DeviceEngine:
         self.dispatch = build_switch_dispatcher(
             self.registry, self.codec, max_emit=self.max_emit)
         self._dispatch_masked = None
+        self._dispatch_fused = None
         if self.dispatch_mode == "masked":
             self._dispatch_masked = build_masked_dispatcher(
                 self.registry, self.codec, max_emit=self.max_emit)
+        elif self.dispatch_mode == "fused":
+            hot = self.hot_words
+            if hot is None:
+                # No profile given: the first W dense codes (shortest
+                # words first; small alphabets get the full switch).
+                hot = [self.codec.decode(c) for c in
+                       range(min(self.codec.num_batches, _DEFAULT_HOT_W))]
+            self._dispatch_fused = build_fused_dispatcher(
+                self.registry, self.codec, hot, max_emit=self.max_emit)
+            self.hot_words = self._dispatch_fused.hot_words
         self._track_word_counts = (
             self.codec.num_batches <= _WORD_COUNT_LIMIT)
         self._lookaheads = self.registry.lookaheads(self.device)
+        self._run_branches = {}
+        for ty, local in sorted((self.entity_handlers or {}).items()):
+            if not 0 <= ty < len(self.registry):
+                raise ValueError(
+                    f"entity_handlers key {ty} is not a registered type "
+                    f"id (registry has {len(self.registry)} types)")
+            if self.registry[ty].returns_events:
+                raise ValueError(
+                    f"entity-parallel type {self.registry[ty].name!r} "
+                    "must not emit events")
+            self._run_branches[ty] = make_masked_run_handler(local)
+        self._lanes = torch.arange(self.max_batch_len, device=self.device)
 
     @classmethod
     def from_program(cls, program, *, device=None,
@@ -150,9 +190,11 @@ class DeviceEngine:
                      stage_cap: int | None = None,
                      num_runs: int | None = None,
                      dispatch_mode: str = "switch",
+                     hot_words=None,
                      validate: str = "off",
                      overflow: str = "drop") -> "DeviceEngine":
-        """The device backend of a frozen SimProgram."""
+        """The device backend of a frozen SimProgram: its adapted
+        registry, its entity-parallel handlers and its Config."""
         cfg = program.config
         return cls(
             program.device_registry(),
@@ -160,8 +202,9 @@ class DeviceEngine:
             capacity=cfg.capacity if capacity is None else capacity,
             max_emit=cfg.max_emit, queue_mode=queue_mode,
             front_cap=front_cap, stage_cap=stage_cap, num_runs=num_runs,
-            dispatch_mode=dispatch_mode, validate=validate,
-            overflow=overflow, device=device,
+            dispatch_mode=dispatch_mode, hot_words=hot_words,
+            validate=validate, overflow=overflow, device=device,
+            entity_handlers=program.device_entity_handlers() or None,
         )
 
     def initial_queue(self, events):
@@ -190,8 +233,21 @@ class DeviceEngine:
         return stats
 
     def _dispatch_window(self, state, ts, args, types, length, code):
+        """Dispatch one window (host ``types``, ``length`` and ``code``);
+        returns (state, emits).  Every route runs the same handler
+        sequence, so the choice never changes a result."""
+        run = self._run_branches.get(types[0]) if length else None
+        if run is not None and all(ty == types[0]
+                                   for ty in types[1:length]):
+            COUNTS["run_path"] += 1
+            state = run(state, ts, args, args[:, 0].to(torch.int32),
+                        self._lanes < length)
+            return state, self.dispatch.empty_emits(ts.device)
         if self.dispatch_mode == "masked":
             return self._dispatch_masked(state, ts, types, args, length)
+        if self.dispatch_mode == "fused":
+            return self._dispatch_fused(code, state, ts, types, args,
+                                        length)
         return self.dispatch(code, state, ts, args)
 
     def run(self, state, queue, *, max_batches: int = 1 << 30,

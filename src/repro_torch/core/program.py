@@ -22,11 +22,16 @@ delay relative to its own timestamp; the device adapter rewrites column
 tensors on the run's device; they may update state tensors in place,
 because the engine runs on its own copy of the initial state.
 
+An entity-parallel type (``@prog.entity_handler``) declares an
+entity-local handler; a window that is a run of that type runs as one
+``torch.func.vmap`` over its entities (:mod:`repro_torch.core.vectorize`),
+and a mixed window runs it as gather, apply, scatter.
+
 ``SimProgram.host_registry()`` gives the host runtimes' registry for
 handlers that emit nothing — what the serving control plane needs.
-Not ported yet: emitting host handlers and the host backend,
-entity-parallel handlers, the static analyzer, checkpoint / resume,
-streamed arrivals and the spill policy.
+Not ported yet: emitting host handlers and the host backend, the static
+analyzer (and so ``hot_words="static"``), checkpoint / resume, streamed
+arrivals and the spill policy.
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ class _HandlerSpec:
     fn: Callable
     lookahead: float
     emits: bool
+    entity: bool = False
 
 
 def normalize_arg(arg, arg_width: int = ARG_WIDTH) -> np.ndarray:
@@ -130,6 +136,28 @@ def _adapt_emits_device(fn: Callable, max_emit: int, name: str) -> Callable:
     return device_handler
 
 
+def _sequential_from_entity(local: Callable, name: str) -> Callable:
+    """The whole-state sequential handler of an entity-local one:
+    gather the entity row (``arg[0]``), apply, scatter it back (in
+    place).  Mixed windows dispatch this form; the engine's vmapped run
+    path applies the same local handler per lane, so the two routes are
+    bit-identical."""
+
+    @functools.wraps(local)
+    def handler(state, t, arg):
+        arg = torch.as_tensor(arg, dtype=torch.float32)
+        eid = arg[0].to(torch.int64).reshape(1)
+        sub = tree_map(lambda leaf: leaf.index_select(0, eid)[0], state)
+        out = local(sub, t, arg)
+        return tree_map(
+            lambda leaf, new: leaf.index_copy_(
+                0, eid, new.to(leaf.dtype).unsqueeze(0)),
+            state, out)
+
+    handler.__name__ = f"entity_seq_{name}"
+    return handler
+
+
 @dataclasses.dataclass(frozen=True)
 class RunResult:
     """Normalized result of one :meth:`CompiledSim.run`: the JAX
@@ -163,20 +191,27 @@ class SimProgram:
         self._frozen = False
         self._device_registry: EventRegistry | None = None
         self._host_registry: EventRegistry | None = None
+        self._example_state = None
 
     def register(self, name: str, fn: Callable, *,
-                 lookahead: float = float("inf"),
-                 emits: bool = False) -> _HandlerSpec:
+                 lookahead: float = float("inf"), emits: bool = False,
+                 entity: bool = False) -> _HandlerSpec:
         """Register one event type; ``emits=True`` handlers follow the
-        portable fixed-record delay convention."""
+        portable fixed-record delay convention, ``entity=True``
+        handlers are entity-local and must not emit."""
         if self._frozen:
             raise RuntimeError(
                 "SimProgram is frozen; register all event types before "
                 "build() (paper §III-A: constant handler array)")
         if name in self._by_name:
             raise ValueError(f"event type {name!r} already registered")
+        if entity and emits:
+            raise ValueError(
+                f"entity-parallel type {name!r} must not emit events "
+                "(vmapped run dispatch has no emission lanes)")
         spec = _HandlerSpec(type_id=len(self._specs), name=name, fn=fn,
-                            lookahead=float(lookahead), emits=bool(emits))
+                            lookahead=float(lookahead), emits=bool(emits),
+                            entity=bool(entity))
         self._specs.append(spec)
         self._by_name[name] = spec
         return spec
@@ -196,6 +231,26 @@ class SimProgram:
 
         return wrap
 
+    def entity_handler(self, name: str | Callable | None = None, *,
+                       lookahead: float = float("inf")):
+        """Decorator registering an entity-parallel type.  The function
+        maps one entity's slice, ``(entity_state, t, arg) ->
+        entity_state``, with ``arg[0]`` the entity index and every state
+        leaf carrying the entity dimension on axis 0.  It must be
+        functional (no ``.item()``, no Python branch on a tensor, no
+        in-place update of its inputs): runs of the type go through
+        ``torch.func.vmap``."""
+        if callable(name):
+            self.register(name.__name__, name, entity=True)
+            return name
+
+        def wrap(fn):
+            self.register(name or fn.__name__, fn, lookahead=lookahead,
+                          entity=True)
+            return fn
+
+        return wrap
+
     def schedule(self, time: float, name: str, arg: Any = None) -> None:
         """Add one initial event (by type name)."""
         if name not in self._by_name:
@@ -206,6 +261,13 @@ class SimProgram:
 
     def scheduled_events(self) -> list[tuple[float, int, np.ndarray]]:
         return list(self._schedule)
+
+    def example_state(self, state) -> "SimProgram":
+        """Declare a representative initial state (shapes and dtypes
+        only), as :meth:`repro.core.program.SimProgram.example_state`
+        does; the static analyzer that reads it is not ported yet."""
+        self._example_state = state
+        return self
 
     def freeze(self) -> "SimProgram":
         self._frozen = True
@@ -222,6 +284,8 @@ class SimProgram:
             reg = EventRegistry()
             for spec in self._specs:
                 fn = spec.fn
+                if spec.entity:
+                    fn = _sequential_from_entity(fn, spec.name)
                 if spec.emits:
                     fn = _adapt_emits_device(fn, self.config.max_emit,
                                              spec.name)
@@ -242,21 +306,31 @@ class SimProgram:
                     raise NotImplementedError(
                         f"handler {spec.name!r} emits events; emitting "
                         "host handlers are not ported to repro_torch yet")
-                reg.register(spec.name, spec.fn, lookahead=spec.lookahead)
+                fn = spec.fn
+                if spec.entity:
+                    fn = _sequential_from_entity(fn, spec.name)
+                reg.register(spec.name, fn, lookahead=spec.lookahead)
             self._host_registry = reg.freeze()
         return self._host_registry
+
+    def device_entity_handlers(self) -> dict[int, Callable]:
+        """type_id -> entity-local handler, for the device engine's
+        vmapped single-type-run dispatch."""
+        return {s.type_id: s.fn for s in self._specs if s.entity}
 
     def build(self, *, backend: str = "device", device=None,
               queue_mode: str = "tiered3", capacity: int | None = None,
               front_cap: int | None = None, stage_cap: int | None = None,
               num_runs: int | None = None, dispatch_mode: str = "switch",
-              validate: str = "off",
+              hot_words=None, validate: str = "off",
               overflow: str = "drop") -> "CompiledSim":
         """Compile this model for the device backend.
 
         ``device=None`` runs on the CUDA card and raises when there is
         none; ``device="cpu"`` runs the same code on the CPU, with the
-        kernels' plain versions.  Modes the port does not have yet raise
+        kernels' plain versions.  ``hot_words`` (``dispatch_mode=
+        "fused"`` only) is a sequence of words, each a sequence of type
+        names or ids.  Modes the port does not have yet raise
         :class:`NotImplementedError`.
         """
         self.freeze()
@@ -265,13 +339,31 @@ class SimProgram:
                 "the host backend is not ported to repro_torch yet")
         if backend != "device":
             raise ValueError(f"unknown backend {backend!r}")
+        if isinstance(hot_words, str):
+            if hot_words != "static":
+                raise ValueError(
+                    f"unknown hot_words spec {hot_words!r}; "
+                    "expected 'static' or a sequence of words")
+            raise NotImplementedError(
+                "hot_words='static' takes the hot set from the static "
+                "analyzer, which is not ported to repro_torch yet "
+                "(ROADMAP A12); pass the words, e.g. from "
+                "hot_words_from_counts over a profiled run")
+        if hot_words is not None:
+            # Type names are the API-level spelling; the engine takes
+            # ids.
+            hot_words = [
+                tuple(self.type_id(t) if isinstance(t, str) else int(t)
+                      for t in word)
+                for word in hot_words
+            ]
         from repro_torch.core.engine import DeviceEngine
 
         engine = DeviceEngine.from_program(
             self, device=device, queue_mode=queue_mode, capacity=capacity,
             front_cap=front_cap, stage_cap=stage_cap, num_runs=num_runs,
-            dispatch_mode=dispatch_mode, validate=validate,
-            overflow=overflow)
+            dispatch_mode=dispatch_mode, hot_words=hot_words,
+            validate=validate, overflow=overflow)
         return CompiledSim(self, engine)
 
 

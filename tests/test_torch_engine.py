@@ -2,7 +2,9 @@
 
 The same PoC and PHOLD programs, with the same seeded inputs, run
 through the JAX device backend (tiered3 queue) and through
-``repro_torch`` on the CPU, under ``switch`` and ``masked`` dispatch.
+``repro_torch`` on the CPU, under ``switch``, ``masked`` and ``fused``
+dispatch (fused with its default hot set and with hot words profiled
+from a ``switch`` run's histogram).
 Held with the ``tests/_parity.py`` assertion set — final state (every
 leaf), events, batches, dropped, final_time — plus the per-word batch
 histogram and every field of the final queue.  Tolerance: exact.
@@ -31,7 +33,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "examples"))
 import phold as jphold  # noqa: E402  (examples/ is not a package)
 
-MODES = ("switch", "masked")
+MODES = ("switch", "masked", "fused")
 
 
 def tree_leaves(tree) -> list:
@@ -105,6 +107,44 @@ def test_phold_matches_jax(mode, num_lps, capacity, t_stop, tiers):
     assert jres.events > num_lps
 
 
+def _poc_case():
+    evs = jpoc.schedule_poc_events(200, 0.3, seed=11)
+    return (jpoc.build_program(iters=16, config=JConfig(max_batch_len=4)),
+            tpoc.build_program(iters=16, config=TConfig(max_batch_len=4)),
+            jpoc.initial_state(), tpoc.initial_state(), dict(events=evs), 2)
+
+
+def _phold_case():
+    return (jphold.build_program(num_lps=24, t_stop=40.0, capacity=256),
+            tphold.build_program(num_lps=24, t_stop=40.0, capacity=256),
+            jphold.initial_state(24), tphold.initial_state(24), {}, 1)
+
+
+@pytest.mark.parametrize("case", [_poc_case, _phold_case])
+def test_fused_profiled_hot_words_match_jax(case):
+    """Fused dispatch with the top-W words of a switch run's histogram
+    (``hot_words_from_counts``), so hot windows and fallback windows
+    both run, on PoC and PHOLD."""
+    from repro_torch.core.composer import hot_words_from_counts
+
+    jp, tp, jstate, tstate, run_kw, top_w = case()
+    profiler = tp.build(backend="device", device="cpu")
+    profile = profiler.run(tstate, **run_kw)
+    hot = hot_words_from_counts(profile.word_counts, profiler.engine.codec,
+                                top_w)
+    jres = jp.build(backend="device", dispatch_mode="fused",
+                    hot_words=hot).run(jstate, **run_kw)
+    tq.COUNTS.clear()
+    tres = tp.build(backend="device", device="cpu", dispatch_mode="fused",
+                    hot_words=hot).run(tstate, **run_kw)
+    assert_run_parity(jres, tres)
+    np.testing.assert_array_equal(tres.word_counts, profile.word_counts)
+    assert tq.COUNTS["fused_hot"] > 0
+    assert tq.COUNTS["fused_fallback"] > 0
+    assert tq.COUNTS["fused_hot"] + tq.COUNTS["fused_fallback"] == \
+        tres.batches
+
+
 def test_phold_horizon_and_batch_cap_match_jax():
     """``until`` and ``max_batches`` stop both packages at the same
     super-step with the same residual queue."""
@@ -154,7 +194,7 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(queue_mode="flat"), dict(dispatch_mode="fused"),
+    dict(queue_mode="flat"), dict(validate="full"),
     dict(validate="cheap"), dict(overflow="spill"), dict(backend="host"),
 ])
 def test_unported_modes_raise(kw):
@@ -166,6 +206,8 @@ def test_unported_modes_raise(kw):
 def test_api_import_leaves_jax_out():
     code = ("import sys, repro_torch.api, repro_torch.core.engine, "
             "repro_torch.examples.phold, repro_torch.examples.poc, "
+            "repro_torch.examples.mmc_network, repro_torch.core.vectorize, "
+            "repro_torch.serving.scenarios, "
             "repro_torch.kernels.queue_front, repro_torch.kernels.ops, "
             "repro_torch.models, repro_torch.serving.engine, "
             "repro_torch.launch.serve; "
