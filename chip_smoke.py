@@ -13,7 +13,12 @@ Phases, each printed on its own line:
    same CUDA inputs, bit for bit (``torch.equal`` on every output), over
    random fronts, time ties, all-tie fronts, partial and empty fronts,
    empty and full row masks, a finite ``t_cap`` and 40 lookahead types,
-   at the shapes of ``WINDOW_SHAPES`` and ``MERGE_SHAPES``.
+   at the shapes of ``WINDOW_SHAPES`` and ``MERGE_SHAPES``; then the
+   spill and stream modes at PHOLD's shapes: ``window_extract`` with its
+   lex fence at each of the k candidates, tied to a candidate's time
+   with the fence's seq below and above its seq, and at (inf, 2**31-1);
+   ``front_merge`` in lex mode at R 4 and R 256, the rows tying front
+   times with older and newer seqs.
 3. attn_kernels — ``flash_attention`` and ``decode_attention`` against
    their plain versions on the same N(0,1) CUDA inputs, in float32
    (max abs error at most 1e-4) and bfloat16 (at most 2e-2, and each
@@ -83,6 +88,33 @@ Phases, each printed on its own line:
    card seconds (the initial queue's build included), super-steps per
    second, host syncs per super-step and the windows that took the run
    path, a hot slot and the fallback.
+5d. overflow — (a) the overflow storm of ``repro_torch.testing.faults``
+   on the card: ``overflow="error"`` raises ``FAULT_OVERFLOW`` and
+   ``overflow="spill"`` matches the oversized queue with nothing dropped
+   or left in the pool; (b) PHOLD at phase 4's width under
+   ``overflow="spill"`` in a 786,432-event queue: the 131,072 lex-latest
+   seeds start in the host pool (a rebalance at the first boundary), the
+   fence (393216.0, 786432) is live in every extract, and the run is
+   held bit for bit to phase 4's card run (state, checksum, events,
+   batches, final_time).
+5e. resume — the same PHOLD with ``validate="cheap"`` and a checkpoint
+   every 1,024 super-steps into a temporary directory; a crash after
+   segment 2, then ``resume_from="latest"``, held bit for bit to phase
+   4's card run; prints a checkpoint's bytes, the seconds of one
+   synchronous save of the carry, and the steps/s beside phase 4's.
+5f. faults — ``run_all_scenarios(validate="full")`` on the card: the
+   five corruptions detected and recovered, the crash resumed, the
+   storm.
+5g. stream — the open admission scenario (64 slots, 65,536 requests of
+   a Poisson stream on the 0.25 grid, blocks of 4,096, ``until`` t = 580,
+   about 1,050 super-steps): (a) streamed into a 65,536-event queue and
+   (b) into a 512-event queue under ``overflow="spill"``, each held bit
+   for bit to the port's CPU run of the same case and equal (state,
+   events, dropped, final_time) to the trace pre-seeded on the card.
+   The segmented runs of 5d-5g launch ``window_extract`` once a
+   super-step and ``front_merge`` once a super-step and once an absorbed
+   chunk; each prints its host syncs per super-step inside the engine's
+   loop (``loop_syncs``) beside the total.
 6. serve — stablelm-12b at full width (40 layers, d_model 5120, 12.1 B
    parameters in bf16) through ``repro_torch.launch.serve`` with its
    defaults: 6 requests, 12 new tokens each, 4 slots, ``max_len`` 256.
@@ -130,12 +162,14 @@ Phases, each printed on its own line:
    attention, one ``scaled_dot_product_attention`` call on the same
    inputs, timed both ways (``library_ms``, ``library_device_ms``);
    ``rwkv6_scan`` and ``mamba_scan`` at the serving prefill's T 16 and at
-   T 2048 (no PyTorch call computes either).
+   T 2048 (no PyTorch call computes either); the queue kernels also in
+   their spill and stream modes (``fenced_device_ms``,
+   ``lex_R4_device_ms``, ``lex_R256_device_ms`` in their records).
 
 Each path (PHOLD, each run of PHOLD fused, PoC, the M/M/c network and
-the admission scenario, each served model, hubert's forward) runs with
-every kernel's launch count set to 0 just before it and read just
-after.
+the admission scenario, the segmented runs, each served model, hubert's
+forward) runs with every kernel's launch count set to 0 just before it
+and read just after.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
@@ -179,6 +213,26 @@ MMC_BATCHES = 1024
 ADMIT_SLOTS = 64
 ADMIT_REQUESTS = 65_536
 ADMIT_BATCHES = 1024
+
+# Segmented runs.  PHOLD under overflow="spill" in 3/4 of the phold
+# phase's queue: the 131,072 lex-latest seeds (t >= 393,216) start in
+# the host pool, and the fence (393216.0, 786432) is live in every
+# extract; no hop of the run gets near it.  The resume phase's segments
+# are CKPT_EVERY super-steps, the crash comes after the second.
+SPILL_CAPACITY = 786_432
+SPILL_FENCE = (393_216.0, 786_432)
+CKPT_EVERY = 1024
+# The open admission scenario at the closed one's size: 65,536 requests
+# from a Poisson stream on the 0.25 grid (rate 3.5), blocks of 4,096 and
+# a horizon of t = 580: 1,051 super-steps and 1,580 admitted arrivals,
+# all from the first block.  A 4,096-event queue would hold those
+# without spilling, so the spill run's queue holds 512 (a third of them):
+# its pool is rebalanced as well as absorbed.
+STREAM_RATE = 3.5
+STREAM_BLOCK = 4096
+STREAM_UNTIL = 580.0
+STREAM_CAPACITY = 65_536
+STREAM_SPILL_CAPACITY = 512
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -455,9 +509,82 @@ def check_kernels(device) -> dict:
                 raise PhaseError(f"front_merge F={F} R={R} W={W} {case}: "
                                  "kernel differs from plain version")
             cases += 1
+    cases += check_fenced_kernels(device, errs)
     phase("kernels", cases=cases, bit_identical=True,
           max_abs_err=json.dumps(errs))
     return errs
+
+
+def _same(kernel, case, got, want, errs) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    errs[kernel] = max(errs[kernel], _max_abs_err(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise PhaseError(f"{kernel} {case}: kernel differs from plain "
+                         "version")
+
+
+def check_fenced_kernels(device, errs) -> int:
+    """The spill and stream modes at PHOLD's shapes: ``window_extract``
+    with its lex fence at each of the k candidates, tied to a candidate's
+    time with the fence's seq below and above its seq, and at (inf,
+    2**31-1); ``front_merge`` in lex mode at R 4 and R 256, the rows'
+    times drawn from the front's (ties) and their seqs interleaved with
+    the front's (older and newer).  Bit for bit, on the same CUDA
+    inputs.  Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import queue_front as qf
+
+    def cuda(xs):
+        return [torch.as_tensor(x).to(device) for x in xs]
+
+    def fence(t, s):
+        return (torch.tensor(np.float32(t), device=device),
+                torch.tensor(np.int32(s), device=device))
+
+    cases = 0
+    F, k, W = 256, 4, 4
+    for seed, t_hi in ((101, 8), (102, 2)):
+        rng = np.random.default_rng(seed)
+        cols = _front(rng, F, F, t_hi, W)
+        ft, fs = cols[0], cols[3]
+        dev_cols = cuda(cols)
+        la = torch.tensor([1.0, 0.5, 0.0], device=device)
+        fences = [(np.inf, 2**31 - 1)]
+        for i in range(k):
+            fences += [(ft[i], fs[i]), (ft[i], fs[i] - 1), (ft[i], fs[i] + 1)]
+        for b_t, b_s in fences:
+            for t_cap in (None, 1.5):
+                bound = fence(b_t, b_s)
+                _same("window_extract", f"fenced ({b_t}, {b_s}) t_cap={t_cap}",
+                      qf.window_extract_cuda(*dev_cols, la, t_cap, k=k,
+                                             bound=bound),
+                      qf.window_extract_plain(*dev_cols, la, t_cap, k=k,
+                                              bound=bound), errs)
+                cases += 1
+    for R in (4, 256):
+        for seed, front_n in ((201, F), (202, F // 3), (203, 0)):
+            rng = np.random.default_rng(seed + R)
+            cols = _front(rng, F, front_n, 6, W)
+            cols[3][:front_n] = 2 * np.arange(front_n)        # even seqs
+            pick = rng.integers(0, max(front_n, 1), R)
+            t_r = np.where(rng.random(R) < 0.7,
+                           cols[0][np.minimum(pick, F - 1)],
+                           rng.integers(0, 6, R) * 0.5).astype(np.float32)
+            t_r = np.where(np.isfinite(t_r), t_r, 1.0).astype(np.float32)
+            rows = [t_r, rng.integers(0, 3, R).astype(np.int32),
+                    rng.random((R, W)).astype(np.float32),
+                    (2 * rng.permutation(2 * F)[:R] + 1).astype(np.int32),
+                    rng.random(R) < 0.7]
+            args = cuda(cols + [np.int32(front_n)] + rows)
+            _same("front_merge", f"lex R={R} front_n={front_n}",
+                  qf.front_merge_cuda(*args, lex=True),
+                  qf.front_merge_plain(*args, lex=True), errs)
+            cases += 1
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -754,6 +881,28 @@ def drive(sim, state, **run_kw):
     return res, card_s, read_launches(), dict(q.COUNTS)
 
 
+def time_engine(sim):
+    """Time the engine's ``run`` calls of ``sim`` (the super-step loops,
+    without the initial queue's build, restores or checkpoints):
+    returns a function giving the seconds so far."""
+    import torch
+
+    spent = [0.0]
+    run = sim.engine.run
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return run(*args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+
+    sim.engine.run = timed
+    return lambda: spent[0]
+
+
 def _state_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _state_leaves(tree[k])]
@@ -817,9 +966,11 @@ def run_phold(device_name: str):
     setup_s = time.perf_counter() - t0
 
     # The main path: counts are zeroed just before and read just after.
+    loop_s = time_engine(gpu)
     res, gpu_s, every, counts = drive(
         gpu, phold.initial_state(PHOLD_LPS, device_name),
         max_batches=PHOLD_BATCHES)
+    loop_s = loop_s()
     launches = {name: every[name] for name in qf.LAUNCHES}
 
     cpu = prog.build(backend="device", device="cpu", dispatch_mode="switch")
@@ -838,7 +989,8 @@ def run_phold(device_name: str):
     if problems:
         raise PhaseError("phold: " + "; ".join(problems))
 
-    rare = {k: v for k, v in sorted(counts.items()) if k != "host_syncs"}
+    rare = {k: v for k, v in sorted(counts.items())
+            if k not in ("host_syncs", "loop_syncs")}
     phase("phold", lps=PHOLD_LPS, capacity=PHOLD_CAPACITY,
           batches=res.batches, events=res.events, dropped=res.dropped,
           final_time=res.final_time, checksum=int(res.state["checksum"]),
@@ -846,11 +998,12 @@ def run_phold(device_name: str):
           cpu_s=f"{cpu_s:.3f}",
           card_events_per_s=f"{res.events / gpu_s:.1f}",
           card_steps_per_s=f"{res.batches / gpu_s:.1f}",
+          loop_steps_per_s=f"{res.batches / loop_s:.1f}",
           host_syncs_per_step=f"{counts['host_syncs'] / res.batches:.4f}",
           rare_paths=json.dumps(rare, separators=(",", ":")),
           launches=json.dumps(launches, separators=(",", ":")),
           bit_identical_to_cpu=True)
-    return res, launches, ref, counts
+    return res, launches, ref, counts, loop_s
 
 
 def run_timed(label: str, build, state, **run_kw):
@@ -1042,6 +1195,307 @@ def run_serving_admission(device_name: str) -> None:
           if k != "slots"}
     phase("serving_admission_state", slots=ADMIT_SLOTS,
           requests=ADMIT_REQUESTS, **st)
+
+
+# ---------------------------------------------------------------------------
+# Phases 5d-5g: segmented runs (overflow, resume, faults, stream)
+# ---------------------------------------------------------------------------
+
+def segment_launch_problems(launches: dict, batches: int, counts) -> list:
+    """The queue kernels on a segmented path: ``window_extract`` once a
+    super-step, ``front_merge`` once a super-step and once an absorbed
+    chunk, the other kernels never."""
+    want = {"window_extract": batches,
+            "front_merge": batches + counts.get("absorb_chunks", 0)}
+    return [f"{name} launched {n} times, expected {want.get(name, 0)}"
+            for name, n in launches.items() if n != want.get(name, 0)]
+
+
+def _outcome_problems(res, ref) -> list:
+    """What differs between two runs of one model that need not group
+    their super-steps alike: every state leaf, events, dropped and
+    ``final_time`` (as f32)."""
+    import numpy as np
+    import torch
+
+    problems = []
+    got, want = _state_leaves(res.state), _state_leaves(ref.state)
+    if len(got) != len(want) or not all(
+            torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want)):
+        problems.append("state differs")
+    for name in ("events", "dropped"):
+        if getattr(res, name) != getattr(ref, name):
+            problems.append(f"{name}: {getattr(res, name)} vs "
+                            f"{getattr(ref, name)}")
+    if np.float32(res.final_time) != np.float32(ref.final_time):
+        problems.append(f"final_time {res.final_time} vs {ref.final_time}")
+    return problems
+
+
+def _syncs(counts, batches) -> dict:
+    return dict(host_syncs_per_step=f"{counts['host_syncs'] / batches:.4f}",
+                loop_syncs_per_step=(
+                    f"{counts.get('loop_syncs', 0) / batches:.4f}"))
+
+
+def run_overflow(device_name: str, phold_res, phold_loop_s,
+                 phold_counts) -> None:
+    """(a) the overflow storm on the card: ``error`` raises
+    ``FAULT_OVERFLOW``, ``spill`` matches the oversized queue with
+    nothing dropped or left in the pool.  (b) PHOLD at the phold phase's
+    width under ``overflow="spill"`` in a 786,432-event queue, the
+    fence live in every extract, held bit for bit to phase phold's card
+    run."""
+    from repro_torch.examples import phold
+    from repro_torch.testing import faults
+
+    reset_launches()
+    t0 = time.perf_counter()
+    report = faults.run_overflow_scenario(device=device_name)
+    storm_s = time.perf_counter() - t0
+    launches = read_launches()
+    if not (launches["window_extract"] and launches["front_merge"]):
+        raise PhaseError(f"overflow storm: queue kernels not launched "
+                         f"({launches})")
+    phase("overflow_storm", detected=json.dumps(report["detected"]),
+          spill_events=report["events"], spill_batches=report["batches"],
+          dropped=0, spilled=0, seconds=f"{storm_s:.3f}",
+          launches=json.dumps(launches, separators=(",", ":")))
+
+    t0 = time.perf_counter()
+    sim = phold.build_program(
+        num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+        capacity=SPILL_CAPACITY).build(backend="device", device=device_name,
+                                       overflow="spill")
+    setup_s = time.perf_counter() - t0
+    loop_s = time_engine(sim)
+    res, card_s, every, counts = drive(
+        sim, phold.initial_state(PHOLD_LPS, device_name),
+        max_batches=PHOLD_BATCHES)
+    loop_s = loop_s()
+    problems = _outcome_problems(res, phold_res)
+    if counts["loop_syncs"] != phold_counts["loop_syncs"]:
+        problems.append(f"{counts['loop_syncs']} host reads in the loop, "
+                        f"phold {phold_counts['loop_syncs']}")
+    if res.batches != phold_res.batches:
+        problems.append(f"{res.batches} super-steps, phold "
+                        f"{phold_res.batches}")
+    if int(res.state["checksum"]) != int(phold_res.state["checksum"]):
+        problems.append("checksum differs")
+    want_spilled = PHOLD_LPS - SPILL_CAPACITY
+    if res.spilled != want_spilled:
+        problems.append(f"{res.spilled} events in the pool, expected "
+                        f"{want_spilled}")
+    fence = (float(res.raw["bound_t"]), int(res.raw["bound_seq"]))
+    if fence != SPILL_FENCE:
+        problems.append(f"fence {fence}, expected {SPILL_FENCE}")
+    problems += segment_launch_problems(every, res.batches, counts)
+    if problems:
+        raise PhaseError("overflow: " + "; ".join(problems))
+    phase("overflow", lps=PHOLD_LPS, capacity=SPILL_CAPACITY,
+          batches=res.batches, events=res.events, spilled=res.spilled,
+          dropped=res.dropped, fence=json.dumps(list(fence)),
+          checksum=int(res.state["checksum"]), setup_s=f"{setup_s:.3f}",
+          card_s=f"{card_s:.3f}", loop_s=f"{loop_s:.3f}",
+          loop_steps_per_s=f"{res.batches / loop_s:.1f}",
+          phold_loop_steps_per_s=f"{phold_res.batches / phold_loop_s:.1f}",
+          phold_host_syncs_per_step=(
+              f"{phold_counts['host_syncs'] / phold_res.batches:.4f}"),
+          **_syncs(counts, res.batches),
+          rebalances=counts.get("rebalance", 0),
+          absorbs=counts.get("absorb", 0),
+          launches=json.dumps(every, separators=(",", ":")),
+          bit_identical_to_phold=True)
+
+
+def run_resume(device_name: str, phold_res, phold_loop_s,
+               phold_counts) -> None:
+    """PHOLD at full width with ``validate="cheap"`` and a checkpoint
+    every ``CKPT_EVERY`` super-steps: a crash after segment 2, then
+    ``resume_from="latest"``; held bit for bit to phase phold's card
+    run.  Prints a checkpoint's bytes and the seconds of one synchronous
+    save of the same carry."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import queue as q
+    from repro_torch.examples import phold
+    from repro_torch.testing.faults import SimulatedCrash
+
+    sim = phold.build_program(
+        num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+        capacity=PHOLD_CAPACITY).build(backend="device", device=device_name,
+                                       validate="cheap")
+    loop_s = time_engine(sim)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = pathlib.Path(tmp) / "run"
+
+        def crash(seg, state, queue, stats):
+            if seg == 2:
+                raise SimulatedCrash(f"injected crash after segment {seg}")
+
+        reset_launches()
+        q.COUNTS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            sim.run(phold.initial_state(PHOLD_LPS, device_name),
+                    max_batches=PHOLD_BATCHES, checkpoint_every=CKPT_EVERY,
+                    checkpoint_dir=str(ckpt), _segment_hook=crash)
+            raise PhaseError("resume: the injected crash did not fire")
+        except SimulatedCrash:
+            pass
+        torch.cuda.synchronize()
+        crash_s = time.perf_counter() - t0
+        crashed_at = 2 * CKPT_EVERY
+        crashed_counts = dict(q.COUNTS)
+        problems = segment_launch_problems(read_launches(), crashed_at,
+                                           crashed_counts)
+        res, resume_s, every, counts = drive(
+            sim, phold.initial_state(PHOLD_LPS, device_name),
+            max_batches=PHOLD_BATCHES, checkpoint_every=CKPT_EVERY,
+            checkpoint_dir=str(ckpt), resume_from="latest")
+        problems += segment_launch_problems(every, res.batches - crashed_at,
+                                            counts)
+        problems += _outcome_problems(res, phold_res)
+        if res.batches != phold_res.batches or \
+                int(res.state["checksum"]) != int(phold_res.state["checksum"]):
+            problems.append("batches or checksum differ from phold's")
+        if res.fault_word != 0:
+            problems.append(f"fault word {res.fault_word}")
+        # The audited super-steps read the host as often as phold's.
+        reads = crashed_counts["loop_syncs"] + counts["loop_syncs"]
+        if reads != phold_counts["loop_syncs"]:
+            problems.append(f"{reads} host reads in the loops, phold "
+                            f"{phold_counts['loop_syncs']}")
+        if problems:
+            raise PhaseError("resume: " + "; ".join(problems))
+        mgr = CheckpointManager(str(ckpt))
+        latest = ckpt / f"step_{mgr.latest_step():010d}"
+        nbytes = sum(f.stat().st_size for f in latest.iterdir())
+        # One synchronous save of the final carry (the device-to-host
+        # copy and the writes), timed.
+        payload = {"state": res.state, "queue": res.raw["final_queue"],
+                   "stats": {k: v for k, v in res.raw.items()
+                             if k not in ("dropped", "final_queue")}}
+        t0 = time.perf_counter()
+        CheckpointManager(str(pathlib.Path(tmp) / "timed")).save(
+            res.batches, payload)
+        write_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("resume", lps=PHOLD_LPS, validate="cheap",
+          checkpoint_every=CKPT_EVERY, crashed_after=crashed_at,
+          batches=res.batches, events=res.events,
+          checksum=int(res.state["checksum"]),
+          checkpoint_bytes=nbytes, checkpoint_write_s=f"{write_s:.3f}",
+          crashed_card_s=f"{crash_s:.3f}", resumed_card_s=f"{resume_s:.3f}",
+          loop_s=f"{loop_s():.3f}",
+          cheap_loop_steps_per_s=f"{PHOLD_BATCHES / loop_s():.1f}",
+          off_loop_steps_per_s=f"{phold_res.batches / phold_loop_s:.1f}",
+          loop_syncs=crashed_counts["loop_syncs"] + counts["loop_syncs"],
+          phold_loop_syncs=phold_counts["loop_syncs"],
+          bit_identical_to_phold=True)
+
+
+def run_faults(device_name: str) -> None:
+    """``run_all_scenarios(validate="full")`` on the card: every
+    corruption detected and recovered, the crash resumed, the storm."""
+    from repro_torch.testing import faults
+
+    reset_launches()
+    t0 = time.perf_counter()
+    reports = faults.run_all_scenarios(validate="full", device=device_name)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    kinds = {r["kind"] for r in reports}
+    want = set(faults.CORRUPTIONS) | {"crash", "overflow_storm"}
+    if kinds != want or not all(r["recovered"] for r in reports):
+        raise PhaseError(f"faults: {reports}")
+    if not (launches["window_extract"] and launches["front_merge"]):
+        raise PhaseError(f"faults: queue kernels not launched ({launches})")
+    for r in reports:
+        phase("faults", kind=r["kind"], detected=json.dumps(r["detected"]),
+              fault_step=r.get("fault_step", -1), recovered=True)
+    phase("faults_total", scenarios=len(reports), seconds=f"{seconds:.3f}",
+          launches=json.dumps(launches, separators=(",", ":")))
+
+
+def run_stream(device_name: str) -> None:
+    """The open admission scenario streamed on the card: (a) into a
+    65,536-event queue, against the same trace pre-seeded; (b) into a
+    512-event queue under ``overflow="spill"``, against (a)'s
+    pre-seeded run.  Both streamed runs are held bit for bit to the
+    port's CPU run of the same case."""
+    from repro_torch.api import Config
+    from repro_torch.serving import scenarios
+    from repro_torch.stream import PoissonSource, source_events
+
+    def source():
+        return PoissonSource(STREAM_RATE, ADMIT_REQUESTS, seed=0, grid=0.25,
+                             type_id=0, block_size=STREAM_BLOCK)
+
+    def build(capacity, device, **kw):
+        return scenarios.build_open_admission_program(
+            num_slots=ADMIT_SLOTS, num_requests=ADMIT_REQUESTS,
+            max_decode=6, config=Config(max_batch_len=4, capacity=capacity,
+                                        max_emit=2)).build(
+                backend="device", device=device, **kw)
+
+    closed_events = [(1.0, "TICK")] + [
+        (t, ty, list(arg)) for (t, ty, arg) in source_events(source())]
+    preseeded, pre_s, every, counts = drive(
+        build(2 * STREAM_CAPACITY, device_name),
+        scenarios.initial_state(ADMIT_SLOTS, device_name),
+        events=closed_events, until=STREAM_UNTIL)
+    problems = launch_problems(every, preseeded.batches)
+    if problems:
+        raise PhaseError("stream preseeded: " + "; ".join(problems))
+    for case, capacity, kw in (("a", STREAM_CAPACITY, {}),
+                               ("b", STREAM_SPILL_CAPACITY,
+                                dict(overflow="spill"))):
+        t0 = time.perf_counter()
+        ref = build(capacity, "cpu", **kw).run(
+            scenarios.initial_state(ADMIT_SLOTS, "cpu"), arrivals=source(),
+            until=STREAM_UNTIL)
+        cpu_s = time.perf_counter() - t0
+        res, card_s, every, counts = drive(
+            build(capacity, device_name, **kw),
+            scenarios.initial_state(ADMIT_SLOTS, device_name),
+            arrivals=source(), until=STREAM_UNTIL)
+        problems = parity_problems(res, ref) + _outcome_problems(
+            res, preseeded)
+        problems += segment_launch_problems(every, res.batches, counts)
+        for name in ("ingested", "shed", "spilled"):
+            if getattr(res, name) != getattr(ref, name):
+                problems.append(f"{name}: card {getattr(res, name)} cpu "
+                                f"{getattr(ref, name)}")
+        admitted = sum(1 for ev in closed_events[1:]
+                       if ev[0] <= STREAM_UNTIL)
+        if res.ingested != admitted or res.shed != 0:
+            problems.append(f"ingested {res.ingested} (want {admitted}), "
+                            f"shed {res.shed}")
+        if case == "b" and not counts.get("rebalance"):
+            problems.append("the spill pool was never rebalanced")
+        if problems:
+            raise PhaseError(f"stream {case}: " + "; ".join(problems))
+        phase("stream", case=case, capacity=capacity,
+              overflow=kw.get("overflow", "drop"), requests=ADMIT_REQUESTS,
+              block=STREAM_BLOCK, until=STREAM_UNTIL, batches=res.batches,
+              events=res.events, ingested=res.ingested, shed=res.shed,
+              spilled=res.spilled, absorbs=counts.get("absorb", 0),
+              absorb_chunks=counts.get("absorb_chunks", 0),
+              rebalances=counts.get("rebalance", 0),
+              card_s=f"{card_s:.3f}", cpu_s=f"{cpu_s:.3f}",
+              preseeded_card_s=f"{pre_s:.3f}",
+              card_steps_per_s=f"{res.batches / card_s:.1f}",
+              **_syncs(counts, res.batches),
+              launches=json.dumps(every, separators=(",", ":")),
+              bit_identical_to_cpu=True, equals_preseeded=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1631,6 +2085,35 @@ def launch_floor_ms() -> float:
     return _device_ms(lambda: x.fill_(1.0))
 
 
+def mode_cases(final_queue, lookaheads) -> list:
+    """The queue kernels' spill and stream modes on the same front:
+    ``(kernel, mode, call)``.  The fence sits at the third candidate;
+    the lex rows tie the front's first times with older seqs, 4 of them
+    (an emit block's width) and 256 (an absorb chunk)."""
+    import torch
+
+    from repro_torch.kernels import queue_front as qf
+
+    q = final_queue
+    F, W = q.f_args.shape
+    dev = q.f_times.device
+    w_in = [q.f_times, q.f_types, q.f_args, q.f_seqs, lookaheads]
+    bound = (q.f_times[2].clone(), q.f_seqs[2].clone())
+    out = [("window_extract", "fenced",
+            lambda: qf.window_extract_cuda(*w_in, None, k=4, bound=bound))]
+    for R in (4, 256):
+        t_r = q.f_times[:R] if R <= F else q.f_times
+        t_r = torch.where(torch.isfinite(t_r), t_r, 1.0).contiguous()
+        m_in = [q.f_times, q.f_types, q.f_args, q.f_seqs, q.front_n, t_r,
+                torch.zeros(R, dtype=torch.int32, device=dev),
+                torch.zeros((R, W), device=dev),
+                (q.f_seqs[:R] - 1).contiguous(),
+                torch.ones(R, dtype=torch.bool, device=dev)]
+        out.append(("front_merge", f"lex_R{R}",
+                    lambda m_in=m_in: qf.front_merge_cuda(*m_in, lex=True)))
+    return out
+
+
 def time_kernels(final_queue, lookaheads, launches, errs) -> list:
     F = final_queue.f_args.shape[0]
     floor_ms = launch_floor_ms()
@@ -1650,6 +2133,13 @@ def time_kernels(final_queue, lookaheads, launches, errs) -> list:
               ms=f"{ms:.6f}", device_ms=f"{device_ms:.6f}",
               launch_floor_ms=f"{floor_ms:.6f}",
               plain_ms=f"{plain_ms:.6f}", bound_ms=f"{rec['bound_ms']:.9f}")
+    by_name = {rec["name"]: rec for rec in out}
+    for name, mode, kernel in mode_cases(final_queue, lookaheads):
+        ms = _time_ms(kernel)
+        device_ms = _device_ms(kernel)
+        by_name[name][f"{mode}_device_ms"] = device_ms
+        phase("timing", kernel=name, mode=mode, F=F, ms=f"{ms:.6f}",
+              device_ms=f"{device_ms:.6f}")
     return out
 
 
@@ -1909,12 +2399,16 @@ def main() -> int:
     attn_errs = check_attention()
     rwkv_errs = check_rwkv()
     mamba_errs = check_mamba()
-    res, launches, ref, counts = run_phold("cuda")
+    res, launches, ref, counts, phold_loop_s = run_phold("cuda")
     run_phold_fused("cuda", res, ref, counts)
     del ref
     run_poc("cuda")
     run_mmc("cuda")
     run_serving_admission("cuda")
+    run_overflow("cuda", res, phold_loop_s, counts)
+    run_resume("cuda", res, phold_loop_s, counts)
+    run_faults("cuda")
+    run_stream("cuda")
     attn_launches = run_serve()
     rwkv_launches = run_serve_rwkv()
     jamba_launches = run_serve_jamba()

@@ -70,10 +70,13 @@ def window_variants(ops, dev):
                 torch.empty(F, W, dtype=f32, device=dev),
                 torch.empty(F, dtype=i32, device=dev))
 
+    fence = qf._open_fence(dev)
+
     def pointers(outs):
-        return (ctypes.c_void_p * 13)(
+        return (ctypes.c_void_p * 15)(
             ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
-            ops[3].data_ptr(), ops[4].data_ptr(), outs[0].data_ptr(),
+            ops[3].data_ptr(), ops[4].data_ptr(), fence[0].data_ptr(),
+            fence[1].data_ptr(), outs[0].data_ptr(),
             outs[1].data_ptr(), outs[2].data_ptr(), outs[3].data_ptr(),
             outs[4].data_ptr(), outs[5].data_ptr(), outs[6].data_ptr(),
             outs[7].data_ptr())
@@ -124,13 +127,13 @@ def merge_variants(ops, dev):
             ptrs = built if skip == "ptrs" else pointers(outs)
             if skip != "launch":
                 qf._launch_status("front_merge", launch_on(d, lib, ptrs,
-                                                           *dims))
+                                                           *dims, 0))
             return outs
         return call
 
     out = {"wrapper": lambda: qf.front_merge_cuda(*ops), "replica": replica()}
     out.update({f"no_{s}": replica(s) for s in STEPS})
-    out["launch_only"] = lambda: launch_on(dev, lib, built, *plan[1])
+    out["launch_only"] = lambda: launch_on(dev, lib, built, *plan[1], 0)
     return out
 
 

@@ -15,10 +15,14 @@ on the PyTorch port.
 ``build(backend="device")`` runs on the CUDA card; pass ``device="cpu"``
 to run the same program on the CPU.  The port has :mod:`repro.api`'s
 device backend on the tiered3 queue: the three dispatch modes
-(``switch``, ``masked``, and ``fused`` with ``hot_words``) and the
-entity-parallel run path (``@prog.entity_handler``).  The host backend,
-the static analyzer (``hot_words="static"``), checkpoints, streaming
-and sharding are not ported yet.
+(``switch``, ``masked``, and ``fused`` with ``hot_words``), the
+entity-parallel run path (``@prog.entity_handler``), the invariant
+auditor (``validate="cheap"|"full"``), the overflow policies
+(``overflow="error"|"spill"``), and segmented runs: checkpoints
+(``run(checkpoint_every=, checkpoint_dir=, resume_from=)``) and
+streamed arrivals (``run(arrivals=, backpressure=)``).  The host
+backend, the static analyzer (``hot_words="static"``) and sharding are
+not ported yet.
 """
 
 from repro_torch.core.events import ARG_WIDTH, emits_events
@@ -31,15 +35,23 @@ from repro_torch.core.program import (
     normalize_arg,
     state_from_numpy,
 )
+from repro_torch.core.validate import (
+    FAULT_NAMES,
+    EngineFaultError,
+    fault_names,
+)
 
 __all__ = [
     "ARG_WIDTH",
     "EMIT_WIDTH",
+    "FAULT_NAMES",
     "CompiledSim",
     "Config",
+    "EngineFaultError",
     "RunResult",
     "SimProgram",
     "emits_events",
+    "fault_names",
     "normalize_arg",
     "state_from_numpy",
 ]

@@ -2,9 +2,9 @@
 
 Counterpart of :class:`repro.core.engine.DeviceEngine` for
 ``queue_mode="tiered3"``, ``dispatch_mode`` in ``{"switch", "masked",
-"fused"}``, ``overflow="drop"`` and ``validate="off"``, with the
-entity-parallel run path; any other mode raises
-:class:`NotImplementedError`.
+"fused"}``, ``validate`` in ``{"off", "cheap", "full"}`` and
+``overflow`` in ``{"drop", "error", "spill"}``, with the entity-parallel
+run path; any other queue mode raises :class:`NotImplementedError`.
 
 JAX compiles the whole run into one ``lax.while_loop``.  Here the loop
 is a Python loop over eager super-steps, each of which:
@@ -26,15 +26,40 @@ So a common super-step costs four device-to-host reads (the guard, the
 refill check, the window, the pre-flush check), counted with the
 queue's rare-path reads in ``repro_torch.core.queue.COUNTS``, which
 also counts the windows that took the run path (``run_path``), a hot
-slot (``fused_hot``) and the fallback (``fused_fallback``).  The stats
-carry (``batches``, ``events``, ``emitted``, ``time``,
-``word_counts``) matches the JAX engine's field for field.
+slot (``fused_hot``) and the fallback (``fused_fallback``), and, as
+``loop_syncs``, the reads made inside ``run``'s loop (a segmented run's
+boundaries read more).  The stats carry (``batches``, ``events``,
+``emitted``, ``time``, ``word_counts``, and ``fault_word`` / the spill
+buffer and fence when ``validate`` / ``overflow="spill"`` enable them)
+matches the JAX engine's field for field; ``batches`` and ``events``
+are host ints.
+
+The robustness modes add no read to a common super-step: every check
+they make is folded into the one guard read.
+
+* ``validate != "off"``: the cheap fault bits
+  (:func:`repro_torch.core.validate.tiered3_fault_bits`) are ORed into
+  ``fault_word`` on the device each super-step, and the guard stops on
+  a set bit.  ``"full"`` adds the O(capacity) audit when ``run``
+  returns (a segment boundary).
+* ``overflow="error"``: the guard stops on ``dropped > 0`` and ``run``
+  raises ``FAULT_OVERFLOW``.
+* ``overflow="spill"``: emits that do not fit go to a device buffer in
+  the stats carry (``spill_rows``, ``spill_seqs``, ``spill_n``) instead
+  of being dropped, the lex fence (``bound_t``, ``bound_seq``) tightens
+  to the earliest spilled key, and the guard stops on ``spill_n > 0``
+  so the caller (``CompiledSim.run``'s segment loop) drains the buffer.
+* A fenced run (spill, or a streamed run whose stats carry
+  ``bound_t``/``bound_seq``) passes the fence to the extract's
+  ``window_extract`` launch, and the guard stops when the next pending
+  key reaches it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.codec import DenseCodec
@@ -43,20 +68,34 @@ from repro_torch.core.composer import (
     build_masked_dispatcher,
     build_switch_dispatcher,
 )
-from repro_torch.core.events import EventRegistry
+from repro_torch.core import validate as _validate
+from repro_torch.core.events import ARG_WIDTH, EventRegistry
 from repro_torch.core.queue import (
     COUNTS,
+    I32_MAX,
+    INF,
     _f32,
+    _prefix_rank,
+    _scatter_rows,
     host_list,
     host_read,
+    tiered3_queue_absorb_rows,
     tiered3_queue_extract,
     tiered3_queue_fill_rows,
+    tiered3_queue_fill_rows_tagged,
+    tiered3_queue_from_columns,
     tiered3_queue_from_host,
     tiered3_queue_has_pending,
+    tiered3_queue_next_key,
     tiered3_queue_next_time,
     tiered3_queue_occupancy,
 )
 from repro_torch.core.tree import tree_map
+from repro_torch.core.validate import (
+    FAULT_CLOCK,
+    FAULT_OVERFLOW,
+    EngineFaultError,
+)
 from repro_torch.core.vectorize import make_masked_run_handler
 
 # The fused mode's hot-set width when no hot_words are given (the first
@@ -65,17 +104,12 @@ from repro_torch.core.vectorize import make_masked_run_handler
 _DEFAULT_HOT_W = 32
 _WORD_COUNT_LIMIT = 4096
 
-_UNPORTED = {
-    "queue_mode": ("tiered", "flat", "reference"),
-    "dispatch_mode": (),
-    "validate": ("cheap", "full"),
-    "overflow": ("error", "spill"),
-}
+_UNPORTED = {"queue_mode": ("tiered", "flat", "reference")}
 _PORTED = {
     "queue_mode": ("tiered3",),
     "dispatch_mode": ("switch", "masked", "fused"),
-    "validate": ("off",),
-    "overflow": ("drop",),
+    "validate": ("off", "cheap", "full"),
+    "overflow": ("drop", "error", "spill"),
 }
 
 
@@ -104,7 +138,9 @@ class DeviceEngine:
 
     ``run`` copies ``state0`` onto the engine's device first, so
     handlers may update state tensors in place (the PHOLD example does,
-    to avoid copying its per-LP counters once per event).
+    to avoid copying its per-LP counters once per event).  ``run(...,
+    stats=)`` resumes a previous run's cumulative stats carry: a
+    segmented run is bit-identical to an unsegmented one.
     """
 
     registry: EventRegistry
@@ -126,7 +162,7 @@ class DeviceEngine:
         self.registry.freeze()
         for knob, ported in _PORTED.items():
             value = getattr(self, knob)
-            if value in _UNPORTED[knob]:
+            if value in _UNPORTED.get(knob, ()):
                 raise NotImplementedError(
                     f"{knob}={value!r} is not ported to repro_torch yet; "
                     f"ported: {ported}")
@@ -214,23 +250,115 @@ class DeviceEngine:
             stage_cap=self.stage_cap, num_runs=self.num_runs,
             device=self.device)
 
+    def initial_queue_spill(self, events):
+        """Seed split for ``overflow='spill'``: the lex-earliest
+        ``capacity`` events (by time, then input order) seed the queue
+        with their input-order seqs; the rest start in the host spill
+        pool instead of being dropped.  Returns ``(queue, spill_rows,
+        spill_seqs)``, the rows in emit layout ``(time, type, arg...)``."""
+        events = list(events)
+        n = len(events)
+        if n <= self.capacity:
+            return (self.initial_queue(events),
+                    np.zeros((0, 2 + ARG_WIDTH), np.float32),
+                    np.zeros((0,), np.int32))
+        times = np.asarray([float(e[0]) for e in events], np.float64)
+        types = np.asarray([e[1] for e in events], np.int32)
+        args = np.zeros((n, ARG_WIDTH), np.float32)
+        for i, e in enumerate(events):
+            if e[2] is not None:
+                args[i] = np.asarray(e[2], np.float32)
+        order = np.lexsort((np.arange(n), times))
+        keep = np.sort(order[:self.capacity]).astype(np.int32)
+        spill = np.sort(order[self.capacity:]).astype(np.int32)
+        q = tiered3_queue_from_columns(
+            times[keep], types[keep], args[keep], keep, self.capacity,
+            front_cap=self.front_cap, stage_cap=self.stage_cap,
+            num_runs=self.num_runs, device=self.device)
+        # Spilled events own seqs too: the counter must already be past
+        # every seed seq, queued or spilled.
+        q = q._replace(next_seq=torch.full_like(q.next_seq, n))
+        rows = np.zeros((spill.size, 2 + ARG_WIDTH), np.float32)
+        rows[:, 0] = times[spill]
+        rows[:, 1] = types[spill]
+        rows[:, 2:] = args[spill]
+        return q, rows, spill
+
     def queue_occupancy(self, queue) -> torch.Tensor:
         return tiered3_queue_occupancy(queue)
+
+    def absorb_rows(self, queue, rows, seqs, insert=None):
+        """Absorb externally keyed rows (stream arrivals, reabsorbed
+        spills) where ``insert`` is set; the caller guarantees they fit."""
+        return tiered3_queue_absorb_rows(queue, rows, seqs, insert=insert)
 
     def initial_run_stats(self) -> dict:
         """The stats carry: host ints for the counters the host already
         knows, device tensors for the rest."""
+        dev = self.device
         stats = {
             "batches": 0,
             "events": 0,
-            "emitted": torch.zeros((), dtype=torch.int32, device=self.device),
-            "time": torch.zeros((), dtype=torch.float32, device=self.device),
+            "emitted": torch.zeros((), dtype=torch.int32, device=dev),
+            "time": torch.zeros((), dtype=torch.float32, device=dev),
         }
         if self._track_word_counts:
             stats["word_counts"] = torch.zeros(
-                (self.codec.num_batches,), dtype=torch.int32,
-                device=self.device)
+                (self.codec.num_batches,), dtype=torch.int32, device=dev)
+        if self.validate != "off":
+            stats["fault_word"] = torch.zeros((), dtype=torch.int32,
+                                              device=dev)
+        if self.overflow == "spill":
+            rows = self.dispatch.empty_emits(dev)
+            stats["spill_rows"] = rows
+            stats["spill_seqs"] = torch.zeros((rows.shape[0],),
+                                              dtype=torch.int32, device=dev)
+            stats["spill_n"] = torch.zeros((), dtype=torch.int32, device=dev)
+            stats["bound_t"] = torch.full((), INF, dtype=torch.float32,
+                                          device=dev)
+            stats["bound_seq"] = torch.full((), I32_MAX, dtype=torch.int32,
+                                            device=dev)
         return stats
+
+    def _cheap_fault_bits(self, queue) -> torch.Tensor:
+        return _validate.tiered3_fault_bits(
+            queue, local=(self.overflow == "spill"))
+
+    def _spill_insert(self, queue, emits, stats):
+        """Insert the emit rows that fit; divert the rest to the spill
+        buffer in the stats carry.  Every valid row draws its seq from
+        the one counter, so a reabsorbed row keeps its place in the
+        total ``(time, seq)`` order; the fence tightens to the
+        lex-earliest spilled key.  Returns ``(queue, delta)``, the
+        spill fields of the new stats."""
+        R = emits.shape[0]
+        valid = emits[:, 1] >= 0
+        vrank = _prefix_rank(valid)
+        num_valid = torch.sum(valid).to(torch.int32)
+        base_seq = queue.next_seq
+        seq_r = base_seq + vrank
+        occ = tiered3_queue_occupancy(queue)
+        fits = valid & (occ + vrank < self.capacity)
+        spilled = valid & ~fits
+        queue = tiered3_queue_fill_rows_tagged(queue, emits, seq_r, fits)
+        # The tagged fill advances next_seq past INSERTED rows only;
+        # spilled rows still own theirs.
+        queue = queue._replace(next_seq=base_seq + num_valid)
+        dst = torch.where(spilled, _prefix_rank(spilled), R)
+        n_spill = torch.sum(spilled).to(torch.int32)
+        min_t = torch.min(torch.where(spilled, emits[:, 0], INF))
+        min_s = torch.min(torch.where(spilled & (emits[:, 0] == min_t),
+                                      seq_r, I32_MAX))
+        take = (min_t < stats["bound_t"]) | (
+            (min_t == stats["bound_t"]) & (min_s < stats["bound_seq"]))
+        delta = {
+            "spill_rows": _scatter_rows(stats["spill_rows"], dst, emits),
+            "spill_seqs": _scatter_rows(stats["spill_seqs"], dst, seq_r),
+            "spill_n": stats["spill_n"] + n_spill,
+            "bound_t": torch.where(take, min_t, stats["bound_t"]),
+            "bound_seq": torch.where(take, min_s, stats["bound_seq"]),
+        }
+        return queue, delta
 
     def _dispatch_window(self, state, ts, args, types, length, code):
         """Dispatch one window (host ``types``, ``length`` and ``code``);
@@ -251,29 +379,74 @@ class DeviceEngine:
         return self.dispatch(code, state, ts, args)
 
     def run(self, state, queue, *, max_batches: int = 1 << 30,
-            t_end: float = float("inf")):
+            t_end: float = float("inf"), stats: dict | None = None):
         """Run until the pending set drains, ``max_batches`` super-steps
-        have run, or the next event lies past ``t_end`` (the window is
-        capped at ``t_end``, so exactly the events at or before it
-        execute).  Returns ``(state, queue, stats)``."""
+        have run in total, or the next event lies past ``t_end`` (the
+        window is capped at ``t_end``, so exactly the events at or before
+        it execute).  ``stats`` resumes a previous run's cumulative
+        carry (``max_batches`` then caps the total).  Returns ``(state,
+        queue, stats)``.
+
+        With ``validate != 'off'`` a set fault bit raises
+        :class:`EngineFaultError` naming the invariant and the
+        super-step; with ``overflow='error'`` the first dropped event
+        does the same."""
         t_end = _f32(t_end)
-        state = tree_map(lambda x: x.to(self.device, copy=True), state)
-        stats = self.initial_run_stats()
+        dev = self.device
+        state = tree_map(lambda x: x.to(dev, copy=True), state)
+        if stats is None:
+            stats = self.initial_run_stats()
+        else:
+            # The carry is updated in place below (word_counts): work on
+            # a copy.  "dropped" lives on the queue, not in the carry.
+            stats = {k: (v.to(dev, copy=True) if torch.is_tensor(v)
+                         else int(v))
+                     for k, v in stats.items() if k != "dropped"}
+        validate_on = self.validate != "off"
+        error = self.overflow == "error"
+        spill = self.overflow == "spill"
+        fenced = spill or "bound_t" in stats
+        entry_batches = stats["batches"]
+        if validate_on:
+            # Entry audit: a queue corrupted between segments trips the
+            # guard before any event executes.
+            stats["fault_word"] = (stats["fault_word"]
+                                   | self._cheap_fault_bits(queue))
         k = self.max_batch_len
+        syncs0 = COUNTS["host_syncs"]
         while stats["batches"] < max_batches:
+            # Every stop condition in one host read.
             ok = tiered3_queue_has_pending(queue) & (
                 tiered3_queue_next_time(queue) <= t_end)
+            if validate_on:
+                ok = ok & (stats["fault_word"] == 0)
+            if error:
+                ok = ok & (queue.dropped == 0)
+            if fenced:
+                nk_t, nk_s = tiered3_queue_next_key(queue)
+                ok = ok & ((nk_t < stats["bound_t"]) | (
+                    (nk_t == stats["bound_t"])
+                    & (nk_s < stats["bound_seq"])))
+            if spill:
+                ok = ok & (stats["spill_n"] == 0)
             if not host_read(ok):
                 break
+            bound = ((stats["bound_t"], stats["bound_seq"]) if fenced
+                     else None)
             queue, ts, tys, args, length = tiered3_queue_extract(
-                queue, k, self._lookaheads, t_end)
+                queue, k, self._lookaheads, t_end, bound=bound)
             window = host_list(torch.cat([tys, length.reshape(1)]))
             n = window[-1]
             # encode_jnp gives code 0 for an empty window.
             code = self.codec.encode(window[:n]) if n else 0
             state, emits = self._dispatch_window(
                 state, ts, args, window[:k], n, code)
-            queue = tiered3_queue_fill_rows(queue, emits)
+            prev_time = stats["time"]
+            if spill:
+                queue, delta = self._spill_insert(queue, emits, stats)
+                stats.update(delta)
+            else:
+                queue = tiered3_queue_fill_rows(queue, emits)
             stats["batches"] += 1
             stats["events"] += n
             stats["emitted"] = stats["emitted"] + torch.sum(
@@ -281,5 +454,35 @@ class DeviceEngine:
             stats["time"] = torch.maximum(stats["time"], ts[max(n - 1, 0)])
             if self._track_word_counts:
                 stats["word_counts"][code] += 1
+            if validate_on:
+                bits = self._cheap_fault_bits(queue)
+                if n:
+                    bits = bits | torch.where(ts[0] < prev_time,
+                                              FAULT_CLOCK, 0).to(torch.int32)
+                stats["fault_word"] = stats["fault_word"] | bits
+        # The reads the super-steps made (the guard's last read included),
+        # apart from those of the segment boundaries around them.
+        COUNTS["loop_syncs"] += COUNTS["host_syncs"] - syncs0
         stats["dropped"] = queue.dropped
+        if error or validate_on:
+            dropped, word = host_list(torch.stack([
+                queue.dropped,
+                stats["fault_word"] if validate_on else queue.dropped]))
+            if error and dropped > 0:
+                raise EngineFaultError(
+                    FAULT_OVERFLOW, stats["batches"],
+                    detail=(f"{dropped} event(s) overflowed the "
+                            f"capacity-{self.capacity} queue"))
+            if validate_on and word != 0:
+                # The guard freezes the loop the moment the word sets:
+                # the last super-step set it, or the entry audit when no
+                # super-step ran.
+                final_b = stats["batches"]
+                raise EngineFaultError(
+                    word, final_b - 1 if final_b > entry_batches
+                    else final_b)
+        if self.validate == "full":
+            _validate.raise_on_findings(
+                _validate.full_audit(queue, local=spill),
+                step=stats["batches"])
         return state, queue, stats

@@ -27,23 +27,35 @@ entity-local handler; a window that is a run of that type runs as one
 ``torch.func.vmap`` over its entities (:mod:`repro_torch.core.vectorize`),
 and a mixed window runs it as gather, apply, scatter.
 
+``CompiledSim.run`` runs SEGMENTED when it is asked to (the JAX
+package's ``_run_device`` and ``_segment_loop``): ``checkpoint_every=N``
+snapshots the engine's whole carry (state, every queue tier, the
+cumulative stats) every ``N`` super-steps through
+:class:`repro_torch.checkpoint.manager.CheckpointManager`,
+``resume_from=`` restores one and continues bit-identically,
+``overflow="spill"`` parks the events that do not fit in a host pool
+reabsorbed at segment boundaries under the engine's lex fence, and
+``arrivals=`` streams an :class:`repro_torch.stream.ArrivalSource` into
+the run, block by block, under the same fence.  A closed run without
+these knobs is one engine call.
+
 ``SimProgram.host_registry()`` gives the host runtimes' registry for
 handlers that emit nothing — what the serving control plane needs.
-Not ported yet: emitting host handlers and the host backend, the static
-analyzer (and so ``hot_words="static"``), checkpoint / resume, streamed
-arrivals and the spill policy.
+Not ported yet: emitting host handlers and the host backend, and the
+static analyzer (and so ``hot_words="static"``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable
+from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.events import ARG_WIDTH, EventRegistry
+from repro_torch.core.queue import COUNTS, I32_MAX, host_read
 from repro_torch.core.tree import tree_map
 
 EMIT_WIDTH = 2 + ARG_WIDTH
@@ -161,8 +173,11 @@ def _sequential_from_entity(local: Callable, name: str) -> Callable:
 @dataclasses.dataclass(frozen=True)
 class RunResult:
     """Normalized result of one :meth:`CompiledSim.run`: the JAX
-    ``RunResult``'s fields for a closed device run (the host-only,
-    fault and stream fields come with those features)."""
+    ``RunResult``'s device-backend fields.  ``emitted``, ``pending``,
+    ``spilled``, ``ingested`` and ``shed`` complete the conservation law
+    ``seeded + ingested + emitted == events + pending + dropped +
+    spilled + shed``; ``fault_word``/``fault_step`` are the auditor's
+    bits (``0``/``-1`` when clean or ``validate="off"``)."""
 
     state: Any
     events: int
@@ -173,6 +188,11 @@ class RunResult:
     word_counts: Any = None
     emitted: int = 0
     pending: int = 0
+    spilled: int = 0
+    fault_word: int = 0
+    fault_step: int = -1
+    ingested: int = 0
+    shed: int = 0
 
     @property
     def mean_batch_length(self) -> float:
@@ -192,6 +212,7 @@ class SimProgram:
         self._device_registry: EventRegistry | None = None
         self._host_registry: EventRegistry | None = None
         self._example_state = None
+        self._entries: set[str] = set()
 
     def register(self, name: str, fn: Callable, *,
                  lookahead: float = float("inf"), emits: bool = False,
@@ -259,8 +280,25 @@ class SimProgram:
         self._schedule.append(
             (float(time), self._by_name[name].type_id, normalize_arg(arg)))
 
+    def schedule_many(
+        self, events: Iterable[tuple[float, str] | tuple[float, str, Any]]
+    ) -> None:
+        for ev in events:
+            self.schedule(*ev)
+
     def scheduled_events(self) -> list[tuple[float, int, np.ndarray]]:
         return list(self._schedule)
+
+    def external_entry(self, *names: str) -> "SimProgram":
+        """Declare event types injected from outside the program (an
+        arrival stream, ``run(events=...)`` seeds), the roots the static
+        analyzer adds to the schedule's."""
+        for name in names:
+            if name not in self._by_name:
+                raise KeyError(f"unknown event type {name!r}; registered: "
+                               f"{sorted(self._by_name)}")
+            self._entries.add(name)
+        return self
 
     def example_state(self, state) -> "SimProgram":
         """Declare a representative initial state (shapes and dtypes
@@ -386,22 +424,194 @@ class CompiledSim:
                         normalize_arg(rest[0] if rest else None)))
         return evs
 
-    def run(self, state, *, until: float | None = None,
-            max_batches: int | None = None, max_events: int | None = None,
-            events=None) -> RunResult:
-        """Execute until the pending set drains or a bound trips:
-        ``until`` stops before any event later than it runs,
-        ``max_batches`` bounds executed super-steps, ``events``
-        replaces the program's initial schedule for this run."""
-        if max_events is not None:
-            raise ValueError("max_events is host-only; the device loop "
-                             "counts batches — use max_batches")
+    # -- segmented device runs ---------------------------------------------
+    def _rebalance_spill(self, queue, pool_rows, pool_seqs):
+        """The pool outgrew the queue's room: merge queue and pool and
+        keep the lex-smallest ``capacity`` events on the device; the rest
+        stays in the pool.  Host O(capacity log capacity) at a segment
+        boundary; the counters are kept, so the logical pending set is
+        untouched, only its device/host split moves."""
+        from repro_torch.core.queue import (
+            tiered3_queue_from_columns,
+            tiered3_queue_to_flat,
+        )
+
         eng = self.engine
-        queue = eng.initial_queue(self._initial_events(events))
-        state, queue, stats = eng.run(
-            state, queue,
-            max_batches=(1 << 30) if max_batches is None else int(max_batches),
-            t_end=float("inf") if until is None else float(until))
+        flat = tiered3_queue_to_flat(queue)
+        occ = flat.types >= 0
+        times = np.concatenate([flat.times[occ], pool_rows[:, 0]])
+        types = np.concatenate([flat.types[occ],
+                                pool_rows[:, 1].astype(np.int32)])
+        args = np.concatenate([flat.args[occ], pool_rows[:, 2:]])
+        seqs = np.concatenate([flat.seqs[occ], pool_seqs])
+        order = np.lexsort((seqs, times))
+        C = eng.capacity
+        keep, rest = order[:C], order[C:]
+        q = tiered3_queue_from_columns(
+            times[keep], types[keep], args[keep], seqs[keep], C,
+            front_cap=eng.front_cap, stage_cap=eng.stage_cap,
+            num_runs=eng.num_runs, device=eng.device)
+        q = q._replace(next_seq=queue.next_seq.clone(),
+                       dropped=queue.dropped.clone())
+        new_rows = np.zeros((rest.size, EMIT_WIDTH), np.float32)
+        new_rows[:, 0] = times[rest]
+        new_rows[:, 1] = types[rest]
+        new_rows[:, 2:] = args[rest]
+        return q, new_rows, seqs[rest].astype(np.int32)
+
+    def _set_fence(self, stats, key):
+        """The stats with the engine's fence at ``key``, a host
+        ``(time, seq)`` pair (``(inf, 2**31-1)``: no fence)."""
+        dev = self.engine.device
+        stats = dict(self.engine.initial_run_stats() if stats is None
+                     else stats)
+        stats["bound_t"] = torch.tensor(np.float32(key[0]), device=dev)
+        stats["bound_seq"] = torch.tensor(np.int32(key[1]), device=dev)
+        return stats
+
+    @staticmethod
+    def _pool_key(pool_rows, pool_seqs):
+        """The lex-earliest ``(time, seq)`` key of the spill pool."""
+        if not pool_seqs.size:
+            return (float("inf"), I32_MAX)
+        j = np.lexsort((pool_seqs, pool_rows[:, 0]))[0]
+        return (float(pool_rows[j, 0]), int(pool_seqs[j]))
+
+    def _absorb_spill(self, queue, pool_rows, pool_seqs, stats):
+        """Reabsorb the spill pool, wholesale when it fits, else through
+        the lex rebalance, and move the fence to the earliest key still
+        outstanding.  Returns ``(queue, pool_rows, pool_seqs, stats)``."""
+        eng = self.engine
+        if pool_seqs.size:
+            room = eng.capacity - host_read(eng.queue_occupancy(queue))
+            if room >= int(pool_seqs.size):
+                COUNTS["absorb"] += 1
+                queue = eng.absorb_rows(
+                    queue, torch.from_numpy(pool_rows).to(eng.device),
+                    torch.from_numpy(pool_seqs).to(eng.device))
+                pool_rows = np.zeros((0, EMIT_WIDTH), np.float32)
+                pool_seqs = np.zeros((0,), np.int32)
+            else:
+                COUNTS["rebalance"] += 1
+                queue, pool_rows, pool_seqs = self._rebalance_spill(
+                    queue, pool_rows, pool_seqs)
+        stats = self._set_fence(stats, self._pool_key(pool_rows, pool_seqs))
+        return queue, pool_rows, pool_seqs, stats
+
+    def _absorb_block(self, queue, rows, seqs, lo: int, hi: int):
+        """Absorb rows ``[lo, hi)`` of a staged arrival block (the masked
+        absorb of JAX's ``_absorb_fn``)."""
+        COUNTS["absorb"] += 1
+        idx = torch.arange(rows.shape[0], device=rows.device)
+        return self.engine.absorb_rows(queue, rows, seqs,
+                                       (idx >= lo) & (idx < hi))
+
+    def _queue_next_time(self, queue) -> float:
+        from repro_torch.core.queue import tiered3_queue_next_time
+
+        return float(host_read(tiered3_queue_next_time(queue)))
+
+    @staticmethod
+    def _save_checkpoint(manager, step, state, queue, stats,
+                         pool_rows, pool_seqs, *, extra=None, strip=()):
+        # "dropped" lives on the queue, not in the carry; fence-only
+        # streamed runs also strip the host-set bound (recomputed from
+        # the restored cursor at the first resumed boundary).
+        drop = {"dropped", *strip}
+        payload = {
+            "state": state,
+            "queue": queue,
+            "stats": {k: v for k, v in stats.items() if k not in drop},
+            "pool_rows": np.asarray(pool_rows),
+            "pool_seqs": np.asarray(pool_seqs),
+        }
+        if extra:
+            payload.update(extra)
+        manager.save_async(step, payload)
+
+    def _run_device(self, state, evs, t_end, total_batches, *,
+                    checkpoint_every, checkpoint_dir, resume_from,
+                    segment_hook, arrivals=None, backpressure="block",
+                    stream_prefetch=True):
+        eng = self.engine
+        spill = eng.overflow == "spill"
+        streamed = arrivals is not None
+        if (checkpoint_every is not None or resume_from is not None) \
+                and checkpoint_dir is None:
+            raise ValueError(
+                "checkpoint_every/resume_from require checkpoint_dir=")
+        seg = None if checkpoint_every is None else int(checkpoint_every)
+        if seg is not None and seg < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got {seg}")
+        manager = None
+        if checkpoint_dir is not None:
+            from repro_torch.checkpoint.manager import CheckpointManager
+            manager = CheckpointManager(checkpoint_dir)
+
+        if spill:
+            queue, pool_rows, pool_seqs = eng.initial_queue_spill(evs)
+        else:
+            queue = eng.initial_queue(evs)
+            pool_rows = np.zeros((0, EMIT_WIDTH), np.float32)
+            pool_seqs = np.zeros((0,), np.int32)
+        stats = None
+        cursor, ingested, shed = 0, 0, 0
+        if streamed:
+            # Reserve the arrival seq range upfront: arrival j carries
+            # seq len(evs) + j and mid-run emits draw seqs past the
+            # reservation, so an absorbed arrival takes exactly the
+            # (time, seq) rank it would have had pre-seeded.
+            queue = queue._replace(next_seq=queue.next_seq + len(arrivals))
+
+        if resume_from is not None:
+            step = None if resume_from == "latest" else int(resume_from)
+            restored, at_step = manager.restore({
+                "state": state,
+                "queue": queue,
+                "stats": eng.initial_run_stats(),
+            }, step)
+            state, queue = restored["state"], restored["queue"]
+            stats = restored["stats"]
+            pool_rows = np.asarray(
+                manager.restore_leaf("pool_rows", at_step), np.float32)
+            pool_seqs = np.asarray(
+                manager.restore_leaf("pool_seqs", at_step), np.int32)
+            saved_cursor = manager.restore_leaf(
+                "ingest_cursor", at_step, default=None)
+            if saved_cursor is not None and not streamed:
+                raise ValueError(
+                    "checkpoint was written by a streamed run "
+                    f"(arrival cursor {int(saved_cursor)}): resume with "
+                    "the same arrivals= source")
+            if streamed and saved_cursor is not None:
+                cursor = int(saved_cursor)
+                ingested = int(manager.restore_leaf(
+                    "ingested", at_step, default=np.int64(0)))
+                shed = int(manager.restore_leaf(
+                    "shed", at_step, default=np.int64(0)))
+
+        feeder = None
+        if streamed:
+            from repro_torch.stream.ingest import StreamFeeder
+            feeder = StreamFeeder(arrivals, len(evs), start=cursor,
+                                  prefetch=stream_prefetch,
+                                  device=eng.device)
+        try:
+            (state, queue, stats, pool_rows, pool_seqs,
+             ingested, shed) = self._segment_loop(
+                state, queue, stats, pool_rows, pool_seqs,
+                t_end=t_end, total_batches=total_batches, seg=seg,
+                spill=spill, manager=manager, segment_hook=segment_hook,
+                feeder=feeder, backpressure=backpressure,
+                ingested=ingested, shed=shed)
+        finally:
+            if feeder is not None:
+                feeder.close()
+            if manager is not None:
+                # Even on a fault path, drain the writer so the newest
+                # checkpoint on disk is complete.
+                manager.wait()
+
         word_counts = stats.get("word_counts")
         raw = dict(stats)
         raw["final_queue"] = queue
@@ -416,4 +626,202 @@ class CompiledSim:
                          else word_counts.cpu().numpy()),
             emitted=int(stats["emitted"]),
             pending=int(eng.queue_occupancy(queue)),
+            spilled=int(pool_seqs.size),
+            fault_word=int(stats.get("fault_word", 0)),
+            ingested=int(ingested),
+            shed=int(shed),
         )
+
+    def _segment_loop(self, state, queue, stats, pool_rows, pool_seqs, *,
+                      t_end, total_batches, seg, spill, manager,
+                      segment_hook, feeder=None, backpressure="block",
+                      ingested=0, shed=0):
+        from repro_torch.core.validate import (
+            FAULT_INGEST,
+            FAULT_SPILL_STALL,
+            EngineFaultError,
+        )
+
+        eng = self.engine
+        streamed = feeder is not None
+        seg_index = 0
+        idle_rounds = 0
+        while True:
+            progressed = False
+            if spill and pool_seqs.size:
+                queue, pool_rows, pool_seqs, stats = \
+                    self._absorb_spill(queue, pool_rows, pool_seqs, stats)
+            # Streamed admission: at most one arrival block a boundary,
+            # so the admitted / spilled / shed split is a function of
+            # the cursor, the horizon and the occupancy alone, never of
+            # the feeder's timing.
+            if streamed and feeder.has_pending():
+                # Arrivals past the horizon are never consumed.
+                adm = feeder.admissible(t_end)
+                if adm:
+                    occ = host_read(eng.queue_occupancy(queue))
+                    k = min(adm, max(eng.capacity - occ, 0))
+                    if k > 0:
+                        rows_d, seqs_d, lo = feeder.device_block()
+                        queue = self._absorb_block(queue, rows_d, seqs_d,
+                                                   lo, lo + k)
+                        feeder.advance(k)
+                        ingested += k
+                        progressed = True
+                    rest = adm - k
+                    if rest > 0:
+                        if spill:
+                            r_rows, r_seqs = feeder.host_slice(rest)
+                            pool_rows = np.concatenate([pool_rows, r_rows])
+                            pool_seqs = np.concatenate([pool_seqs, r_seqs])
+                            feeder.advance(rest)
+                            ingested += rest
+                            progressed = True
+                        elif backpressure == "shed":
+                            feeder.advance(rest)
+                            ingested += rest
+                            shed += rest
+                            progressed = True
+                        elif backpressure == "error":
+                            raise EngineFaultError(
+                                FAULT_INGEST,
+                                0 if stats is None else stats["batches"],
+                                detail=(
+                                    f"{rest} arrival(s) found the "
+                                    f"capacity-{eng.capacity} queue "
+                                    "full (backpressure='error')"))
+                        # backpressure='block': the rows wait in the
+                        # feeder; the fence keeps the order, and the
+                        # stall detector below turns a wedge into
+                        # FAULT_INGEST.
+            if streamed:
+                # The admission fence: the lex-earliest outstanding
+                # external key, the next arrival or the pool's head.
+                key = min(feeder.next_key(),
+                          self._pool_key(pool_rows, pool_seqs) if spill
+                          else (float("inf"), I32_MAX))
+                stats = self._set_fence(stats, key)
+            done = 0 if stats is None else stats["batches"]
+            target = (total_batches if seg is None
+                      else min(total_batches, done + seg))
+            state, queue, stats = eng.run(
+                state, queue, max_batches=target, t_end=t_end, stats=stats)
+            new_done = stats["batches"]
+            if new_done > done:
+                progressed = True
+            if spill:
+                n = host_read(stats["spill_n"])
+                if n > 0:
+                    pool_rows = np.concatenate(
+                        [pool_rows, stats["spill_rows"][:n].cpu().numpy()])
+                    pool_seqs = np.concatenate(
+                        [pool_seqs, stats["spill_seqs"][:n].cpu().numpy()])
+                    stats = dict(stats)
+                    stats["spill_n"] = torch.zeros_like(stats["spill_n"])
+            seg_index += 1
+            # Save BEFORE the injection seam: the newest checkpoint is
+            # always a clean pre-corruption snapshot.
+            if manager is not None and seg is not None:
+                self._save_checkpoint(
+                    manager, new_done, state, queue, stats,
+                    pool_rows, pool_seqs,
+                    extra=(dict(
+                        ingest_cursor=np.int64(feeder.cursor),
+                        ingested=np.int64(ingested),
+                        shed=np.int64(shed),
+                    ) if streamed else None),
+                    strip=(("bound_t", "bound_seq")
+                           if streamed and not spill else ()))
+            if segment_hook is not None:
+                out = segment_hook(seg_index, state, queue, stats)
+                if out is not None:
+                    state, queue, stats = out
+            if new_done >= total_batches:
+                break
+            pool_live = bool(spill and pool_seqs.size)
+            feeder_live = streamed and feeder.has_pending()
+            if pool_live or feeder_live:
+                qt = self._queue_next_time(queue)
+                pool_t = (float(pool_rows[:, 0].min()) if pool_live
+                          else float("inf"))
+                feed_t = (feeder.next_time() if feeder_live
+                          else float("inf"))
+                if qt > t_end and pool_t > t_end and feed_t > t_end:
+                    # Everything outstanding is past the horizon.
+                    break
+                if not progressed:
+                    idle_rounds += 1
+                    # One idle round is legal (the absorb or rebalance
+                    # runs next round); repeated idleness means the
+                    # fence can never clear.
+                    if idle_rounds >= 3:
+                        word = (FAULT_INGEST if feeder_live
+                                else FAULT_SPILL_STALL)
+                        n_out = (int(pool_seqs.size) if pool_live
+                                 else feeder.n - feeder.cursor)
+                        raise EngineFaultError(
+                            word, new_done,
+                            detail=(f"{n_out} external event(s) "
+                                    "outstanding but no segment can "
+                                    "make progress"))
+                else:
+                    idle_rounds = 0
+                continue
+            if new_done < target:
+                # The loop stopped before its target: drained, horizon,
+                # or fence with nothing outstanding, all terminal.
+                break
+        return state, queue, stats, pool_rows, pool_seqs, ingested, shed
+
+    def run(self, state, *, until: float | None = None,
+            max_batches: int | None = None, max_events: int | None = None,
+            events: Sequence | None = None, arrivals=None,
+            backpressure: str = "block",
+            checkpoint_every: int | None = None,
+            checkpoint_dir: str | None = None,
+            resume_from: int | str | None = None,
+            _segment_hook: Callable | None = None,
+            _stream_prefetch: bool = True) -> RunResult:
+        """Execute until the pending set drains or a bound trips:
+        ``until`` stops before any event later than it runs,
+        ``max_batches`` bounds executed super-steps, ``events``
+        replaces the program's initial schedule for this run.
+
+        ``arrivals`` opens the system: a
+        :class:`repro_torch.stream.ArrivalSource` streamed into the run
+        in fixed blocks, absorbed at segment boundaries under the lex
+        admission fence; the result is bit-identical to pre-seeding the
+        same trace as long as neither run overflows, and arrivals past
+        ``until`` are never consumed.  ``backpressure`` picks what an
+        admissible arrival that finds the queue full does: ``"block"``
+        (wait; a wedged topology raises ``FAULT_INGEST``), ``"shed"``
+        (drop it, counted in ``RunResult.shed``) or ``"error"`` (raise);
+        with ``overflow="spill"`` it joins the spill pool instead.
+
+        ``checkpoint_every=N`` snapshots the whole carry to
+        ``checkpoint_dir`` every ``N`` super-steps (asynchronously,
+        atomically), and ``resume_from=step`` (or ``"latest"``) restores
+        one and continues; a resumed run is bit-identical to an
+        uninterrupted one.  ``_segment_hook(seg_index, state, queue,
+        stats)`` is the fault-injection seam between segments: it may
+        return a replacement ``(state, queue, stats)`` (tests only).
+        """
+        t_end = float("inf") if until is None else float(until)
+        if backpressure not in ("block", "shed", "error"):
+            raise ValueError(
+                f"backpressure must be 'block', 'shed' or 'error', "
+                f"got {backpressure!r}")
+        if arrivals is None and backpressure != "block":
+            raise ValueError(
+                "backpressure= configures streamed runs — pass "
+                "arrivals= as well")
+        if max_events is not None:
+            raise ValueError("max_events is host-only; the device loop "
+                             "counts batches — use max_batches")
+        return self._run_device(
+            state, self._initial_events(events), t_end,
+            (1 << 30) if max_batches is None else int(max_batches),
+            checkpoint_every=checkpoint_every,
+            checkpoint_dir=checkpoint_dir, resume_from=resume_from,
+            segment_hook=_segment_hook, arrivals=arrivals,
+            backpressure=backpressure, stream_prefetch=_stream_prefetch)

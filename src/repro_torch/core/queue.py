@@ -375,10 +375,46 @@ def tiered3_queue_from_host(events, capacity: int, *, front_cap: int = 256,
     """Host-built seed queue, one copy to ``device``: the earliest
     ``front_cap`` events seed the front, the rest the main ring at head
     0; runs and staging start empty."""
-    front_cap = min(front_cap, capacity)
-    phys = capacity + num_runs * stage_cap
     times, types, args, seq_col, n, m = _host_sorted_seed(
         events, capacity, arg_width, seqs)
+    if seqs is None:
+        counters = dict(size=n, next_seq=n, dropped=n - m)
+    else:
+        counters = dict(size=m, next_seq=int(seq_col.max()) + 1 if m else 0,
+                        dropped=0)
+    return _queue_from_sorted(times, types, args, seq_col, capacity,
+                              front_cap, stage_cap, num_runs, counters,
+                              device)
+
+
+def tiered3_queue_from_columns(times, types, args, seqs, capacity: int, *,
+                               front_cap: int = 256, stage_cap: int = 256,
+                               num_runs: int = 8,
+                               device="cpu") -> Tiered3DeviceQueue:
+    """:func:`tiered3_queue_from_host` with explicit seqs, from numpy
+    columns (``f32[m]``, ``i32[m]``, ``f32[m, W]``, ``i32[m]``, ``m <=
+    capacity``) instead of a list of events."""
+    m = int(np.asarray(times).shape[0])
+    if m > capacity:
+        raise ValueError(
+            f"explicit-seq seed of {m} events exceeds capacity {capacity}")
+    times = np.asarray(times, np.float32)
+    seqs = np.asarray(seqs, np.int32)
+    order = np.lexsort((seqs, times))
+    counters = dict(size=m, next_seq=int(seqs.max()) + 1 if m else 0,
+                    dropped=0)
+    return _queue_from_sorted(
+        times[order], np.asarray(types, np.int32)[order],
+        np.asarray(args, np.float32)[order], seqs[order], capacity,
+        front_cap, stage_cap, num_runs, counters, device)
+
+
+def _queue_from_sorted(times, types, args, seq_col, capacity, front_cap,
+                       stage_cap, num_runs, counters, device):
+    front_cap = min(front_cap, capacity)
+    phys = capacity + num_runs * stage_cap
+    arg_width = args.shape[1]
+    m = times.shape[0]
     nf = min(m, front_cap)
     nm = m - nf
 
@@ -387,12 +423,6 @@ def tiered3_queue_from_host(events, capacity: int, *, front_cap: int = 256,
         col[:src.shape[0]] = src
         return col
 
-    if seqs is None:
-        size, next_seq, dropped = n, n, n - m
-    else:
-        size = m
-        next_seq = int(seq_col.max()) + 1 if m else 0
-        dropped = 0
     fields = dict(
         f_times=column(front_cap, np.inf, np.float32, times[:nf]),
         f_types=column(front_cap, -1, np.int32, types[:nf]),
@@ -412,8 +442,7 @@ def tiered3_queue_from_host(events, capacity: int, *, front_cap: int = 256,
         r_seqs=np.full((num_runs, stage_cap), I32_MAX, np.int32),
         r_off=np.zeros((num_runs,), np.int32),
         r_len=np.zeros((num_runs,), np.int32),
-        front_n=nf, main_n=nm, m_head=0, stage_n=0,
-        size=size, next_seq=next_seq, dropped=dropped,
+        front_n=nf, main_n=nm, m_head=0, stage_n=0, **counters,
     )
     return tiered3_queue_from_arrays(fields, device)
 
@@ -858,14 +887,16 @@ def tiered3_queue_extract(q: Tiered3DeviceQueue, max_len: int, lookaheads,
     refill, then the take rule and prefix pop in one
     :func:`repro_torch.kernels.queue_front.window_extract` call.
 
+    ``bound`` optionally caps the candidate set at a lexicographic
+    ``(time, seq)`` key, two 0-d tensors on the queue's device: only
+    events strictly lex-before it are eligible.  This is the spill
+    policy's and the streamed arrivals' ordering fence; the eligible set
+    is a lex prefix of the sorted candidates, so the take rule sees the
+    queue simply ending earlier.
+
     Returns ``(q', ts, tys, args, length)`` with ``length`` a 0-d int32
-    tensor.  The lexicographic ``bound`` fence (spill and streaming) is
-    not ported yet.
+    tensor.
     """
-    if bound is not None:
-        raise NotImplementedError(
-            "the lex-bounded extraction fence (spill / streaming) is not "
-            "ported to repro_torch yet")
     if max_len > q.front_cap:
         raise ValueError(
             f"max_len {max_len} exceeds front tier capacity {q.front_cap}")
@@ -874,7 +905,7 @@ def tiered3_queue_extract(q: Tiered3DeviceQueue, max_len: int, lookaheads,
     q, *_ = tiered3_queue_peek_front(q, max_len)
     ts, tys, args, length, nt, ny, na, ns = window_extract(
         q.f_times, q.f_types, q.f_args, q.f_seqs, lookaheads, t_cap,
-        k=max_len)
+        k=max_len, bound=bound)
     q = q._replace(f_times=nt, f_types=ny, f_args=na, f_seqs=ns,
                    front_n=q.front_n - length, size=q.size - length)
     return q, ts, tys, args, length
@@ -899,13 +930,16 @@ def _default_fill_accounting(q: Tiered3DeviceQueue, rows):
 
 
 def _tiered_fill_finish(q: Tiered3DeviceQueue, rows, b_time, seq_r, insert,
-                        counters) -> Tiered3DeviceQueue:
+                        counters, b_seq=None) -> Tiered3DeviceQueue:
     """Partition the emit block against the tier boundary,
     counting-merge the near rows into the front
     (:func:`repro_torch.kernels.queue_front.front_merge`, ``front_cap +
     R`` wide: the tail is evicted to staging), append the rest to
     staging, and install the caller's counters.  Row seqs must exceed
-    every queued seq."""
+    every queued seq, unless ``b_seq`` is given: then the boundary
+    partition and the front placement compare full ``(time, seq)`` keys
+    (the merge's ``lex`` mode), which is what lets rows with older seqs
+    (reabsorbed spills, stream arrivals) land at their exact rank."""
     from repro_torch.kernels.queue_front import front_merge
 
     R = rows.shape[0]
@@ -914,12 +948,16 @@ def _tiered_fill_finish(q: Tiered3DeviceQueue, rows, b_time, seq_r, insert,
     ty_r = _i32(rows[:, 1])
     arg_r = rows[:, 2:].contiguous()
     r_idx = _arange(R, q.device)
-    to_front = insert & (t_r < b_time)
+    if b_seq is None:
+        to_front = insert & (t_r < b_time)
+    else:
+        to_front = insert & ((t_r < b_time)
+                             | ((t_r == b_time) & (seq_r < b_seq)))
     to_stage = insert & ~to_front
 
     merged_t, merged_y, merged_a, merged_s = front_merge(
         q.f_times, q.f_types, q.f_args, q.f_seqs, q.front_n,
-        t_r, ty_r, arg_r, seq_r, to_front)
+        t_r, ty_r, arg_r, seq_r, to_front, lex=b_seq is not None)
 
     n_front = _i32(torch.sum(to_front))
     occ_after = q.front_n + n_front
@@ -990,3 +1028,92 @@ def tiered3_queue_fill_rows_tagged(q: Tiered3DeviceQueue, rows, seqs,
     )
     return _tiered_fill_finish(q, rows, _tiered3_boundary(q), seqs, insert,
                                counters)
+
+
+def tiered3_queue_absorb_rows(q: Tiered3DeviceQueue, rows, seqs,
+                              insert=None) -> Tiered3DeviceQueue:
+    """Absorb out-of-band rows carrying externally assigned seqs: the
+    spill policy's reabsorbed rows and streamed arrival blocks.
+
+    The rows' seqs may be older than queued ones, so the boundary
+    partition and the front placement compare full ``(time, seq)`` keys
+    (the ``b_seq`` mode of :func:`_tiered_fill_finish`).  Counters
+    follow the tagged fill: ``size`` is the real occupancy, ``dropped``
+    is untouched and ``next_seq`` is maxed past every absorbed seq; the
+    caller guarantees the inserted rows fit.  ``insert`` optionally
+    masks rows (ANDed with ``type >= 0``).  Rows are absorbed in chunks
+    of ``stage_cap``, each after its own pre-flush check.
+    """
+    rows = rows.to(torch.float32)
+    seqs = seqs.to(_I32)
+    S = q.stage_cap
+    for start in range(0, int(rows.shape[0]), S):
+        chunk = rows[start:start + S]
+        chunk_seqs = seqs[start:start + S]
+        COUNTS["absorb_chunks"] += 1
+        q = _tiered3_preflush(q, int(chunk.shape[0]))
+        insert_c = chunk[:, 1] >= 0
+        if insert is not None:
+            insert_c = insert_c & insert[start:start + S]
+        n_ins = _i32(torch.sum(insert_c))
+        counters = dict(
+            size=q.size + n_ins,
+            next_seq=torch.maximum(
+                q.next_seq,
+                torch.max(torch.where(insert_c, chunk_seqs + 1, 0))),
+            dropped=q.dropped,
+        )
+        b_t, b_s = _tiered3_boundary_key(q)
+        q = _tiered_fill_finish(q, chunk, b_t, chunk_seqs, insert_c,
+                                counters, b_seq=b_s)
+    return q
+
+
+class FlatQueue(NamedTuple):
+    """A pending set as one ``(time, seq)``-sorted array per column (the
+    JAX ``DeviceQueue`` layout): ``capacity`` slots, the occupied ones
+    first, then the sentinels; numpy arrays and host ints."""
+
+    times: np.ndarray
+    types: np.ndarray
+    args: np.ndarray
+    seqs: np.ndarray
+    size: int
+    next_seq: int
+    dropped: int
+
+
+def tiered3_queue_to_flat(q: Tiered3DeviceQueue) -> FlatQueue:
+    """Canonical flat view of a tiered3 queue, on the host: every live
+    event of every tier, sorted by ``(time, seq)``."""
+    a = tiered3_queue_to_arrays(q)
+    head, main_n = int(a["m_head"]), int(a["main_n"])
+    parts = [tuple(a[f"{pre}_{name}"]
+                   for name in ("times", "types", "args", "seqs"))
+             for pre in ("f", "s")]
+    parts.append(tuple(a[f"m_{name}"][head:head + main_n]
+                       for name in ("times", "types", "args", "seqs")))
+    for i in range(q.num_runs):
+        lo, hi = a["r_off"][i], a["r_len"][i]
+        parts.append(tuple(a[f"r_{name}"][i, lo:hi]
+                           for name in ("times", "types", "args", "seqs")))
+    times, types, args, seqs = (np.concatenate([p[c] for p in parts])
+                                for c in range(4))
+    occ = types >= 0
+    order = np.lexsort((seqs[occ], times[occ]))
+    n = int(occ.sum())
+    C = q.capacity
+    if n > C:
+        raise ValueError(
+            f"tier occupancy {n} exceeds the logical capacity {C}")
+    out_t = np.full((C,), np.inf, np.float32)
+    out_y = np.full((C,), -1, np.int32)
+    out_a = np.zeros((C, q.f_args.shape[1]), np.float32)
+    out_s = np.full((C,), I32_MAX, np.int32)
+    out_t[:n] = times[occ][order]
+    out_y[:n] = types[occ][order]
+    out_a[:n] = args[occ][order]
+    out_s[:n] = seqs[occ][order]
+    return FlatQueue(times=out_t, types=out_y, args=out_a, seqs=out_s,
+                     size=int(a["size"]), next_seq=int(a["next_seq"]),
+                     dropped=int(a["dropped"]))

@@ -1,0 +1,244 @@
+"""Invariant auditing for the device engine (DESIGN.md §9), PyTorch port.
+
+Counterpart of :mod:`repro.core.validate` for the single tiered3 queue,
+the one queue mode the port has.  Two layers, selected by
+``DeviceEngine(validate=...)``:
+
+* **cheap** — :func:`tiered3_fault_bits`, O(front_cap + num_runs) device
+  work each super-step: an int32 *fault word* (a bit per invariant
+  class) that the engine ORs into its stats carry.  The engine folds
+  ``fault_word == 0`` into the loop guard it already reads to the host
+  once a super-step, so the check adds no host read, and a corrupted
+  pending set stops the run at the first poisoned super-step.
+* **full** — :func:`full_audit`, an O(capacity) cross-tier audit on the
+  host at segment boundaries only: duplicated seqs across tiers, the
+  sortedness of every run remainder, the cross-tier boundary invariant
+  and the occupancy recounted from the raw buffers.
+
+The bit layout and names are the JAX package's (``FAULT_NAMES`` is the
+wire format of :class:`EngineFaultError` and ``RunResult.fault_word``).
+The flat, two-tier and sharded audits wait for the queue modes they
+audit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = [
+    "EngineFaultError",
+    "FAULT_NAMES",
+    "FAULT_FRONT_ORDER",
+    "FAULT_TIME_NONFINITE",
+    "FAULT_SEQ_RANGE",
+    "FAULT_TIER_COUNTS",
+    "FAULT_CONSERVATION",
+    "FAULT_CLOCK",
+    "FAULT_OVERFLOW",
+    "FAULT_SPILL_STALL",
+    "FAULT_AUDIT",
+    "FAULT_INGEST",
+    "fault_names",
+    "full_audit",
+    "raise_on_findings",
+    "tiered3_fault_bits",
+]
+
+# Packed fault-word layout (int32).  Bits are sticky: once set in the
+# stats carry they survive to the host.
+FAULT_FRONT_ORDER = 1      # front tier not (time, seq)-sorted
+FAULT_TIME_NONFINITE = 2   # NaN/inf timestamp on an occupied slot
+FAULT_SEQ_RANGE = 4        # occupied seq >= next_seq (counter bound)
+FAULT_TIER_COUNTS = 8      # tier counter outside its structural range
+FAULT_CONSERVATION = 16    # occupancy(+dropped) != size
+FAULT_CLOCK = 32           # window head precedes the committed clock
+FAULT_OVERFLOW = 64        # overflow='error' tripped (dropped > 0)
+FAULT_SPILL_STALL = 128    # spill held host-side but no room to absorb
+FAULT_AUDIT = 256          # full cross-tier audit finding (host-side)
+FAULT_INGEST = 512         # arrival stream stalled (backpressure) or
+                           # rejected (backpressure='error'), host-side
+
+FAULT_NAMES = {
+    FAULT_FRONT_ORDER: "front_order",
+    FAULT_TIME_NONFINITE: "time_nonfinite",
+    FAULT_SEQ_RANGE: "seq_range",
+    FAULT_TIER_COUNTS: "tier_counts",
+    FAULT_CONSERVATION: "conservation",
+    FAULT_CLOCK: "clock_regression",
+    FAULT_OVERFLOW: "overflow",
+    FAULT_SPILL_STALL: "spill_stall",
+    FAULT_AUDIT: "full_audit",
+    FAULT_INGEST: "ingest_stall",
+}
+
+
+def fault_names(word: int) -> list[str]:
+    """Decode a fault word into its invariant names (LSB first)."""
+    return [name for bit, name in sorted(FAULT_NAMES.items())
+            if int(word) & bit]
+
+
+class EngineFaultError(RuntimeError):
+    """A run tripped an engine invariant (or the ``overflow='error'`` /
+    spill / ingest policies could not proceed).  ``fault_word`` is the
+    packed bit set, ``fault_step`` the super-step that first set it (-1
+    when detected on the host between segments), ``faults`` the decoded
+    names."""
+
+    def __init__(self, fault_word: int, fault_step: int = -1,
+                 detail: str = ""):
+        self.fault_word = int(fault_word)
+        self.fault_step = int(fault_step)
+        self.faults = fault_names(fault_word)
+        where = (f" at super-step {self.fault_step}"
+                 if self.fault_step >= 0 else "")
+        msg = (f"engine invariant violated{where}: "
+               f"{', '.join(self.faults) or hex(self.fault_word)}")
+        if detail:
+            msg += f" ({detail})"
+        super().__init__(msg)
+
+
+# ---------------------------------------------------------------------------
+# Cheap per-super-step checks (device work, an int32 0-d fault word)
+# ---------------------------------------------------------------------------
+
+def _bit(pred, bit: int) -> torch.Tensor:
+    return torch.where(pred, bit, 0).to(torch.int32)
+
+
+def tiered3_fault_bits(q, *, local: bool) -> torch.Tensor:
+    """Cheap fault word for one tiered3 queue, O(front_cap + num_runs).
+    ``local=True`` applies the occupancy discipline of spill-mode queues
+    (``size`` == real occupancy); ``local=False`` the single-queue rule
+    (``size`` counts ghosts: occupancy + dropped == size).
+
+    As in JAX, the front checks reduce with one max over per-slot words
+    (when different slots break different invariants in one super-step
+    only the larger bit is named), and a run whose offsets are
+    structurally invalid poisons the occupancy sum, so it surfaces as
+    ``conservation``; :func:`full_audit` names both exactly."""
+    F, S = q.front_cap, q.stage_cap
+    t, s = q.f_times, q.f_seqs
+    i = torch.arange(F - 1, dtype=torch.int32, device=t.device)
+    occ_i = i < q.front_n
+    pair_occ = (i + 1) < q.front_n
+    t0, t1 = t[:-1], t[1:]
+    s0, s1 = s[:-1], s[1:]
+    pair_ok = (t0 < t1) | ((t0 == t1) & (s0 < s1))
+    word = (_bit(pair_occ & ~pair_ok, FAULT_FRONT_ORDER)
+            | _bit(occ_i & ~torch.isfinite(t0), FAULT_TIME_NONFINITE)
+            | _bit(occ_i & (s0 >= q.next_seq), FAULT_SEQ_RANGE))
+    bits = torch.max(word) if F > 1 else torch.zeros(
+        (), dtype=torch.int32, device=t.device)
+    last_occ = q.front_n >= F
+    bits = bits | _bit(last_occ & ~torch.isfinite(t[F - 1]),
+                       FAULT_TIME_NONFINITE)
+    bits = bits | _bit(last_occ & (s[F - 1] >= q.next_seq), FAULT_SEQ_RANGE)
+
+    live = q.r_len - q.r_off
+    run_bad = (q.r_off < 0) | (live < 0) | (q.r_len > S)
+    occ = (q.front_n + q.stage_n + q.main_n
+           + torch.sum(torch.where(run_bad, 1 << 24, live)).to(torch.int32))
+    counts_ok = ((q.front_n >= 0) & (q.front_n <= F)
+                 & (q.stage_n >= 0) & (q.stage_n <= S)
+                 & (q.main_n >= 0) & (q.main_n <= q.main_phys))
+    bits = bits | _bit(~counts_ok, FAULT_TIER_COUNTS)
+    conserved = (occ == q.size) if local else (occ + q.dropped == q.size)
+    return bits | _bit(~conserved, FAULT_CONSERVATION)
+
+
+# ---------------------------------------------------------------------------
+# Full cross-tier audit (host-side, segment boundaries only)
+# ---------------------------------------------------------------------------
+
+def _audit_columns(findings, label, times, seqs, *, expect_sorted):
+    if times.size == 0:
+        return
+    if not np.all(np.isfinite(times)):
+        findings.append((FAULT_TIME_NONFINITE,
+                         f"{label}: non-finite timestamp"))
+    if expect_sorted and times.size > 1:
+        t0, t1 = times[:-1], times[1:]
+        s0, s1 = seqs[:-1], seqs[1:]
+        if not np.all((t0 < t1) | ((t0 == t1) & (s0 < s1))):
+            findings.append((FAULT_FRONT_ORDER,
+                             f"{label}: not (time, seq)-sorted"))
+
+
+def _live_regions(a: dict, num_runs: int):
+    """(label, times, seqs, expect_sorted) per live tier region."""
+    head, main_n = int(a["m_head"]), int(a["main_n"])
+    fn, sn = int(a["front_n"]), int(a["stage_n"])
+    regions = [
+        ("front", a["f_times"][:fn], a["f_seqs"][:fn], True),
+        ("staging", a["s_times"][:sn], a["s_seqs"][:sn], False),
+        ("main", a["m_times"][head:head + main_n],
+         a["m_seqs"][head:head + main_n], True),
+    ]
+    for i in range(num_runs):
+        lo, hi = a["r_off"][i], a["r_len"][i]
+        regions.append((f"run[{i}]", a["r_times"][i, lo:hi],
+                        a["r_seqs"][i, lo:hi], True))
+    return regions
+
+
+def full_audit(queue, *, local: bool = False) -> list[tuple[int, str]]:
+    """O(capacity) cross-tier audit of one tiered3 queue on the host;
+    returns findings as ``(fault_bit, message)``.  Call at segment
+    boundaries only."""
+    from repro_torch.core.queue import tiered3_queue_to_arrays
+
+    findings: list[tuple[int, str]] = []
+    a = tiered3_queue_to_arrays(queue)
+    F, S = queue.front_cap, queue.stage_cap
+    fn, sn = int(a["front_n"]), int(a["stage_n"])
+    off, rlen = a["r_off"], a["r_len"]
+    if not (0 <= fn <= F and 0 <= sn <= S and 0 <= int(a["main_n"])
+            and np.all((off >= 0) & (off <= rlen) & (rlen <= S))):
+        findings.append((FAULT_TIER_COUNTS,
+                         "tier counter outside structural range"))
+        return findings  # slicing below would be ill-defined
+    regions = _live_regions(a, queue.num_runs)
+    for label, times, seqs, expect_sorted in regions:
+        _audit_columns(findings, label, times, seqs,
+                       expect_sorted=expect_sorted)
+    all_seqs = np.concatenate([r[2] for r in regions])
+    if all_seqs.size and np.unique(all_seqs).size != all_seqs.size:
+        findings.append((FAULT_SEQ_RANGE, "duplicated seq across tiers"))
+    if all_seqs.size and int(all_seqs.max()) >= int(a["next_seq"]):
+        findings.append((FAULT_SEQ_RANGE,
+                         "queued seq >= next_seq counter"))
+    # Cross-tier boundary invariant: max(front) <= min(everything else)
+    # under the lexicographic key.
+    front = regions[0]
+    rest_t = np.concatenate([r[1] for r in regions[1:]])
+    rest_s = np.concatenate([r[2] for r in regions[1:]])
+    if fn and rest_t.size:
+        fmax = (float(front[1][-1]), int(front[2][-1]))
+        j = np.lexsort((rest_s, rest_t))[0]
+        rmin = (rest_t[j], rest_s[j])
+        if fmax > rmin:
+            findings.append((FAULT_FRONT_ORDER,
+                             f"tier boundary inverted: front max {fmax} "
+                             f"> rest min {rmin}"))
+    occ = sum(r[1].size for r in regions)
+    size, dropped = int(a["size"]), int(a["dropped"])
+    expect = size if local else size - dropped
+    if occ != expect:
+        findings.append((FAULT_CONSERVATION,
+                         f"occupancy {occ} != expected {expect} "
+                         f"(size {size}, dropped {dropped})"))
+    return findings
+
+
+def raise_on_findings(findings, *, step: int = -1):
+    """Collapse :func:`full_audit` findings into one typed error."""
+    if not findings:
+        return
+    word = FAULT_AUDIT
+    for bit, _ in findings:
+        word |= bit
+    detail = "; ".join(msg for _, msg in findings)
+    raise EngineFaultError(word, step, detail)

@@ -42,6 +42,17 @@
 //  * Arg rows of W = 4 floats move as one 16-byte load and store where
 //    the pointers allow.
 //
+// Two modes serve the spill policy and streamed arrivals.
+//  * window_extract's lex fence: a candidate is valid only if its
+//    (time, seq) key is strictly lex-before (bound_t, bound_seq), two
+//    0-d device scalars read with the window's slots.  A closed run
+//    passes (inf, INT32_MAX): one kernel signature, no host read.
+//  * front_merge's lex placement (lex != 0): a row's insertion point is
+//    the count of occupied front slots strictly lex-before its (time,
+//    seq) key, where the default counts front times <= its time, capped
+//    at front_n.  Reabsorbed rows carry seqs older than queued ones, so
+//    a time tie needs the seq.  The same ballot counts either predicate.
+//
 // Plain C interface, loaded with ctypes; each launcher takes its
 // tensors' pointers in one array and returns cudaGetLastError() right
 // after the launch.
@@ -160,7 +171,8 @@ template <int NA>
 __global__ void __launch_bounds__(kExtractThreads) window_extract_kernel(
     const float* __restrict__ f_times, const int32_t* __restrict__ f_types,
     const float* __restrict__ f_args, const int32_t* __restrict__ f_seqs,
-    const float* __restrict__ lookaheads, int num_types, float t_cap,
+    const float* __restrict__ lookaheads, const float* __restrict__ bound_t,
+    const int32_t* __restrict__ bound_seq, int num_types, float t_cap,
     int F, int W, int k,
     float* __restrict__ ts, int32_t* __restrict__ tys,
     float* __restrict__ args, int32_t* __restrict__ length_out,
@@ -170,14 +182,17 @@ __global__ void __launch_bounds__(kExtractThreads) window_extract_kernel(
   const bool vec_in = NA > 0 && W == kRegW && aligned16(f_args);
   const bool vec_out = NA > 0 && W == kRegW && aligned16(na);
 
-  // Issued together: the window's slots, the lookahead table, and the
-  // two slots this thread's first output comes from.
+  // Issued together: the window's slots, the fence, the lookahead table,
+  // and the two slots this thread's first output comes from.
   float t = INFINITY;
-  int32_t y = -1;
+  int32_t y = -1, sq = kI32Max;
   if (lane < k) {
     t = f_times[lane];
     y = f_types[lane];
+    sq = f_seqs[lane];
   }
+  const float bt = bound_t[0];
+  const int32_t bs = bound_seq[0];
   const float la_lane = lane < num_types ? lookaheads[lane] : 0.0f;
   int i = threadIdx.x;
   Slot<NA> cur = load_slot<NA>(f_times, f_types, f_args, f_seqs, i, F, W,
@@ -185,8 +200,9 @@ __global__ void __launch_bounds__(kExtractThreads) window_extract_kernel(
   Slot<NA> nxt = load_slot<NA>(f_times, f_types, f_args, f_seqs, i + 32, F,
                                W, vec_in);
 
-  // The take rule, in this warp's registers.
-  const bool valid = lane < k && y >= 0;
+  // The take rule, in this warp's registers; the fence cuts the
+  // candidates to those lex-before (bt, bs).
+  const bool valid = lane < k && y >= 0 && (t < bt || (t == bt && sq < bs));
   const int tyc = min(max(y, 0), num_types - 1);
   float la;
   if (num_types <= 32) {
@@ -265,7 +281,7 @@ __global__ void __launch_bounds__(kMergeSlots) front_merge_warp_kernel(
     const int32_t* __restrict__ front_n_ptr,
     const float* __restrict__ t_r, const int32_t* __restrict__ ty_r,
     const float* __restrict__ arg_r, const int32_t* __restrict__ seq_r,
-    const uint8_t* __restrict__ to_front, int F, int R, int W,
+    const uint8_t* __restrict__ to_front, int F, int R, int W, int lex,
     float* __restrict__ mt, int32_t* __restrict__ my,
     float* __restrict__ ma, int32_t* __restrict__ ms) {
   // [warp][row]: the warp's front times <= the row's time
@@ -292,26 +308,29 @@ __global__ void __launch_bounds__(kMergeSlots) front_merge_warp_kernel(
   const int32_t rs = in ? row.s : kI32Max;
 
   // Lex rank of row `lane` among the R rows, and this warp's count of
-  // front times <= each row's time.
+  // front times <= each row's time (lex: occupied front keys strictly
+  // lex-before the row's key).
   int rank = 0, cnt = 0;
-  const bool live = i < F;
+  const bool live = lex ? i < front_n : i < F;
   for (int j = 0; j < R; ++j) {
     const float tj = __shfl_sync(kFull, rt, j);
     const int32_t sj = __shfl_sync(kFull, rs, j);
     rank += lex_after(rt, rs, lane, tj, sj, j);
-    const int c = __popc(__ballot_sync(kFull, live && cur.t <= tj));
+    const bool before = lex ? (cur.t < tj || (cur.t == tj && cur.s < sj))
+                            : cur.t <= tj;
+    const int c = __popc(__ballot_sync(kFull, live && before));
     if (lane == j) cnt = c;
   }
   if (lane < R) s_cnt[warp][lane] = cnt;
   __syncthreads();
 
   // Row `lane`'s merged position: searchsorted-right into the front,
-  // capped at the live occupancy, plus its rank.
+  // capped at the live occupancy (lex: the count itself), plus its rank.
   int pos = FE + R;
   if (in) {
     int older = 0;
     for (int w = 0; w < (int)(blockDim.x >> 5); ++w) older += s_cnt[w][lane];
-    pos = min(older, front_n) + rank;
+    pos = (lex ? older : min(older, front_n)) + rank;
   }
   // Rows inserted before slot i, and the row inserted at it.
   int before = 0, hit = -1;
@@ -345,16 +364,17 @@ __global__ void __launch_bounds__(1024) front_merge_kernel(
     const int32_t* __restrict__ front_n_ptr,
     const float* __restrict__ t_r, const int32_t* __restrict__ ty_r,
     const float* __restrict__ arg_r, const int32_t* __restrict__ seq_r,
-    const uint8_t* __restrict__ to_front, int F, int R, int W,
+    const uint8_t* __restrict__ to_front, int F, int R, int W, int lex,
     float* __restrict__ mt, int32_t* __restrict__ my,
     float* __restrict__ ma, int32_t* __restrict__ ms) {
   extern __shared__ int smem[];
   float* s_t = reinterpret_cast<float*>(smem);  // masked row times
   int* s_s = smem + R;                           // masked row seqs
-  int* s_cnt = smem + 2 * R;                     // front times <= row's
+  int* s_cnt = smem + 2 * R;                     // front keys before row's
   int* s_rank = smem + 3 * R;                    // rank; -1: not inserted
   const int tid = threadIdx.x, lane = tid & 31, nthreads = blockDim.x;
   const int FE = F + R;
+  const int front_n = front_n_ptr[0];
 
   for (int j = tid; j < R; j += nthreads) {
     const bool in = to_front[j] != 0;
@@ -369,21 +389,27 @@ __global__ void __launch_bounds__(1024) front_merge_kernel(
       rank += lex_after(s_t[j], s_s[j], j, s_t[o], s_s[o], o);
     s_rank[j] = to_front[j] != 0 ? rank : -1;
   }
+  // Front times <= each row's time; lex: occupied front keys strictly
+  // lex-before each row's key.
+  const int live_n = lex ? front_n : F;
   for (int base = tid - lane; base < F; base += nthreads) {
     const int f = base + lane;
     const float ft = f < F ? f_times[f] : INFINITY;
+    const int32_t fs = f < F ? f_seqs[f] : kI32Max;
     for (int j = 0; j < R; ++j) {
-      const unsigned b = __ballot_sync(kFull, f < F && ft <= s_t[j]);
+      const bool before = lex ? (ft < s_t[j] || (ft == s_t[j] && fs < s_s[j]))
+                              : ft <= s_t[j];
+      const unsigned b = __ballot_sync(kFull, f < live_n && before);
       if (lane == 0 && b) atomicAdd(&s_cnt[j], __popc(b));
     }
   }
   __syncthreads();
-  const int front_n = front_n_ptr[0];
   for (int i = tid; i < FE; i += nthreads) {
     int before = 0, hit = -1;
     for (int j = 0; j < R; ++j) {
       const int rank = s_rank[j];
-      const int p = rank >= 0 ? min(s_cnt[j], front_n) + rank : FE + R;
+      const int cnt = lex ? s_cnt[j] : min(s_cnt[j], front_n);
+      const int p = rank >= 0 ? cnt + rank : FE + R;
       before += p < i;
       hit = p == i ? j : hit;
     }
@@ -408,9 +434,9 @@ int round_warps(int n) {
 
 }  // namespace
 
-// ptrs: f_times, f_types, f_args, f_seqs, lookaheads, then the outputs
-// ts, tys, args, length, nt, ny, na, ns (one array, so that a call from
-// Python converts one argument, not thirteen).
+// ptrs: f_times, f_types, f_args, f_seqs, lookaheads, bound_t,
+// bound_seq, then the outputs ts, tys, args, length, nt, ny, na, ns (one
+// array, so that a call from Python converts one argument, not fifteen).
 extern "C" int window_extract_launch(void* const* ptrs, int num_types,
                                      float t_cap, int F, int W, int k,
                                      void* stream) {
@@ -422,19 +448,20 @@ extern "C" int window_extract_launch(void* const* ptrs, int num_types,
   auto n = [&](int i) { return static_cast<int32_t*>(ptrs[i]); };
   if (W <= kRegW)
     window_extract_kernel<kRegW><<<1, threads, 0, s>>>(
-        f(0), n(1), f(2), n(3), f(4), num_types, t_cap, F, W, k, f(5), n(6),
-        f(7), n(8), f(9), n(10), f(11), n(12));
+        f(0), n(1), f(2), n(3), f(4), f(5), n(6), num_types, t_cap, F, W, k,
+        f(7), n(8), f(9), n(10), f(11), n(12), f(13), n(14));
   else
     window_extract_kernel<0><<<1, threads, 0, s>>>(
-        f(0), n(1), f(2), n(3), f(4), num_types, t_cap, F, W, k, f(5), n(6),
-        f(7), n(8), f(9), n(10), f(11), n(12));
+        f(0), n(1), f(2), n(3), f(4), f(5), n(6), num_types, t_cap, F, W, k,
+        f(7), n(8), f(9), n(10), f(11), n(12), f(13), n(14));
   return (int)cudaGetLastError();
 }
 
 // ptrs: f_times, f_types, f_args, f_seqs, front_n, t_r, ty_r, arg_r,
-// seq_r, to_front, then the outputs mt, my, ma, ms.
+// seq_r, to_front, then the outputs mt, my, ma, ms.  lex != 0 places the
+// rows by full (time, seq) keys.
 extern "C" int front_merge_launch(void* const* ptrs, int F, int R, int W,
-                                  void* stream) {
+                                  int lex, void* stream) {
   if (R < 1 || R > 1024 || F < 1 || W < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   auto f = [&](int i) { return static_cast<float*>(ptrs[i]); };
@@ -446,15 +473,15 @@ extern "C" int front_merge_launch(void* const* ptrs, int F, int R, int W,
     if (W <= kRegW)
       front_merge_warp_kernel<kRegW><<<1, threads, 0, s>>>(
           f(0), n(1), f(2), n(3), n(4), f(5), n(6), f(7), n(8), to_front, F,
-          R, W, f(10), n(11), f(12), n(13));
+          R, W, lex, f(10), n(11), f(12), n(13));
     else
       front_merge_warp_kernel<0><<<1, threads, 0, s>>>(
           f(0), n(1), f(2), n(3), n(4), f(5), n(6), f(7), n(8), to_front, F,
-          R, W, f(10), n(11), f(12), n(13));
+          R, W, lex, f(10), n(11), f(12), n(13));
   } else {
     front_merge_kernel<<<1, round_warps(FE), 4 * R * sizeof(int), s>>>(
         f(0), n(1), f(2), n(3), n(4), f(5), n(6), f(7), n(8), to_front, F, R,
-        W, f(10), n(11), f(12), n(13));
+        W, lex, f(10), n(11), f(12), n(13));
   }
   return (int)cudaGetLastError();
 }

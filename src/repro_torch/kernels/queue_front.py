@@ -9,10 +9,17 @@ path (one launch each per super-step):
   the refilled sorted front, plus the prefix pop of all four front
   columns.  Plain version: :func:`repro_torch.core.queue.window_prefix_mask`
   followed by the pop of :func:`repro_torch.core.queue.tiered3_queue_pop_prefix`.
+  ``bound=(bound_t, bound_seq)``, two 0-d device scalars, is the spill
+  policy's and the streamed arrivals' lex fence: only candidates
+  strictly lex-before it are valid (JAX's bounded XLA extract).  The
+  CUDA route always reads a fence; ``bound=None`` passes ``(inf,
+  2**31-1)``, so a closed run makes the same launch and no host read.
 * :func:`front_merge` — the counting-merge of the per-batch emit rows
   into the sorted front (``front_cap + R`` wide output; the tail is the
   evicted rows).  Plain version: the merge block of the JAX
-  ``_tiered_fill_finish`` XLA path.
+  ``_tiered_fill_finish`` XLA path; ``lex=True`` is its ``b_seq`` branch,
+  which places each row after the occupied front slots strictly
+  lex-before its ``(time, seq)`` key (rows reabsorbed with old seqs).
 
 Each wrapper takes the plain version for tensors on the CPU and the
 CUDA kernel (``src/repro_torch/csrc/queue_front.cu``, built at first
@@ -74,7 +81,8 @@ def _lib():
         lib.window_extract_launch.argtypes = (
             [_ptr, _int, ctypes.c_float, _int, _int, _int, _ptr])
         lib.window_extract_launch.restype = _int
-        lib.front_merge_launch.argtypes = [_ptr, _int, _int, _int, _ptr]
+        lib.front_merge_launch.argtypes = [_ptr, _int, _int, _int, _int,
+                                           _ptr]
         lib.front_merge_launch.restype = _int
         _LIB = lib
     return _LIB
@@ -105,18 +113,35 @@ def _launch_status(name: str, status: int) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {status}")
 
 
+# device -> the open fence (inf, 2**31-1) as two 0-d tensors, made once.
+_OPEN_FENCE: dict = {}
+
+
+def _open_fence(device: torch.device):
+    fence = _OPEN_FENCE.get(device)
+    if fence is None:
+        fence = (torch.full((), INF, dtype=torch.float32, device=device),
+                 torch.full((), I32_MAX, dtype=torch.int32, device=device))
+        _OPEN_FENCE[device] = fence
+    return fence
+
+
 # ---------------------------------------------------------------------------
 # window_extract
 # ---------------------------------------------------------------------------
 
 def window_extract_plain(f_times, f_types, f_args, f_seqs, lookaheads,
-                         t_cap=None, *, k: int):
+                         t_cap=None, *, k: int, bound=None):
     """The XLA extract path: take rule over the first ``k`` front
-    slots, then the prefix pop.  Returns ``(ts[k], tys[k], args[k, W],
-    length, f_times', f_types', f_args', f_seqs')``."""
+    slots (cut to those strictly lex-before ``bound`` when given), then
+    the prefix pop.  Returns ``(ts[k], tys[k], args[k, W], length,
+    f_times', f_types', f_args', f_seqs')``."""
     T = lookaheads.shape[0]
     ts_c, tys_c, args_c = f_times[:k], f_types[:k], f_args[:k]
     valid = tys_c >= 0
+    if bound is not None:
+        b_t, b_s = bound
+        valid = valid & ((ts_c < b_t) | ((ts_c == b_t) & (f_seqs[:k] < b_s)))
     la = _take(lookaheads, torch.clamp(tys_c, 0, T - 1))
     wins = torch.where(valid, ts_c + la, INF)
     take = window_prefix_mask(ts_c, wins, valid, t_cap)
@@ -131,7 +156,8 @@ def window_extract_plain(f_times, f_types, f_args, f_seqs, lookaheads,
             shift_left(f_seqs, I32_MAX, length, k))
 
 
-def _window_plan(f_times, f_types, f_args, f_seqs, lookaheads, t_cap, k):
+def _window_plan(f_times, f_types, f_args, f_seqs, lookaheads, bound_t,
+                 bound_seq, t_cap, k):
     """Every check of a ``window_extract`` call, and its launch
     arguments."""
     dev = f_times.device
@@ -143,6 +169,8 @@ def _window_plan(f_times, f_types, f_args, f_seqs, lookaheads, t_cap, k):
     _check("f_args", f_args, torch.float32, (F, W), dev)
     _check("f_seqs", f_seqs, torch.int32, (F,), dev)
     _check("lookaheads", lookaheads, torch.float32, (T,), dev)
+    _check("bound_t", bound_t, torch.float32, (), dev)
+    _check("bound_seq", bound_seq, torch.int32, (), dev)
     if not 1 <= k <= min(F, MAX_WINDOW):
         raise ValueError(f"window width {k} must be in [1, "
                          f"min(front_cap={F}, {MAX_WINDOW})]")
@@ -157,20 +185,25 @@ def _window_plan(f_times, f_types, f_args, f_seqs, lookaheads, t_cap, k):
 
 
 def window_extract_plan(f_times, f_types, f_args, f_seqs, lookaheads,
-                        t_cap=None, *, k: int):
+                        t_cap=None, *, k: int, bound=None):
     """The launch plan of this call signature, built by
     :func:`_window_plan` the first time it is seen."""
+    bound_t, bound_seq = (_open_fence(f_times.device) if bound is None
+                          else bound)
     key = ("window_extract", k, t_cap) + signature(
-        f_times, f_types, f_args, f_seqs, lookaheads)
+        f_times, f_types, f_args, f_seqs, lookaheads, bound_t, bound_seq)
     return PLANS.get(key) or remember(key, _window_plan(
-        f_times, f_types, f_args, f_seqs, lookaheads, t_cap, k))
+        f_times, f_types, f_args, f_seqs, lookaheads, bound_t, bound_seq,
+        t_cap, k))
 
 
 def window_extract_cuda(f_times, f_types, f_args, f_seqs, lookaheads,
-                        t_cap=None, *, k: int):
-    """The same function as one launch of the CUDA kernel."""
+                        t_cap=None, *, k: int, bound=None):
+    """The same function as one launch of the CUDA kernel; ``bound=None``
+    launches it with the open fence."""
     dev, dims = window_extract_plan(f_times, f_types, f_args, f_seqs,
-                                    lookaheads, t_cap, k=k)
+                                    lookaheads, t_cap, k=k, bound=bound)
+    bound_t, bound_seq = _open_fence(dev) if bound is None else bound
     F, W = dims[2], dims[3]
     f32, i32 = torch.float32, torch.int32
     ts = torch.empty(k, dtype=f32, device=dev)
@@ -181,9 +214,10 @@ def window_extract_cuda(f_times, f_types, f_args, f_seqs, lookaheads,
     ny = torch.empty(F, dtype=i32, device=dev)
     na = torch.empty(F, W, dtype=f32, device=dev)
     ns = torch.empty(F, dtype=i32, device=dev)
-    ptrs = (ctypes.c_void_p * 13)(
+    ptrs = (ctypes.c_void_p * 15)(
         f_times.data_ptr(), f_types.data_ptr(), f_args.data_ptr(),
-        f_seqs.data_ptr(), lookaheads.data_ptr(), ts.data_ptr(),
+        f_seqs.data_ptr(), lookaheads.data_ptr(), bound_t.data_ptr(),
+        bound_seq.data_ptr(), ts.data_ptr(),
         tys.data_ptr(), args.data_ptr(), length.data_ptr(), nt.data_ptr(),
         ny.data_ptr(), na.data_ptr(), ns.data_ptr())
     status = launch_on(dev, _lib().window_extract_launch, ptrs, *dims)
@@ -193,14 +227,15 @@ def window_extract_cuda(f_times, f_types, f_args, f_seqs, lookaheads,
 
 
 def window_extract(f_times, f_types, f_args, f_seqs, lookaheads,
-                   t_cap=None, *, k: int):
+                   t_cap=None, *, k: int, bound=None):
     """Fused take rule + prefix pop over a refilled sorted front tier
-    (``t_cap`` caps the window at the run horizon)."""
+    (``t_cap`` caps the window at the run horizon, ``bound`` fences the
+    candidates at a lex ``(time, seq)`` key)."""
     if _route(f_times.device) == "plain":
         return window_extract_plain(f_times, f_types, f_args, f_seqs,
-                                    lookaheads, t_cap, k=k)
+                                    lookaheads, t_cap, k=k, bound=bound)
     return window_extract_cuda(f_times, f_types, f_args, f_seqs,
-                               lookaheads, t_cap, k=k)
+                               lookaheads, t_cap, k=k, bound=bound)
 
 
 # ---------------------------------------------------------------------------
@@ -208,10 +243,12 @@ def window_extract(f_times, f_types, f_args, f_seqs, lookaheads,
 # ---------------------------------------------------------------------------
 
 def front_merge_plain(f_times, f_types, f_args, f_seqs, front_n,
-                      t_r, ty_r, arg_r, seq_r, to_front):
+                      t_r, ty_r, arg_r, seq_r, to_front, *, lex=False):
     """The XLA front-merge block: lex-rank the rows (non-front rows
-    last), searchsorted-right into the front capped at ``front_n``, and
-    rebuild the ``F + R`` merged columns by position arithmetic."""
+    last), searchsorted-right into the front capped at ``front_n`` (with
+    ``lex``: count the occupied front slots strictly lex-before each
+    row), and rebuild the ``F + R`` merged columns by position
+    arithmetic."""
     F = f_times.shape[0]
     R = t_r.shape[0]
     FE = F + R
@@ -220,8 +257,16 @@ def front_merge_plain(f_times, f_types, f_args, f_seqs, front_n,
     perm = _small_lex_perm(tt, torch.where(to_front, seq_r, I32_MAX))
     rt = tt[perm]
     rty, rarg, rseq, rins = ty_r[perm], arg_r[perm], seq_r[perm], to_front[perm]
-    older = torch.minimum(
-        torch.searchsorted(f_times, rt, right=True, out_int32=True), front_n)
+    if lex:
+        occ_f = (_arange(F, dev) < front_n)[None, :]
+        lex_lt = (f_times[None, :] < rt[:, None]) | (
+            (f_times[None, :] == rt[:, None])
+            & (f_seqs[None, :] < rseq[:, None]))
+        older = torch.sum(occ_f & lex_lt, dim=1).to(torch.int32)
+    else:
+        older = torch.minimum(
+            torch.searchsorted(f_times, rt, right=True, out_int32=True),
+            front_n)
     pos = torch.where(rins, older + _arange(R, dev), FE + R)
     i_idx = _arange(FE, dev)
     ins_before = torch.searchsorted(pos, i_idx, right=False, out_int32=True)
@@ -266,7 +311,8 @@ def _merge_plan(f_times, f_types, f_args, f_seqs, front_n, t_r, ty_r,
 def front_merge_plan(f_times, f_types, f_args, f_seqs, front_n, t_r, ty_r,
                      arg_r, seq_r, to_front):
     """The launch plan of this call signature, built by
-    :func:`_merge_plan` the first time it is seen."""
+    :func:`_merge_plan` the first time it is seen (``lex`` is a launch
+    argument, not part of the plan)."""
     key = ("front_merge",) + signature(f_times, f_types, f_args, f_seqs,
                                        front_n, t_r, ty_r, arg_r, seq_r,
                                        to_front)
@@ -276,7 +322,7 @@ def front_merge_plan(f_times, f_types, f_args, f_seqs, front_n, t_r, ty_r,
 
 
 def front_merge_cuda(f_times, f_types, f_args, f_seqs, front_n,
-                     t_r, ty_r, arg_r, seq_r, to_front):
+                     t_r, ty_r, arg_r, seq_r, to_front, *, lex=False):
     """The same function as one launch of the CUDA kernel."""
     dev, dims = front_merge_plan(f_times, f_types, f_args, f_seqs, front_n,
                                  t_r, ty_r, arg_r, seq_r, to_front)
@@ -290,23 +336,25 @@ def front_merge_cuda(f_times, f_types, f_args, f_seqs, front_n,
         f_seqs.data_ptr(), front_n.data_ptr(), t_r.data_ptr(),
         ty_r.data_ptr(), arg_r.data_ptr(), seq_r.data_ptr(),
         to_front.data_ptr(), *(o.data_ptr() for o in outs))
-    status = launch_on(dev, _lib().front_merge_launch, ptrs, *dims)
+    status = launch_on(dev, _lib().front_merge_launch, ptrs, *dims,
+                       int(lex))
     _launch_status("front_merge", status)
     LAUNCHES["front_merge"] += 1
     return outs
 
 
 def front_merge(f_times, f_types, f_args, f_seqs, front_n,
-                t_r, ty_r, arg_r, seq_r, to_front):
+                t_r, ty_r, arg_r, seq_r, to_front, *, lex=False):
     """Counting-merge ``R`` emit rows into the sorted front tier.
 
     Returns the merged ``(times, types, args, seqs)`` columns, ``F + R``
     wide; slots ``[F:]`` are the evicted tail the caller stages.
     ``to_front`` marks the rows bound for the front.  Row seqs must
-    exceed every queued seq.
+    exceed every queued seq, unless ``lex`` places the rows by their
+    full ``(time, seq)`` keys.
     """
     if _route(f_times.device) == "plain":
         return front_merge_plain(f_times, f_types, f_args, f_seqs, front_n,
-                                 t_r, ty_r, arg_r, seq_r, to_front)
+                                 t_r, ty_r, arg_r, seq_r, to_front, lex=lex)
     return front_merge_cuda(f_times, f_types, f_args, f_seqs, front_n,
-                            t_r, ty_r, arg_r, seq_r, to_front)
+                            t_r, ty_r, arg_r, seq_r, to_front, lex=lex)

@@ -25,9 +25,10 @@ int32 wraparound exactly as JAX's does: torch's int32 multiply wraps,
 sign (``torch.remainder``, as ``jnp.remainder``; not ``torch.fmod``),
 so the port's runs are bit-identical to the JAX package's.
 
-The open variant (``build_open_admission_program``, arrivals from an
-external stream) needs streaming, which is not ported yet (ROADMAP
-A10).
+The open variant (``build_open_admission_program``) takes its
+arrivals from an external stream: ``sim.run(state0, arrivals=source)``
+with a :class:`repro_torch.stream.PoissonSource` on the 0.25 grid, or,
+for the closed reference, the same trace pre-seeded.
 """
 
 from __future__ import annotations
@@ -170,12 +171,89 @@ def build_admission_program(*, num_slots: int = 8, num_requests: int = 64,
     return prog.freeze()
 
 
-def build_open_admission_program(**kwargs) -> SimProgram:
-    """The admission scenario as an open system, its arrivals from an
-    external stream: not ported yet."""
-    raise NotImplementedError(
-        "the open admission scenario needs external_entry and streamed "
-        "arrivals, which are not ported to repro_torch yet (ROADMAP A10)")
+def build_open_admission_program(*, num_slots: int = 8,
+                                 num_requests: int = 64,
+                                 max_decode: int = 6,
+                                 config: Config | None = None
+                                 ) -> SimProgram:
+    """The admission scenario as an open system (DESIGN.md §10).
+
+    The handlers of :func:`build_admission_program`, except that
+    ``ARRIVE`` does not chain the next arrival: requests come from an
+    external stream (``sim.run(state0, arrivals=source)``) or, for the
+    closed reference, from pre-seeded ``ARRIVE`` events at the same
+    times.  ``num_requests`` must equal the trace length: ``TICK`` keeps
+    itself alive until that many arrivals have run.  Arrival times must
+    lie on the 0.25 f32 grid (``PoissonSource(rate, n, grid=0.25,
+    type_id=0)``), with the request index in ``arg[0]``.
+    """
+    cfg = config or Config(max_batch_len=8, capacity=1024, max_emit=2)
+    if cfg.max_emit < 2:
+        raise ValueError("admission program needs Config(max_emit >= 2)")
+    prog = SimProgram("serving-admission-open", config=cfg)
+
+    def _blank(device):
+        return torch.full((cfg.max_emit, EMIT_WIDTH), -1.0,
+                          dtype=torch.float32, device=device)
+
+    @prog.handler("ARRIVE", lookahead=0.25, emits=True)
+    def arrive(state, t, arg):
+        k = state["arrivals"]
+        state = dict(state, arrivals=k + 1, waiting=state["waiting"] + 1)
+        emits = _blank(t.device)
+        emits[0, 0] = 0.25
+        emits[0, 1] = _ADMIT
+        emits[0, 2] = k.to(torch.float32)
+        return state, emits
+
+    @prog.handler("ADMIT", lookahead=1.0, emits=True)
+    def admit(state, t, arg):
+        slots = state["slots"]
+        free = slots <= 0
+        any_free = torch.any(free)
+        have_wait = state["waiting"] > 0
+        do = have_wait & any_free
+        took = do.to(torch.int32)
+        slot = torch.argmax(free.to(torch.int32)).reshape(1)
+        budget = 1 + _hash_mod(state["admitted"], 977, max_decode)
+        slots = torch.where(do, slots.index_put((slot,), budget.reshape(1)),
+                            slots)
+        retry = have_wait & ~any_free
+        state = dict(
+            state, slots=slots,
+            waiting=state["waiting"] - took,
+            admitted=state["admitted"] + took,
+            retries=state["retries"] + retry.to(torch.int32),
+        )
+        emits = _blank(t.device)
+        emits[0, 0] = 1.0
+        emits[0, 1] = torch.where(retry, _ADMIT, -1.0)
+        emits[0, 2] = arg[0]
+        return state, emits
+
+    @prog.handler("TICK", lookahead=1.0, emits=True)
+    def tick(state, t, arg):
+        slots = state["slots"]
+        active = slots > 0
+        slots = torch.where(active, slots - 1, slots)
+        finished = active & (slots == 0)
+        state = dict(
+            state, slots=slots,
+            served=state["served"] + torch.sum(finished).to(torch.int32),
+            decoded=state["decoded"] + torch.sum(active).to(torch.int32),
+        )
+        more = ((state["arrivals"] < num_requests)
+                | (state["waiting"] > 0) | torch.any(slots > 0))
+        emits = _blank(t.device)
+        emits[0, 0] = 1.0
+        emits[0, 1] = torch.where(more, _TICK, -1.0)
+        emits[0, 2] = 0.0
+        return state, emits
+
+    prog.schedule(1.0, "TICK")
+    # ARRIVE events come from the external stream, not the schedule.
+    prog.external_entry("ARRIVE")
+    return prog.freeze()
 
 
 def make_program() -> SimProgram:
@@ -186,5 +264,7 @@ def make_program() -> SimProgram:
 
 
 def make_open_program() -> SimProgram:
-    """The open variant at smoke size: not ported yet (ROADMAP A10)."""
-    return build_open_admission_program(num_slots=4, num_requests=16)
+    """The open variant at smoke size (external ARRIVE stream declared
+    with ``external_entry``)."""
+    prog = build_open_admission_program(num_slots=4, num_requests=16)
+    return prog.example_state(initial_state(4))

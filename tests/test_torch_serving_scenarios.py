@@ -80,10 +80,13 @@ def test_validation_errors_match():
             pkg.build_admission_program(arrival_lookahead=0.5)
         with pytest.raises(ValueError, match="max_emit >= 2"):
             pkg.build_admission_program(config=cfg(max_emit=1))
-    with pytest.raises(NotImplementedError, match="A10"):
-        tsc.build_open_admission_program(num_slots=4, num_requests=16)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tsc.make_open_program()
+    for pkg, cfg in ((jsc, JConfig), (tsc, TConfig)):
+        with pytest.raises(ValueError, match="max_emit >= 2"):
+            pkg.build_open_admission_program(config=cfg(max_emit=1))
+    prog = tsc.make_open_program()
+    assert prog.name == "serving-admission-open"
+    assert prog._entries == {"ARRIVE"}
+    assert set(prog._example_state) == set(tsc.initial_state(4))
 
 
 def test_make_program_declares_its_state():
