@@ -115,6 +115,32 @@ Phases, each printed on its own line:
    super-step and ``front_merge`` once a super-step and once an absorbed
    chunk; each prints its host syncs per super-step inside the engine's
    loop (``loop_syncs``) beside the total.
+5h. queue_modes — phase 4's PHOLD (917,504 LPs, a 1,048,576-event
+   queue) for ``MODES_BATCHES`` super-steps on the card under
+   ``queue_mode="tiered3"`` (the yardstick), then ``"flat"`` and
+   ``"reference"`` (``MODES_REF_BATCHES``), and ``"tiered"`` for
+   ``TIERED_BATCHES`` (phase 4's 4,096, so that its staging flush and
+   refills run; held to phase 4's card run), each held bit for bit to a
+   tiered3 card run of as many super-steps: state, checksum,
+   events, batches, dropped, emitted, final_time, word histogram and the
+   live ``(time, seq, type, args)`` rows of the final queue, lex-sorted.
+   The two-tier queue launches each queue kernel once a super-step, the
+   flat and reference queues none.
+5i. sharded — (a) the same PHOLD at ``SHARDS`` shards under ``switch``
+   and ``validate="cheap"``, held bit for bit to 5h's tiered3 run with
+   the flat view of the final queue: ``front_merge`` launches
+   ``SHARDS`` times a super-step, ``window_extract`` never, and a common
+   super-step reads the host as often as the single queue's; (b)
+   ``FUSED_SHARDS`` shards under ``fused`` (phase 4b's hot set) on small
+   tiers (``FUSED_SHARD_TIERS``), so every shard's refills and flushes
+   run, held to (a)'s tiered3 run; (c) the closed admission scenario of 5c at
+   ``SHARDS`` shards, held to 5c's ``switch`` card run; (d) 5g (a)'s
+   open admission stream into ``STREAM_SHARDS`` shards, held to 5g (a)'s
+   card run (``front_merge`` once a shard and super-step plus once an
+   absorbed chunk and shard).  Every run of 5h and 5i prints its setup
+   seconds, card seconds, super-steps per second, host syncs a
+   super-step (loop and total) beside the single queue's and its
+   launches.
 6. serve — stablelm-12b at full width (40 layers, d_model 5120, 12.1 B
    parameters in bf16) through ``repro_torch.launch.serve`` with its
    defaults: 6 requests, 12 new tokens each, 4 slots, ``max_len`` 256.
@@ -233,6 +259,24 @@ STREAM_BLOCK = 4096
 STREAM_UNTIL = 580.0
 STREAM_CAPACITY = 65_536
 STREAM_SPILL_CAPACITY = 512
+
+# The queue modes and the sharded engine on phase 4's PHOLD: each run
+# MODES_BATCHES super-steps, held to one tiered3 card run of as many.
+# The reference queue's serial argmin rounds run MODES_REF_BATCHES.
+MODES_BATCHES = 1024
+MODES_REF_BATCHES = 1024
+SHARDS = 4
+FUSED_SHARDS = 2
+STREAM_SHARDS = 2
+# No rare queue path fires in PHOLD's first 1,024 super-steps (the
+# fronts stay full of emits near the clock).  So the two-tier run goes
+# phase 4's 4,096 super-steps, held to phase 4's card run: its staging
+# flush, an O(capacity) counting-merge of the 1,048,576-slot ring, and
+# its refills run on the card.  The fused shards run on small tiers (the
+# result does not depend on them), so each shard's refills, flushes,
+# runs and merges, decided by the stacked flags, run within 1,024.
+TIERED_BATCHES = PHOLD_BATCHES
+FUSED_SHARD_TIERS = dict(front_cap=32, stage_cap=64, num_runs=4)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -947,9 +991,15 @@ def launch_problems(launches: dict, batches: int) -> list:
     """The queue kernels launch once a super-step, the others never."""
     from repro_torch.kernels import queue_front as qf
 
-    return [f"{name} launched {n} times in {batches} super-steps"
-            for name, n in launches.items()
-            if n != (batches if name in qf.LAUNCHES else 0)]
+    return _launch_want(launches, dict.fromkeys(qf.LAUNCHES, batches),
+                        f"{batches} super-steps")
+
+
+def _launch_want(launches: dict, want: dict, label: str) -> list:
+    """Each kernel launched ``want[name]`` times (0 when absent)."""
+    return [f"{label}: {name} launched {n} times, expected "
+            f"{want.get(name, 0)}"
+            for name, n in launches.items() if n != want.get(name, 0)]
 
 
 def run_phold(device_name: str):
@@ -1028,15 +1078,21 @@ def run_timed(label: str, build, state, **run_kw):
     return sim, res, counts, fields
 
 
+def phold_hot_words(switch_res):
+    """The switch run's most frequent word (PHOLD's alphabet: one type,
+    windows of 1-4 events)."""
+    from repro_torch.core.codec import DenseCodec
+    from repro_torch.core.composer import hot_words_from_counts
+
+    return hot_words_from_counts(switch_res.word_counts, DenseCodec(1, 4), 1)
+
+
 def run_phold_fused(device_name: str, switch_res, ref, switch_counts):
     """PHOLD at the phold phase's size under ``fused`` with the switch
     run's top word as the hot set, held to the phold phase's CPU run."""
-    from repro_torch.core.codec import DenseCodec
-    from repro_torch.core.composer import hot_words_from_counts
     from repro_torch.examples import phold
 
-    # PHOLD's alphabet: one type, windows of 1-4 events.
-    hot = hot_words_from_counts(switch_res.word_counts, DenseCodec(1, 4), 1)
+    hot = phold_hot_words(switch_res)
     _, res, counts, fields = run_timed(
         "phold_fused",
         lambda: phold.build_program(
@@ -1095,6 +1151,7 @@ def run_modes(label: str, build, state, device_name: str, top_w: int,
         if problems:
             raise PhaseError(f"{label} {mode}: " + "; ".join(problems))
         runs[mode] = res
+        res.raw["counts"] = counts
         if mode == "switch":
             switch_sim = sim
         extra = {} if hot is None else dict(hot_words=json.dumps(hot))
@@ -1178,23 +1235,30 @@ def run_mmc(device_name: str) -> None:
 # Phase 5c: the serving admission scenario at 64k requests
 # ---------------------------------------------------------------------------
 
-def run_serving_admission(device_name: str) -> None:
+def build_admission(**kw):
     from repro_torch.api import Config
     from repro_torch.serving import scenarios
 
+    return scenarios.build_admission_program(
+        num_slots=ADMIT_SLOTS, num_requests=ADMIT_REQUESTS, max_decode=6,
+        config=Config(max_batch_len=4, capacity=65536,
+                      max_emit=2)).build(backend="device", **kw)
+
+
+def run_serving_admission(device_name: str):
+    """The admission scenario in the three modes; returns the card's
+    ``switch`` run and its counts."""
+    from repro_torch.serving import scenarios
+
     runs, _ = run_modes(
-        "serving_admission",
-        lambda **kw: scenarios.build_admission_program(
-            num_slots=ADMIT_SLOTS, num_requests=ADMIT_REQUESTS,
-            max_decode=6,
-            config=Config(max_batch_len=4, capacity=65536,
-                          max_emit=2)).build(backend="device", **kw),
+        "serving_admission", build_admission,
         lambda dev: scenarios.initial_state(ADMIT_SLOTS, dev), device_name,
         8, max_batches=ADMIT_BATCHES)
     st = {k: v.tolist() for k, v in runs["switch"].state.items()
           if k != "slots"}
     phase("serving_admission_state", slots=ADMIT_SLOTS,
           requests=ADMIT_REQUESTS, **st)
+    return runs["switch"]
 
 
 # ---------------------------------------------------------------------------
@@ -1205,10 +1269,10 @@ def segment_launch_problems(launches: dict, batches: int, counts) -> list:
     """The queue kernels on a segmented path: ``window_extract`` once a
     super-step, ``front_merge`` once a super-step and once an absorbed
     chunk, the other kernels never."""
-    want = {"window_extract": batches,
-            "front_merge": batches + counts.get("absorb_chunks", 0)}
-    return [f"{name} launched {n} times, expected {want.get(name, 0)}"
-            for name, n in launches.items() if n != want.get(name, 0)]
+    return _launch_want(launches, {
+        "window_extract": batches,
+        "front_merge": batches + counts.get("absorb_chunks", 0)},
+        f"{batches} super-steps")
 
 
 def _outcome_problems(res, ref) -> list:
@@ -1425,27 +1489,36 @@ def run_faults(device_name: str) -> None:
           launches=json.dumps(launches, separators=(",", ":")))
 
 
-def run_stream(device_name: str) -> None:
+def stream_source():
+    from repro_torch.stream import PoissonSource
+
+    return PoissonSource(STREAM_RATE, ADMIT_REQUESTS, seed=0, grid=0.25,
+                         type_id=0, block_size=STREAM_BLOCK)
+
+
+def build_open_admission(capacity, device, **kw):
+    from repro_torch.api import Config
+    from repro_torch.serving import scenarios
+
+    return scenarios.build_open_admission_program(
+        num_slots=ADMIT_SLOTS, num_requests=ADMIT_REQUESTS, max_decode=6,
+        config=Config(max_batch_len=4, capacity=capacity,
+                      max_emit=2)).build(backend="device", device=device,
+                                         **kw)
+
+
+def run_stream(device_name: str):
     """The open admission scenario streamed on the card: (a) into a
     65,536-event queue, against the same trace pre-seeded; (b) into a
     512-event queue under ``overflow="spill"``, against (a)'s
     pre-seeded run.  Both streamed runs are held bit for bit to the
-    port's CPU run of the same case."""
-    from repro_torch.api import Config
+    port's CPU run of the same case.  Returns (a)'s card run and its
+    counts."""
     from repro_torch.serving import scenarios
-    from repro_torch.stream import PoissonSource, source_events
+    from repro_torch.stream import source_events
 
-    def source():
-        return PoissonSource(STREAM_RATE, ADMIT_REQUESTS, seed=0, grid=0.25,
-                             type_id=0, block_size=STREAM_BLOCK)
-
-    def build(capacity, device, **kw):
-        return scenarios.build_open_admission_program(
-            num_slots=ADMIT_SLOTS, num_requests=ADMIT_REQUESTS,
-            max_decode=6, config=Config(max_batch_len=4, capacity=capacity,
-                                        max_emit=2)).build(
-                backend="device", device=device, **kw)
-
+    source, build = stream_source, build_open_admission
+    cards = {}
     closed_events = [(1.0, "TICK")] + [
         (t, ty, list(arg)) for (t, ty, arg) in source_events(source())]
     preseeded, pre_s, every, counts = drive(
@@ -1483,6 +1556,7 @@ def run_stream(device_name: str) -> None:
             problems.append("the spill pool was never rebalanced")
         if problems:
             raise PhaseError(f"stream {case}: " + "; ".join(problems))
+        cards[case] = (res, counts)
         phase("stream", case=case, capacity=capacity,
               overflow=kw.get("overflow", "drop"), requests=ADMIT_REQUESTS,
               block=STREAM_BLOCK, until=STREAM_UNTIL, batches=res.batches,
@@ -1496,6 +1570,243 @@ def run_stream(device_name: str) -> None:
               **_syncs(counts, res.batches),
               launches=json.dumps(every, separators=(",", ":")),
               bit_identical_to_cpu=True, equals_preseeded=True)
+    return cards["a"]
+
+
+# ---------------------------------------------------------------------------
+# Phases 5h-5i: the queue modes and the sharded engine
+# ---------------------------------------------------------------------------
+
+def live_rows(queue):
+    """The live ``(time, seq, type, args)`` rows of any final queue
+    (tiered3, two-tier, flat, reference or sharded), lex-sorted, with
+    its ``size``, ``next_seq`` and ``dropped``."""
+    from repro_torch.core import queue as q
+    from repro_torch.core.sharded import sharded_queue_to_flat
+
+    to_flat = {"Tiered3DeviceQueue": q.tiered3_queue_to_flat,
+               "TieredDeviceQueue": q.tiered_queue_to_flat,
+               "DeviceQueue": q.device_queue_to_flat,
+               "ShardedQueue": sharded_queue_to_flat}
+    return to_flat[type(queue).__name__](queue)
+
+
+def rows_problems(res, ref) -> list:
+    """What differs between two runs of one model and one window
+    sequence: state, checksum, the counters, the word histogram,
+    ``final_time`` and the final queue's live rows and counters."""
+    import numpy as np
+
+    problems = _outcome_problems(res, ref)
+    for name in ("batches", "emitted", "pending"):
+        if getattr(res, name) != getattr(ref, name):
+            problems.append(f"{name}: {getattr(res, name)} vs "
+                            f"{getattr(ref, name)}")
+    if not np.array_equal(res.word_counts, ref.word_counts):
+        problems.append("word_counts differ")
+    got = live_rows(res.raw["final_queue"])
+    # The yardsticks are compared many times: their rows are read once.
+    want = ref.raw.get("live_rows")
+    if want is None:
+        want = ref.raw["live_rows"] = live_rows(ref.raw["final_queue"])
+    for name in got._fields:
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            problems.append(f"final queue {name} differs")
+    return problems
+
+
+def _steps(res, card_s, counts, every, single=None,
+           setup_s=None) -> dict:
+    """The fields every run of 5h-5i prints."""
+    out = dict(batches=res.batches, events=res.events,
+               card_s=f"{card_s:.3f}",
+               card_steps_per_s=f"{res.batches / card_s:.1f}",
+               **_syncs(counts, res.batches),
+               launches=json.dumps(every, separators=(",", ":")))
+    if setup_s is not None:
+        out["setup_s"] = f"{setup_s:.3f}"
+    if "peak_mb" in counts:
+        out["peak_mb"] = counts["peak_mb"]
+    if single is not None:
+        s_res, s_counts = single
+        out["single_loop_syncs_per_step"] = (
+            f"{s_counts.get('loop_syncs', 0) / s_res.batches:.4f}")
+        out["single_host_syncs_per_step"] = (
+            f"{s_counts['host_syncs'] / s_res.batches:.4f}")
+    return out
+
+
+def run_phold_built(device_name: str, batches: int, **build_kw):
+    """Build phase 4's PHOLD with ``build_kw`` and drive it ``batches``
+    super-steps on the card; returns ``(result, setup s, card s,
+    launches, counts)``."""
+    import torch
+
+    from repro_torch.examples import phold
+
+    t0 = time.perf_counter()
+    sim = phold.build_program(
+        num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+        capacity=PHOLD_CAPACITY).build(backend="device", device=device_name,
+                                       **build_kw)
+    setup_s = time.perf_counter() - t0
+    on_card = torch.device(device_name).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+    res, card_s, every, counts = drive(
+        sim, phold.initial_state(PHOLD_LPS, device_name),
+        max_batches=batches)
+    if on_card:
+        # The run's peak device memory above what was held before it:
+        # the queues, the state and the loop's temporaries.
+        counts["peak_mb"] = round(
+            torch.cuda.max_memory_allocated() / 2**20 - base_mb, 1)
+    return res, setup_s, card_s, every, counts
+
+
+def run_queue_modes(device_name: str, phold_res, phold_counts):
+    """Phase 5h; returns the tiered3 yardstick run and its counts."""
+    base, setup_s, card_s, every, counts = run_phold_built(
+        device_name, MODES_BATCHES)
+    problems = _launch_want(every, {"window_extract": base.batches,
+                                    "front_merge": base.batches},
+                            "tiered3")
+    if base.batches != MODES_BATCHES:
+        problems.append(f"tiered3 ran {base.batches} super-steps")
+    if problems:
+        raise PhaseError("queue_modes: " + "; ".join(problems))
+    phase("queue_modes", mode="tiered3", lps=PHOLD_LPS,
+          capacity=PHOLD_CAPACITY, checksum=int(base.state["checksum"]),
+          **_steps(base, card_s, counts, every, setup_s=setup_s))
+    single = (base, counts)
+    for mode, batches in (("tiered", TIERED_BATCHES),
+                          ("flat", MODES_BATCHES),
+                          ("reference", MODES_REF_BATCHES)):
+        ref, ref_single = base, single
+        if batches == PHOLD_BATCHES:
+            ref, ref_single = phold_res, (phold_res, phold_counts)
+        elif batches != MODES_BATCHES:
+            ref, *_ = run_phold_built(device_name, batches)
+        res, setup_s, card_s, every, counts = run_phold_built(
+            device_name, batches, queue_mode=mode)
+        want = ({"window_extract": res.batches, "front_merge": res.batches}
+                if mode == "tiered" else {})
+        problems = rows_problems(res, ref) + _launch_want(every, want, mode)
+        loop = counts.get("loop_syncs", 0)
+        if mode != "tiered" and loop != 2 * res.batches:
+            problems.append(f"{loop} loop reads in {res.batches} "
+                            "super-steps, expected 2 a super-step")
+        if mode == "tiered" and not counts.get("flush_merge"):
+            problems.append("the staging flush never merged")
+        if problems:
+            raise PhaseError(f"queue_modes {mode}: " + "; ".join(problems))
+        phase("queue_modes", mode=mode, batches_of=batches,
+              checksum=int(res.state["checksum"]),
+              rare_paths=json.dumps(
+                  {k: v for k, v in sorted(counts.items())
+                   if k not in ("host_syncs", "loop_syncs", "peak_mb")},
+                  separators=(",", ":")),
+              **_steps(res, card_s, counts, every, ref_single, setup_s),
+              bit_identical_to_tiered3=True)
+        del res
+        gc.collect()
+    return single
+
+
+def run_sharded(device_name: str, base, base_counts, hot, admit,
+                stream_a) -> None:
+    """Phase 5i (a)-(d)."""
+    from repro_torch.serving import scenarios
+
+    # (a) PHOLD at SHARDS shards, validated, against 5h's tiered3 run.
+    res, setup_s, card_s, every, counts = run_phold_built(
+        device_name, MODES_BATCHES, shards=SHARDS, validate="cheap")
+    problems = rows_problems(res, base) + _launch_want(
+        every, {"front_merge": SHARDS * res.batches}, "sharded")
+    if res.fault_word != 0:
+        problems.append(f"fault word {res.fault_word}")
+    if problems:
+        raise PhaseError("sharded a: " + "; ".join(problems))
+    phase("sharded", case="a", shards=SHARDS, dispatch_mode="switch",
+          validate="cheap", checksum=int(res.state["checksum"]),
+          rare_paths=json.dumps(
+              {k: v for k, v in sorted(counts.items())
+               if k not in ("host_syncs", "loop_syncs", "peak_mb")},
+              separators=(",", ":")),
+          **_steps(res, card_s, counts, every, (base, base_counts),
+                   setup_s),
+          bit_identical_to_tiered3=True)
+    del res
+
+    # (b) FUSED_SHARDS shards under fused.
+    res, setup_s, card_s, every, counts = run_phold_built(
+        device_name, MODES_BATCHES, shards=FUSED_SHARDS,
+        dispatch_mode="fused", hot_words=hot, **FUSED_SHARD_TIERS)
+    problems = rows_problems(res, base) + _launch_want(
+        every, {"front_merge": FUSED_SHARDS * res.batches}, "sharded fused")
+    if counts.get("fused_hot", 0) + counts.get("fused_fallback", 0) \
+            != res.batches:
+        problems.append("a window took neither fused route")
+    if not (counts.get("flush") and (counts.get("refill_kway")
+                                     or counts.get("refill_main_only"))):
+        problems.append(f"the small tiers' rare paths did not fire: {counts}")
+    if problems:
+        raise PhaseError("sharded b: " + "; ".join(problems))
+    phase("sharded", case="b", shards=FUSED_SHARDS, dispatch_mode="fused",
+          tiers=json.dumps(FUSED_SHARD_TIERS, separators=(",", ":")),
+          rare_paths=json.dumps(
+              {k: v for k, v in sorted(counts.items())
+               if k not in ("host_syncs", "loop_syncs", "peak_mb")},
+              separators=(",", ":")),
+          hot_words=json.dumps(hot), fused_hot=counts.get("fused_hot", 0),
+          fused_fallback=counts.get("fused_fallback", 0),
+          **_steps(res, card_s, counts, every, (base, base_counts),
+                   setup_s),
+          bit_identical_to_tiered3=True)
+    del res
+
+    # (c) the closed admission scenario at SHARDS shards.
+    t0 = time.perf_counter()
+    sim = build_admission(device=device_name, shards=SHARDS)
+    setup_s = time.perf_counter() - t0
+    res, card_s, every, counts = drive(
+        sim, scenarios.initial_state(ADMIT_SLOTS, device_name),
+        max_batches=ADMIT_BATCHES)
+    problems = rows_problems(res, admit) + _launch_want(
+        every, {"front_merge": SHARDS * res.batches}, "sharded admission")
+    if problems:
+        raise PhaseError("sharded c: " + "; ".join(problems))
+    phase("sharded", case="c", shards=SHARDS, scenario="admission",
+          requests=ADMIT_REQUESTS,
+          **_steps(res, card_s, counts, every,
+                   (admit, admit.raw["counts"]), setup_s),
+          bit_identical_to_single=True)
+
+    # (d) the open admission stream into STREAM_SHARDS shards.
+    single, single_counts = stream_a
+    t0 = time.perf_counter()
+    sim = build_open_admission(STREAM_CAPACITY, device_name,
+                               shards=STREAM_SHARDS)
+    setup_s = time.perf_counter() - t0
+    res, card_s, every, counts = drive(
+        sim, scenarios.initial_state(ADMIT_SLOTS, device_name),
+        arrivals=stream_source(), until=STREAM_UNTIL)
+    problems = rows_problems(res, single) + _launch_want(
+        every, {"front_merge": STREAM_SHARDS * res.batches
+                + counts.get("absorb_chunks", 0)}, "sharded stream")
+    for name in ("ingested", "shed", "spilled"):
+        if getattr(res, name) != getattr(single, name):
+            problems.append(f"{name}: {getattr(res, name)} vs "
+                            f"{getattr(single, name)}")
+    if problems:
+        raise PhaseError("sharded d: " + "; ".join(problems))
+    phase("sharded", case="d", shards=STREAM_SHARDS, scenario="stream",
+          ingested=res.ingested, absorbs=counts.get("absorb", 0),
+          absorb_chunks=counts.get("absorb_chunks", 0),
+          **_steps(res, card_s, counts, every, (single, single_counts),
+                   setup_s),
+          bit_identical_to_single=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2404,11 +2715,20 @@ def main() -> int:
     del ref
     run_poc("cuda")
     run_mmc("cuda")
-    run_serving_admission("cuda")
+    admit = run_serving_admission("cuda")
     run_overflow("cuda", res, phold_loop_s, counts)
     run_resume("cuda", res, phold_loop_s, counts)
     run_faults("cuda")
-    run_stream("cuda")
+    stream_a = run_stream("cuda")
+    t0 = time.perf_counter()
+    base, base_counts = run_queue_modes("cuda", res, counts)
+    phase("queue_modes_total", seconds=f"{time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    run_sharded("cuda", base, base_counts, phold_hot_words(res), admit,
+                stream_a)
+    phase("sharded_total", seconds=f"{time.perf_counter() - t0:.3f}")
+    del base, admit, stream_a
+    gc.collect()
     attn_launches = run_serve()
     rwkv_launches = run_serve_rwkv()
     jamba_launches = run_serve_jamba()

@@ -14,15 +14,17 @@ on the PyTorch port.
 
 ``build(backend="device")`` runs on the CUDA card; pass ``device="cpu"``
 to run the same program on the CPU.  The port has :mod:`repro.api`'s
-device backend on the tiered3 queue: the three dispatch modes
-(``switch``, ``masked``, and ``fused`` with ``hot_words``), the
-entity-parallel run path (``@prog.entity_handler``), the invariant
-auditor (``validate="cheap"|"full"``), the overflow policies
+device backend: every queue mode (``queue_mode="tiered3"|"tiered"|
+"flat"|"reference"``), the sharded engine (``shards=N``, ``shard_fn=``,
+``placement="serial"``), the three dispatch modes (``switch``,
+``masked``, and ``fused`` with ``hot_words``), the entity-parallel run
+path (``@prog.entity_handler``), the invariant auditor
+(``validate="cheap"|"full"``), the overflow policies
 (``overflow="error"|"spill"``), and segmented runs: checkpoints
 (``run(checkpoint_every=, checkpoint_dir=, resume_from=)``) and
 streamed arrivals (``run(arrivals=, backpressure=)``).  The host
-backend, the static analyzer (``hot_words="static"``) and sharding are
-not ported yet.
+backend, the static analyzer (``hot_words="static"``) and
+``placement="devices"`` (more than one GPU) are not ported yet.
 """
 
 from repro_torch.core.events import ARG_WIDTH, emits_events

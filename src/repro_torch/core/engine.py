@@ -1,47 +1,52 @@
 """The on-device simulation engine (PyTorch port).
 
-Counterpart of :class:`repro.core.engine.DeviceEngine` for
-``queue_mode="tiered3"``, ``dispatch_mode`` in ``{"switch", "masked",
-"fused"}``, ``validate`` in ``{"off", "cheap", "full"}`` and
-``overflow`` in ``{"drop", "error", "spill"}``, with the entity-parallel
-run path; any other queue mode raises :class:`NotImplementedError`.
+Counterpart of :class:`repro.core.engine.DeviceEngine`: ``queue_mode``
+in ``{"tiered3", "tiered", "flat", "reference"}``, ``dispatch_mode`` in
+``{"switch", "masked", "fused"}``, ``validate`` in ``{"off", "cheap",
+"full"}`` and ``overflow`` in ``{"drop", "error", "spill"}`` (spill on
+tiered3 only, as in JAX), with the entity-parallel run path.  The
+sharded engine (:mod:`repro_torch.core.sharded`) subclasses it.
 
 JAX compiles the whole run into one ``lax.while_loop``.  Here the loop
 is a Python loop over eager super-steps, each of which:
 
 1. reads the loop guard (pending events, ``next_time <= t_end``) to the
    host;
-2. extracts the §III-B window (:func:`tiered3_queue_extract`: the
-   bounded refill, then the ``window_extract`` kernel);
+2. extracts the §III-B window: on the tiered queues the bounded refill,
+   then the ``window_extract`` kernel (:func:`tiered3_queue_extract`,
+   :func:`tiered_queue_extract`); on the flat queue the same rule over
+   its sorted prefix, on the reference queue ``max_batch_len`` serial
+   argmin rounds, both as torch operations;
 3. reads the window's types and length to the host once and runs, as
    straight-line eager code, the vmapped run handler when the window
    is a run of one entity-parallel type, else the composed branch
    (``switch``), the per-lane legs (``masked``) or the hot word's
    branch or the masked fallback (``fused``, chosen by the host-side
    word code);
-4. inserts the emitted rows (:func:`tiered3_queue_fill_rows`: the
-   pre-flush check, then the ``front_merge`` kernel).
+4. inserts the emitted rows: on the tiered queues the pre-flush check,
+   then the ``front_merge`` kernel; on the flat queue a counting-merge,
+   on the reference queue a first-free-slot scatter.
 
-So a common super-step costs four device-to-host reads (the guard, the
-refill check, the window, the pre-flush check), counted with the
-queue's rare-path reads in ``repro_torch.core.queue.COUNTS``, which
-also counts the windows that took the run path (``run_path``), a hot
-slot (``fused_hot``) and the fallback (``fused_fallback``), and, as
-``loop_syncs``, the reads made inside ``run``'s loop (a segmented run's
-boundaries read more).  The stats carry (``batches``, ``events``,
-``emitted``, ``time``, ``word_counts``, and ``fault_word`` / the spill
-buffer and fence when ``validate`` / ``overflow="spill"`` enable them)
-matches the JAX engine's field for field; ``batches`` and ``events``
-are host ints.
+So a common super-step costs four device-to-host reads on the tiered
+queues (the guard, the refill check, the window, the pre-flush check)
+and two on the flat and reference queues (the guard and the window),
+counted with the queue's rare-path reads in
+``repro_torch.core.queue.COUNTS``, which also counts the windows that
+took the run path (``run_path``), a hot slot (``fused_hot``) and the
+fallback (``fused_fallback``), and, as ``loop_syncs``, the reads made
+inside ``run``'s loop (a segmented run's boundaries read more).  The
+stats carry (``batches``, ``events``, ``emitted``, ``time``,
+``word_counts``, and ``fault_word`` / the spill buffer and fence when
+``validate`` / ``overflow="spill"`` enable them) matches the JAX
+engine's field for field; ``batches`` and ``events`` are host ints.
 
 The robustness modes add no read to a common super-step: every check
 they make is folded into the one guard read.
 
-* ``validate != "off"``: the cheap fault bits
-  (:func:`repro_torch.core.validate.tiered3_fault_bits`) are ORed into
-  ``fault_word`` on the device each super-step, and the guard stops on
-  a set bit.  ``"full"`` adds the O(capacity) audit when ``run``
-  returns (a segment boundary).
+* ``validate != "off"``: the cheap fault bits of the queue mode
+  (:mod:`repro_torch.core.validate`) are ORed into ``fault_word`` on the
+  device each super-step, and the guard stops on a set bit.  ``"full"``
+  adds the O(capacity) audit when ``run`` returns (a segment boundary).
 * ``overflow="error"``: the guard stops on ``dropped > 0`` and ``run``
   raises ``FAULT_OVERFLOW``.
 * ``overflow="spill"``: emits that do not fit go to a device buffer in
@@ -52,7 +57,7 @@ they make is folded into the one guard read.
 * A fenced run (spill, or a streamed run whose stats carry
   ``bound_t``/``bound_seq``) passes the fence to the extract's
   ``window_extract`` launch, and the guard stops when the next pending
-  key reaches it.
+  key reaches it.  Only the tiered3 queue has the fence.
 """
 
 from __future__ import annotations
@@ -77,6 +82,14 @@ from repro_torch.core.queue import (
     _f32,
     _prefix_rank,
     _scatter_rows,
+    device_queue_extract,
+    device_queue_extract_ref,
+    device_queue_fill_rows,
+    device_queue_from_host,
+    device_queue_next_time,
+    device_queue_next_time_ref,
+    device_queue_occupancy,
+    device_queue_push_rows,
     host_list,
     host_read,
     tiered3_queue_absorb_rows,
@@ -89,6 +102,12 @@ from repro_torch.core.queue import (
     tiered3_queue_next_key,
     tiered3_queue_next_time,
     tiered3_queue_occupancy,
+    tiered_queue_extract,
+    tiered_queue_fill_rows,
+    tiered_queue_from_host,
+    tiered_queue_has_pending,
+    tiered_queue_next_time,
+    tiered_queue_occupancy,
 )
 from repro_torch.core.tree import tree_map
 from repro_torch.core.validate import (
@@ -104,12 +123,28 @@ from repro_torch.core.vectorize import make_masked_run_handler
 _DEFAULT_HOT_W = 32
 _WORD_COUNT_LIMIT = 4096
 
-_UNPORTED = {"queue_mode": ("tiered", "flat", "reference")}
-_PORTED = {
-    "queue_mode": ("tiered3",),
+_KNOBS = {
+    "queue_mode": ("tiered3", "tiered", "flat", "reference"),
     "dispatch_mode": ("switch", "masked", "fused"),
     "validate": ("off", "cheap", "full"),
     "overflow": ("drop", "error", "spill"),
+}
+
+# Per queue mode: (has_pending, next_time, insert, occupancy).  The
+# guard counts real events (``size`` also counts overflow ghosts): the
+# tiered queues from their tier counters, the flat queue from its head
+# slot (its occupied slots are a sorted prefix), the reference queue
+# from the whole occupancy mask.
+_QUEUE_OPS = {
+    "tiered3": (tiered3_queue_has_pending, tiered3_queue_next_time,
+                tiered3_queue_fill_rows, tiered3_queue_occupancy),
+    "tiered": (tiered_queue_has_pending, tiered_queue_next_time,
+               tiered_queue_fill_rows, tiered_queue_occupancy),
+    "flat": (lambda q: q.types[0] >= 0, device_queue_next_time,
+             device_queue_fill_rows, device_queue_occupancy),
+    "reference": (lambda q: torch.any(q.types >= 0),
+                  device_queue_next_time_ref, device_queue_push_rows,
+                  device_queue_occupancy),
 }
 
 
@@ -160,14 +195,15 @@ class DeviceEngine:
 
     def __post_init__(self):
         self.registry.freeze()
-        for knob, ported in _PORTED.items():
-            value = getattr(self, knob)
-            if value in _UNPORTED.get(knob, ()):
-                raise NotImplementedError(
-                    f"{knob}={value!r} is not ported to repro_torch yet; "
-                    f"ported: {ported}")
-            if value not in ported:
-                raise ValueError(f"unknown {knob} {value!r}")
+        for knob, choices in _KNOBS.items():
+            if getattr(self, knob) not in choices:
+                raise ValueError(f"unknown {knob} {getattr(self, knob)!r}; "
+                                 f"expected one of {choices}")
+        if self.overflow == "spill" and self.queue_mode != "tiered3":
+            raise ValueError(
+                "overflow='spill' requires queue_mode='tiered3' (got "
+                f"{self.queue_mode!r}): spilled rows reabsorb through "
+                "the tiered3 tagged-fill path")
         if self.hot_words is not None and self.dispatch_mode != "fused":
             raise ValueError(
                 "hot_words only applies to dispatch_mode='fused' "
@@ -245,10 +281,17 @@ class DeviceEngine:
 
     def initial_queue(self, events):
         """The seed queue, built on the host and copied once."""
-        return tiered3_queue_from_host(
-            events, self.capacity, front_cap=self.front_cap,
-            stage_cap=self.stage_cap, num_runs=self.num_runs,
-            device=self.device)
+        if self.queue_mode == "tiered":
+            return tiered_queue_from_host(
+                events, self.capacity, front_cap=self.front_cap,
+                stage_cap=self.stage_cap, device=self.device)
+        if self.queue_mode == "tiered3":
+            return tiered3_queue_from_host(
+                events, self.capacity, front_cap=self.front_cap,
+                stage_cap=self.stage_cap, num_runs=self.num_runs,
+                device=self.device)
+        return device_queue_from_host(events, self.capacity,
+                                      device=self.device)
 
     def initial_queue_spill(self, events):
         """Seed split for ``overflow='spill'``: the lex-earliest
@@ -285,11 +328,16 @@ class DeviceEngine:
         return q, rows, spill
 
     def queue_occupancy(self, queue) -> torch.Tensor:
-        return tiered3_queue_occupancy(queue)
+        """Real pending events (``size`` also counts ghosts)."""
+        return _QUEUE_OPS[self.queue_mode][3](queue)
 
     def absorb_rows(self, queue, rows, seqs, insert=None):
         """Absorb externally keyed rows (stream arrivals, reabsorbed
         spills) where ``insert`` is set; the caller guarantees they fit."""
+        if self.queue_mode != "tiered3":
+            raise ValueError(
+                "absorb_rows requires queue_mode='tiered3', got "
+                f"{self.queue_mode!r}")
         return tiered3_queue_absorb_rows(queue, rows, seqs, insert=insert)
 
     def initial_run_stats(self) -> dict:
@@ -321,8 +369,26 @@ class DeviceEngine:
         return stats
 
     def _cheap_fault_bits(self, queue) -> torch.Tensor:
-        return _validate.tiered3_fault_bits(
-            queue, local=(self.overflow == "spill"))
+        """The per-super-step fault word of this queue mode."""
+        if self.queue_mode == "tiered3":
+            return _validate.tiered3_fault_bits(
+                queue, local=(self.overflow == "spill"))
+        if self.queue_mode == "tiered":
+            return _validate.tiered_fault_bits(queue)
+        return _validate.flat_fault_bits(
+            queue, sorted_layout=self.queue_mode == "flat")
+
+    def _extract(self, queue, t_end, bound):
+        """The window of this queue mode: ``(q', ts, tys, args,
+        length)``."""
+        k = self.max_batch_len
+        if self.queue_mode == "tiered3":
+            return tiered3_queue_extract(queue, k, self._lookaheads, t_end,
+                                         bound=bound)
+        extract = {"tiered": tiered_queue_extract,
+                   "flat": device_queue_extract,
+                   "reference": device_queue_extract_ref}[self.queue_mode]
+        return extract(queue, k, self._lookaheads, t_end)
 
     def _spill_insert(self, queue, emits, stats):
         """Insert the emit rows that fit; divert the rest to the spill
@@ -378,6 +444,72 @@ class DeviceEngine:
                                         length)
         return self.dispatch(code, state, ts, args)
 
+    def _guard(self, ok, queue, stats, fenced, next_key):
+        """AND the robustness modes' stop conditions into the guard
+        ``ok``: one host read carries them all."""
+        if self.validate != "off":
+            ok = ok & (stats["fault_word"] == 0)
+        if self.overflow == "error":
+            ok = ok & (queue.dropped == 0)
+        if fenced:
+            nk_t, nk_s = next_key
+            ok = ok & ((nk_t < stats["bound_t"]) | (
+                (nk_t == stats["bound_t"]) & (nk_s < stats["bound_seq"])))
+        if self.overflow == "spill":
+            ok = ok & (stats["spill_n"] == 0)
+        return ok
+
+    def _account(self, stats, ts, emits, n, code, prev_time, bits=None):
+        """The stats carry after one super-step (in place), with the
+        queue's fault word ``bits`` when validating."""
+        stats["batches"] += 1
+        stats["events"] += n
+        stats["emitted"] = stats["emitted"] + torch.sum(
+            emits[:, 1] >= 0).to(torch.int32)
+        stats["time"] = torch.maximum(stats["time"], ts[max(n - 1, 0)])
+        if self._track_word_counts:
+            stats["word_counts"][code] += 1
+        if bits is not None:
+            if n:
+                bits = bits | torch.where(ts[0] < prev_time,
+                                          FAULT_CLOCK, 0).to(torch.int32)
+            stats["fault_word"] = stats["fault_word"] | bits
+
+    def _super_steps(self, state, queue, stats, max_batches, t_end, fenced):
+        """The loop: super-steps until the guard stops or ``max_batches``
+        have run in total.  Updates ``stats`` in place; returns
+        ``(state, queue)``."""
+        has_pending, next_time, insert, _ = _QUEUE_OPS[self.queue_mode]
+        validate_on = self.validate != "off"
+        spill = self.overflow == "spill"
+        k = self.max_batch_len
+        while stats["batches"] < max_batches:
+            ok = has_pending(queue) & (next_time(queue) <= t_end)
+            ok = self._guard(ok, queue, stats, fenced,
+                             tiered3_queue_next_key(queue) if fenced
+                             else None)
+            if not host_read(ok):
+                break
+            bound = ((stats["bound_t"], stats["bound_seq"]) if fenced
+                     else None)
+            queue, ts, tys, args, length = self._extract(queue, t_end, bound)
+            window = host_list(torch.cat([tys, length.reshape(1)]))
+            n = window[-1]
+            # encode_jnp gives code 0 for an empty window.
+            code = self.codec.encode(window[:n]) if n else 0
+            state, emits = self._dispatch_window(
+                state, ts, args, window[:k], n, code)
+            prev_time = stats["time"]
+            if spill:
+                queue, delta = self._spill_insert(queue, emits, stats)
+                stats.update(delta)
+            else:
+                queue = insert(queue, emits)
+            self._account(stats, ts, emits, n, code, prev_time,
+                          self._cheap_fault_bits(queue) if validate_on
+                          else None)
+        return state, queue
+
     def run(self, state, queue, *, max_batches: int = 1 << 30,
             t_end: float = float("inf"), stats: dict | None = None):
         """Run until the pending set drains, ``max_batches`` super-steps
@@ -406,60 +538,20 @@ class DeviceEngine:
         error = self.overflow == "error"
         spill = self.overflow == "spill"
         fenced = spill or "bound_t" in stats
+        if fenced and self.queue_mode != "tiered3":
+            raise ValueError(
+                "the admission fence (overflow='spill' / streamed "
+                "arrivals) requires queue_mode='tiered3', got "
+                f"{self.queue_mode!r}")
         entry_batches = stats["batches"]
         if validate_on:
             # Entry audit: a queue corrupted between segments trips the
             # guard before any event executes.
             stats["fault_word"] = (stats["fault_word"]
                                    | self._cheap_fault_bits(queue))
-        k = self.max_batch_len
         syncs0 = COUNTS["host_syncs"]
-        while stats["batches"] < max_batches:
-            # Every stop condition in one host read.
-            ok = tiered3_queue_has_pending(queue) & (
-                tiered3_queue_next_time(queue) <= t_end)
-            if validate_on:
-                ok = ok & (stats["fault_word"] == 0)
-            if error:
-                ok = ok & (queue.dropped == 0)
-            if fenced:
-                nk_t, nk_s = tiered3_queue_next_key(queue)
-                ok = ok & ((nk_t < stats["bound_t"]) | (
-                    (nk_t == stats["bound_t"])
-                    & (nk_s < stats["bound_seq"])))
-            if spill:
-                ok = ok & (stats["spill_n"] == 0)
-            if not host_read(ok):
-                break
-            bound = ((stats["bound_t"], stats["bound_seq"]) if fenced
-                     else None)
-            queue, ts, tys, args, length = tiered3_queue_extract(
-                queue, k, self._lookaheads, t_end, bound=bound)
-            window = host_list(torch.cat([tys, length.reshape(1)]))
-            n = window[-1]
-            # encode_jnp gives code 0 for an empty window.
-            code = self.codec.encode(window[:n]) if n else 0
-            state, emits = self._dispatch_window(
-                state, ts, args, window[:k], n, code)
-            prev_time = stats["time"]
-            if spill:
-                queue, delta = self._spill_insert(queue, emits, stats)
-                stats.update(delta)
-            else:
-                queue = tiered3_queue_fill_rows(queue, emits)
-            stats["batches"] += 1
-            stats["events"] += n
-            stats["emitted"] = stats["emitted"] + torch.sum(
-                emits[:, 1] >= 0).to(torch.int32)
-            stats["time"] = torch.maximum(stats["time"], ts[max(n - 1, 0)])
-            if self._track_word_counts:
-                stats["word_counts"][code] += 1
-            if validate_on:
-                bits = self._cheap_fault_bits(queue)
-                if n:
-                    bits = bits | torch.where(ts[0] < prev_time,
-                                              FAULT_CLOCK, 0).to(torch.int32)
-                stats["fault_word"] = stats["fault_word"] | bits
+        state, queue = self._super_steps(state, queue, stats, max_batches,
+                                         t_end, fenced)
         # The reads the super-steps made (the guard's last read included),
         # apart from those of the segment boundaries around them.
         COUNTS["loop_syncs"] += COUNTS["host_syncs"] - syncs0

@@ -39,10 +39,17 @@ reabsorbed at segment boundaries under the engine's lex fence, and
 the run, block by block, under the same fence.  A closed run without
 these knobs is one engine call.
 
+``build(queue_mode=...)`` takes every queue mode of the JAX device
+backend, and ``build(shards=N)`` the sharded engine with
+``placement="serial"``; a sharded run is segmented as a single-queue
+one is (checkpoints, streamed arrivals), except ``overflow="spill"``,
+which JAX's sharded engine refuses too.
+
 ``SimProgram.host_registry()`` gives the host runtimes' registry for
 handlers that emit nothing — what the serving control plane needs.
-Not ported yet: emitting host handlers and the host backend, and the
-static analyzer (and so ``hot_words="static"``).
+Not ported yet: emitting host handlers and the host backend, the
+static analyzer (and so ``hot_words="static"``), and
+``placement="devices"``, which needs more than one GPU.
 """
 
 from __future__ import annotations
@@ -357,7 +364,10 @@ class SimProgram:
         return {s.type_id: s.fn for s in self._specs if s.entity}
 
     def build(self, *, backend: str = "device", device=None,
-              queue_mode: str = "tiered3", capacity: int | None = None,
+              scheduler: str = "conservative", composer: str = "lazy",
+              queue_mode: str = "tiered3", shards: int | None = None,
+              shard_fn=None, placement: str = "serial",
+              capacity: int | None = None,
               front_cap: int | None = None, stage_cap: int | None = None,
               num_runs: int | None = None, dispatch_mode: str = "switch",
               hot_words=None, validate: str = "off",
@@ -366,17 +376,65 @@ class SimProgram:
 
         ``device=None`` runs on the CUDA card and raises when there is
         none; ``device="cpu"`` runs the same code on the CPU, with the
-        kernels' plain versions.  ``hot_words`` (``dispatch_mode=
+        kernels' plain versions.  ``queue_mode`` picks the pending set
+        (``"tiered3"``, ``"tiered"``, ``"flat"``, ``"reference"``);
+        ``shards=N`` (with an optional ``shard_fn``) runs N tiered3
+        queues under :class:`repro_torch.core.sharded.ShardedDeviceEngine`,
+        bit-identical to one queue.  ``hot_words`` (``dispatch_mode=
         "fused"`` only) is a sequence of words, each a sequence of type
-        names or ids.  Modes the port does not have yet raise
-        :class:`NotImplementedError`.
+        names or ids.  What the port does not have yet (the host
+        backend, whose knobs are ``scheduler`` and ``composer``,
+        ``placement="devices"``, ``hot_words="static"``) raises
+        :class:`NotImplementedError`; a knob of the other backend raises
+        :class:`ValueError`, as in JAX.
         """
         self.freeze()
+        if backend == "device" and (scheduler != "conservative"
+                                    or composer != "lazy"):
+            bad = [k for k, hit in (("scheduler", scheduler != "conservative"),
+                                    ("composer", composer != "lazy")) if hit]
+            raise ValueError(
+                f"{bad} are host-backend knobs; the device backend would "
+                "silently ignore them — drop them or build with "
+                "backend='host'")
         if backend == "host":
+            # A device knob on the host backend is an error, as in JAX,
+            # before the backend's own absence.
+            misdirected = {
+                "queue_mode": queue_mode != "tiered3",
+                "shards": shards is not None,
+                "shard_fn": shard_fn is not None,
+                "placement": placement != "serial",
+                "capacity": capacity is not None,
+                "front_cap": front_cap is not None,
+                "stage_cap": stage_cap is not None,
+                "num_runs": num_runs is not None,
+                "dispatch_mode": dispatch_mode != "switch",
+                "hot_words": hot_words is not None,
+                "validate": validate != "off",
+                "overflow": overflow != "drop",
+            }
+            bad = [k for k, hit in misdirected.items() if hit]
+            if bad:
+                raise ValueError(
+                    f"{bad} are device-backend knobs; the host backend "
+                    "would silently ignore them — drop them or build "
+                    "with backend='device'")
             raise NotImplementedError(
                 "the host backend is not ported to repro_torch yet")
         if backend != "device":
             raise ValueError(f"unknown backend {backend!r}")
+        if shard_fn is not None and shards is None:
+            raise ValueError("shard_fn requires shards=N")
+        if placement != "serial" and shards is None:
+            raise ValueError(
+                f"placement={placement!r} requires shards=N (it places "
+                "the sharded engine's per-shard queues)")
+        if shards is not None and queue_mode != "tiered3":
+            raise ValueError(
+                f"shards={shards} requires queue_mode='tiered3' (got "
+                f"{queue_mode!r}): the per-shard pending sets are tiered3 "
+                "queues")
         if isinstance(hot_words, str):
             if hot_words != "static":
                 raise ValueError(
@@ -395,14 +453,19 @@ class SimProgram:
                       for t in word)
                 for word in hot_words
             ]
+        kw = dict(device=device, queue_mode=queue_mode, capacity=capacity,
+                  front_cap=front_cap, stage_cap=stage_cap,
+                  num_runs=num_runs, dispatch_mode=dispatch_mode,
+                  hot_words=hot_words, validate=validate, overflow=overflow)
+        if shards is not None:
+            from repro_torch.core.sharded import ShardedDeviceEngine
+
+            return CompiledSim(self, ShardedDeviceEngine.from_program(
+                self, shards=shards, shard_fn=shard_fn, placement=placement,
+                **kw))
         from repro_torch.core.engine import DeviceEngine
 
-        engine = DeviceEngine.from_program(
-            self, device=device, queue_mode=queue_mode, capacity=capacity,
-            front_cap=front_cap, stage_cap=stage_cap, num_runs=num_runs,
-            dispatch_mode=dispatch_mode, hot_words=hot_words,
-            validate=validate, overflow=overflow)
-        return CompiledSim(self, engine)
+        return CompiledSim(self, DeviceEngine.from_program(self, **kw))
 
 
 class CompiledSim:
@@ -507,9 +570,13 @@ class CompiledSim:
                                        (idx >= lo) & (idx < hi))
 
     def _queue_next_time(self, queue) -> float:
+        """Earliest pending time (a host float), single or sharded: one
+        host read either way."""
         from repro_torch.core.queue import tiered3_queue_next_time
 
-        return float(host_read(tiered3_queue_next_time(queue)))
+        shards = getattr(queue, "shards", (queue,))
+        return float(host_read(torch.min(torch.stack(
+            [tiered3_queue_next_time(q) for q in shards]))))
 
     @staticmethod
     def _save_checkpoint(manager, step, state, queue, stats,
@@ -536,6 +603,11 @@ class CompiledSim:
         eng = self.engine
         spill = eng.overflow == "spill"
         streamed = arrivals is not None
+        if streamed and eng.queue_mode != "tiered3":
+            raise ValueError(
+                "run(arrivals=...) on the device backend requires "
+                f"queue_mode='tiered3', got {eng.queue_mode!r}: the "
+                "admission fence is a tiered3 lex bound")
         if (checkpoint_every is not None or resume_from is not None) \
                 and checkpoint_dir is None:
             raise ValueError(

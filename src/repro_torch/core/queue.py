@@ -1,13 +1,21 @@
-"""Pending-event set on the device: the tiered3 queue (PyTorch port).
+"""Pending-event sets on the device (PyTorch port).
 
-Counterpart of the ``Tiered3DeviceQueue`` family of
-:mod:`repro.core.queue` (DESIGN.md §4.4): a small sorted *front* tier
-(the globally earliest events), an unsorted *staging* ring, a pool of
-fixed-size sorted *runs*, and the capacity-sized sorted *main* ring,
-with the invariant ``max(front) <= min(staging ∪ runs ∪ main)`` under
-the lexicographic ``(time, seq)`` key.  Every operation reproduces the
-JAX queue bit for bit: same fields, same values, same ghost and
-``dropped`` accounting.
+Counterparts of the queue families of :mod:`repro.core.queue`
+(DESIGN.md §4):
+
+* the **tiered3** queue (§4.4, the default): a small sorted *front* tier
+  (the globally earliest events), an unsorted *staging* ring, a pool of
+  fixed-size sorted *runs*, and the capacity-sized sorted *main* ring,
+  with the invariant ``max(front) <= min(staging ∪ runs ∪ main)`` under
+  the lexicographic ``(time, seq)`` key;
+* the **two-tier** queue (``TieredDeviceQueue``): front, staging and
+  main, the staging ring flushed straight into main;
+* the **flat** queue (``DeviceQueue``): one array a column, as a sorted
+  prefix (the ``flat`` mode) or in first-free-slot order with serial
+  argmin extraction (the ``reference`` mode, the executable spec).
+
+Every operation reproduces the JAX queue bit for bit: same fields, same
+values, same ghost and ``dropped`` accounting.
 
 How the JAX control flow maps onto eager PyTorch:
 
@@ -25,10 +33,14 @@ How the JAX control flow maps onto eager PyTorch:
   JAX uses them, and two stable sorts for ``lax.sort``'s stable
   two-key sort (:func:`_lex_order`).
 
-The per-super-step hot loops, the window extract and the front merge,
-go through :mod:`repro_torch.kernels.queue_front`, which launches the
-hand-written CUDA kernels for tensors on a CUDA device and runs their
-plain PyTorch versions on the CPU.
+The tiered queues' per-super-step hot loops, the window extract and
+the front merge, go through :mod:`repro_torch.kernels.queue_front`,
+which launches the hand-written CUDA kernels for tensors on a CUDA
+device and runs their plain PyTorch versions on the CPU.  The flat and
+reference modes reach no kernel, in JAX as here: their extraction and
+insert are torch operations, and their ``lax.cond`` rounds are selects,
+so a flat or reference super-step reads the host only for the engine's
+guard and window.
 
 Queue tensors are never updated in place: every operation returns new
 tensors, as the JAX functions do.
@@ -318,25 +330,39 @@ class Tiered3DeviceQueue(NamedTuple):
         return self.f_times.device
 
 
-_FLOAT_FIELDS = ("f_times", "f_args", "m_times", "m_args", "s_times",
-                 "s_args", "r_times", "r_args")
+def _field_dtype(name: str):
+    """A queue field's dtype, by the JAX queues' naming: times and args
+    are f32, the two-tier queue's ``s_evict`` tags bool, the rest int32."""
+    if name.endswith(("times", "args")):
+        return torch.float32, np.float32
+    if name == "s_evict":
+        return torch.bool, np.bool_
+    return _I32, np.int32
+
+
+def queue_from_arrays(cls, fields, device):
+    """Build a ``cls`` queue (any of the port's queue NamedTuples) from
+    numpy arrays keyed by the JAX queue's field names."""
+    out = {}
+    for name in cls._fields:
+        t_dtype, np_dtype = _field_dtype(name)
+        arr = np.asarray(fields[name]).astype(np_dtype)
+        out[name] = torch.tensor(arr, dtype=t_dtype, device=device)
+    return cls(**out)
+
+
+def queue_to_arrays(q) -> dict:
+    """Every field of a queue as a numpy array, keyed by name."""
+    return {name: getattr(q, name).cpu().numpy() for name in q._fields}
 
 
 def tiered3_queue_from_arrays(fields, device) -> Tiered3DeviceQueue:
-    """Build a queue from numpy arrays keyed by the JAX queue's field
-    names (f32 fields stay f32, every other field becomes int32)."""
-    out = {}
-    for name in Tiered3DeviceQueue._fields:
-        dtype = torch.float32 if name in _FLOAT_FIELDS else _I32
-        arr = np.asarray(fields[name])
-        arr = arr.astype(np.float32 if dtype == torch.float32 else np.int32)
-        out[name] = torch.tensor(arr, dtype=dtype, device=device)
-    return Tiered3DeviceQueue(**out)
+    """Build a tiered3 queue from numpy arrays keyed by the JAX queue's
+    field names (f32 fields stay f32, every other field becomes int32)."""
+    return queue_from_arrays(Tiered3DeviceQueue, fields, device)
 
 
-def tiered3_queue_to_arrays(q: Tiered3DeviceQueue) -> dict:
-    """Every field as a numpy array (f32 or int32), keyed by name."""
-    return {name: getattr(q, name).cpu().numpy() for name in q._fields}
+tiered3_queue_to_arrays = queue_to_arrays
 
 
 def tiered3_queue_init(capacity: int, *, front_cap: int = 256,
@@ -749,7 +775,7 @@ def _refill_front3(q: Tiered3DeviceQueue, w: int) -> Tiered3DeviceQueue:
 def _refill_main_only(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
     """Refill from the main ring head alone (no run intersects)."""
     COUNTS["refill_main_only"] += 1
-    F, P = q.front_cap, q.main_phys
+    F, P = q.front_cap, q.m_times.shape[0]
     take = torch.minimum(F - q.front_n, q.main_n)
     i_idx = _arange(F, q.device)
     from_front = i_idx < q.front_n
@@ -854,16 +880,27 @@ def _refill_kway(q: Tiered3DeviceQueue, w: int | None = None
 # Per-super-step operations
 # ---------------------------------------------------------------------------
 
-def tiered3_queue_peek_front(q: Tiered3DeviceQueue, k: int):
+def tiered3_queue_refill_flag(q: Tiered3DeviceQueue, k: int) -> torch.Tensor:
+    """True iff a ``k``-wide peek must refill the front first: it holds
+    fewer than ``k`` events and another tier holds some (a 0-d bool
+    tensor, the predicate of JAX's refill ``lax.cond``)."""
+    return (q.front_n < k) & (
+        (q.stage_n > 0) | (q.main_n > 0) | torch.any(q.r_len > q.r_off))
+
+
+def tiered3_queue_peek_front(q: Tiered3DeviceQueue, k: int, refill=None):
     """Refill the front if it holds fewer than ``k`` events and any
     other tier has some, then return the first ``k`` front slots
-    without popping: ``(q', ts, tys, args, seqs)``."""
+    without popping: ``(q', ts, tys, args, seqs)``.  ``refill``, a host
+    bool, is the caller's reading of :func:`tiered3_queue_refill_flag`
+    (the sharded engine reads every shard's flag in one host read);
+    ``None`` reads it here."""
     if k > q.front_cap:
         raise ValueError(
             f"peek width {k} exceeds front tier capacity {q.front_cap}")
-    need_refill = (q.front_n < k) & (
-        (q.stage_n > 0) | (q.main_n > 0) | torch.any(q.r_len > q.r_off))
-    if host_read(need_refill):
+    if refill is None:
+        refill = host_read(tiered3_queue_refill_flag(q, k))
+    if refill:
         q = _refill_front3(q, min(q.front_cap, 4 * k))
     return q, q.f_times[:k], q.f_types[:k], q.f_args[:k], q.f_seqs[:k]
 
@@ -929,9 +966,12 @@ def _default_fill_accounting(q: Tiered3DeviceQueue, rows):
     return seq_r, insert, counters
 
 
-def _tiered_fill_finish(q: Tiered3DeviceQueue, rows, b_time, seq_r, insert,
-                        counters, b_seq=None) -> Tiered3DeviceQueue:
-    """Partition the emit block against the tier boundary,
+def _tiered_fill_finish(q, rows, b_time, seq_r, insert, counters,
+                        b_seq=None):
+    """Shared tail of the two-tier and tiered3 fills (the queues share
+    their ``f_*``/``s_*`` fields; the two-tier ``s_evict`` tags are
+    updated iff the queue carries them).  Partition the emit block
+    against the tier boundary,
     counting-merge the near rows into the front
     (:func:`repro_torch.kernels.queue_front.front_merge`, ``front_cap +
     R`` wide: the tail is evicted to staging), append the rest to
@@ -976,6 +1016,12 @@ def _tiered_fill_finish(q: Tiered3DeviceQueue, rows, b_time, seq_r, insert,
         return _scatter_rows(_scatter_rows(col, dest_e, evals), dest_s,
                              svals)
 
+    extra = {}
+    if hasattr(q, "s_evict"):
+        # The two-tier queue tags each staged row: evicted from the
+        # front (True) or a direct row (False).
+        extra["s_evict"] = stage_put(
+            q.s_evict, torch.ones_like(e_valid), torch.zeros_like(to_stage))
     return q._replace(
         f_times=merged_t[:F], f_types=merged_y[:F],
         f_args=merged_a[:F], f_seqs=merged_s[:F],
@@ -986,15 +1032,28 @@ def _tiered_fill_finish(q: Tiered3DeviceQueue, rows, b_time, seq_r, insert,
         front_n=front_n_new,
         stage_n=q.stage_n + evict_cnt + n_stage,
         **counters,
+        **extra,
     )
 
 
-def _tiered3_preflush(q: Tiered3DeviceQueue, R: int) -> Tiered3DeviceQueue:
-    """Make room for up to ``R`` staging appends before a fill."""
+def preflush_flag(q, R: int) -> torch.Tensor:
+    """True iff ``R`` staging appends could overflow the staging ring (a
+    0-d bool tensor, the predicate of JAX's pre-fill flush ``cond``)."""
     if R > q.stage_cap:
         raise ValueError(
             f"emit block of {R} rows exceeds stage_cap {q.stage_cap}")
-    if host_read(q.stage_n + R > q.stage_cap):
+    return q.stage_n + R > q.stage_cap
+
+
+def _tiered3_preflush(q: Tiered3DeviceQueue, R: int,
+                      flush=None) -> Tiered3DeviceQueue:
+    """Make room for up to ``R`` staging appends before a fill.
+    ``flush``, a host bool, is the caller's reading of
+    :func:`preflush_flag`; ``None`` reads it here."""
+    flag = preflush_flag(q, R)
+    if flush is None:
+        flush = host_read(flag)
+    if flush:
         q = _flush_stage_to_run(q)
     return q
 
@@ -1011,13 +1070,15 @@ def tiered3_queue_fill_rows(q: Tiered3DeviceQueue, rows
 
 
 def tiered3_queue_fill_rows_tagged(q: Tiered3DeviceQueue, rows, seqs,
-                                   insert) -> Tiered3DeviceQueue:
+                                   insert, *, flush=None
+                                   ) -> Tiered3DeviceQueue:
     """Emit insert with seqs and survival decided by the caller (the
     sharded engine's global counter); rows outside ``insert`` are
-    ignored entirely."""
+    ignored entirely.  ``flush`` is the pre-flush decision when the
+    caller has read it (:func:`_tiered3_preflush`)."""
     rows = rows.to(torch.float32)
     seqs = seqs.to(_I32)
-    q = _tiered3_preflush(q, rows.shape[0])
+    q = _tiered3_preflush(q, rows.shape[0], flush)
     insert = insert & (rows[:, 1] >= 0)
     n_ins = _i32(torch.sum(insert))
     counters = dict(
@@ -1088,32 +1149,591 @@ def tiered3_queue_to_flat(q: Tiered3DeviceQueue) -> FlatQueue:
     event of every tier, sorted by ``(time, seq)``."""
     a = tiered3_queue_to_arrays(q)
     head, main_n = int(a["m_head"]), int(a["main_n"])
-    parts = [tuple(a[f"{pre}_{name}"]
-                   for name in ("times", "types", "args", "seqs"))
-             for pre in ("f", "s")]
-    parts.append(tuple(a[f"m_{name}"][head:head + main_n]
-                       for name in ("times", "types", "args", "seqs")))
+    cols = ("times", "types", "args", "seqs")
+    parts = [tuple(a[f"{pre}_{c}"] for c in cols) for pre in ("f", "s")]
+    parts.append(tuple(a[f"m_{c}"][head:head + main_n] for c in cols))
     for i in range(q.num_runs):
         lo, hi = a["r_off"][i], a["r_len"][i]
-        parts.append(tuple(a[f"r_{name}"][i, lo:hi]
-                           for name in ("times", "types", "args", "seqs")))
+        parts.append(tuple(a[f"r_{c}"][i, lo:hi] for c in cols))
+    return _flat_view(q.capacity, q.f_args.shape[1], parts, a)
+
+
+# ---------------------------------------------------------------------------
+# The flat queue (the ``flat`` and ``reference`` modes)
+# ---------------------------------------------------------------------------
+
+class DeviceQueue(NamedTuple):
+    """One array per column, field for field the JAX ``DeviceQueue``:
+    ``types == -1`` marks a free slot, ``seq`` is the insertion counter
+    that breaks time ties, ``dropped`` counts events lost to capacity
+    overflow.  The ``flat`` mode keeps the occupied slots as a
+    ``(time, seq)``-sorted prefix; the ``reference`` mode places rows in
+    the first free slots, unsorted.  Scalars are 0-d int32 tensors."""
+
+    times: torch.Tensor   # f32[capacity]
+    types: torch.Tensor   # i32[capacity], -1 = empty
+    args: torch.Tensor    # f32[capacity, ARG_WIDTH]
+    seqs: torch.Tensor    # i32[capacity]
+    size: torch.Tensor    # logical pushes (incl. ghosts)
+    next_seq: torch.Tensor
+    dropped: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.times.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.times.device
+
+
+def _zero(device) -> torch.Tensor:
+    return torch.zeros((), dtype=_I32, device=device)
+
+
+def device_queue_init(capacity: int, arg_width: int = ARG_WIDTH,
+                      device="cpu") -> DeviceQueue:
+    t, y, a, s = _sentinel_cols(capacity, arg_width, device)
+    return DeviceQueue(times=t, types=y, args=a, seqs=s, size=_zero(device),
+                       next_seq=_zero(device), dropped=_zero(device))
+
+
+def device_queue_from_host(events, capacity: int,
+                           arg_width: int = ARG_WIDTH,
+                           device="cpu") -> DeviceQueue:
+    """Host-built seed queue, one copy to ``device``: the canonical
+    layout (the occupied slots a ``(time, seq)``-sorted prefix), seq
+    ``i`` for event ``i``, events past ``capacity`` dropped with
+    ``size``/``next_seq`` still advancing."""
+    st, sy, sa, ss, n, m = _host_sorted_seed(events, capacity, arg_width)
+    fields = dict(
+        times=np.full((capacity,), np.inf, np.float32),
+        types=np.full((capacity,), -1, np.int32),
+        args=np.zeros((capacity, arg_width), np.float32),
+        seqs=np.full((capacity,), I32_MAX, np.int32),
+        size=n, next_seq=n, dropped=n - m)
+    for name, col in zip(("times", "types", "args", "seqs"),
+                         (st, sy, sa, ss)):
+        fields[name][:m] = col
+    return queue_from_arrays(DeviceQueue, fields, device)
+
+
+def device_queue_push(q: DeviceQueue, time, type_id, arg) -> DeviceQueue:
+    """Insert one event into the first free slot; a full queue drops it
+    (``dropped`` counts it, ``size``/``next_seq`` still advance).  The
+    JAX ``lax.cond`` is a select: no host read."""
+    dev = q.device
+    slot = torch.argmin((q.types >= 0).to(_I32)).reshape(1)
+    room = q.size < q.capacity
+    time = torch.as_tensor(time, dtype=torch.float32, device=dev)
+    type_id = torch.as_tensor(type_id, dtype=_I32, device=dev)
+    arg = torch.as_tensor(arg, dtype=torch.float32, device=dev)
+
+    def put(col, val):
+        old = col.index_select(0, slot)
+        return col.index_copy(0, slot, torch.where(room, val, old[0])[None])
+
+    return q._replace(
+        times=put(q.times, time), types=put(q.types, type_id),
+        args=put(q.args, arg), seqs=put(q.seqs, q.next_seq),
+        size=q.size + 1, next_seq=q.next_seq + 1,
+        dropped=q.dropped + (~room).to(_I32))
+
+
+def device_queue_push_rows_serial(q: DeviceQueue, rows) -> DeviceQueue:
+    """One :func:`device_queue_push` per valid row (``type < 0`` rows
+    are skipped): the executable specification of
+    :func:`device_queue_push_rows`, slot placement included."""
+    rows = rows.to(torch.float32)
+    for i in range(rows.shape[0]):
+        ty = _i32(rows[i, 1])
+        pushed = device_queue_push(q, rows[i, 0], ty, rows[i, 2:])
+        q = DeviceQueue(*(torch.where(ty >= 0, new, old)
+                          for new, old in zip(pushed, q)))
+    return q
+
+
+def device_queue_push_rows(q: DeviceQueue, rows) -> DeviceQueue:
+    """The reference bulk insert as one scatter a column, bit-identical
+    to :func:`device_queue_push_rows_serial` including slot placement:
+    the row of insert-rank ``r`` lands in the ``r``-th free slot.  Valid
+    row ``j`` gets ``seq = next_seq + vrank(j)`` and survives iff ``size
+    + vrank(j) < capacity`` (``size`` counts ghosts).  Every destination
+    is unique; dropped rows go to the scratch slot past the end."""
+    rows = rows.to(torch.float32)
+    C = q.capacity
+    dev = q.device
+    t_r = rows[:, 0].contiguous()
+    ty_r = _i32(rows[:, 1])
+    arg_r = rows[:, 2:].contiguous()
+    valid = ty_r >= 0
+    vrank = _prefix_rank(valid)
+    num_valid = _i32(torch.sum(valid))
+    insert = valid & (q.size + vrank < C)
+    num_insert = _i32(torch.sum(insert))
+    seq_r = q.next_seq + vrank
+
+    # k-th free slot: rank the free slots, invert the ranks by scatter.
+    free = q.types < 0
+    slot_of_rank = _scatter_rows(
+        torch.full((C,), C, dtype=_I32, device=dev),
+        torch.where(free, _prefix_rank(free), C), _arange(C, dev))
+    irank = _prefix_rank(insert)
+    dest = torch.where(insert, _take(slot_of_rank, torch.clamp(irank, 0, C - 1)),
+                       C)
+    return q._replace(
+        times=_scatter_rows(q.times, dest, t_r),
+        types=_scatter_rows(q.types, dest, ty_r),
+        args=_scatter_rows(q.args, dest, arg_r),
+        seqs=_scatter_rows(q.seqs, dest, seq_r),
+        size=q.size + num_valid,
+        next_seq=q.next_seq + num_valid,
+        dropped=q.dropped + (num_valid - num_insert))
+
+
+def _min_key_slot(q: DeviceQueue):
+    """Slot of the occupied lex-min ``(time, seq)`` key, and that time:
+    the time minimum, then the first slot of the seq minimum among its
+    slots (``argmin`` returns the first index)."""
+    occupied = q.types >= 0
+    times = torch.where(occupied, q.times, INF)
+    tmin = torch.min(times)
+    seqs = torch.where(occupied & (times == tmin), q.seqs, I32_MAX)
+    return _i32(torch.argmin(seqs)), tmin
+
+
+def device_queue_peek(q: DeviceQueue):
+    """``(time, type, slot)`` of the earliest event; type -1 when
+    empty."""
+    slot, tmin = _min_key_slot(q)
+    empty = q.size <= 0
+    t = torch.where(empty, INF, tmin)
+    ty = torch.where(empty, -1, _at(q.types, slot))
+    return t, ty, slot
+
+
+def device_queue_pop(q: DeviceQueue):
+    """Remove and return the earliest event: ``(q', time, type, arg)``;
+    an empty queue returns type -1 and stays as it is."""
+    t, ty, slot = device_queue_peek(q)
+    arg = _at(q.args, slot)
+    take = ty >= 0
+    return _pop_slot(q, slot, take), t, ty, arg
+
+
+def _pop_slot(q: DeviceQueue, slot, take) -> DeviceQueue:
+    """Free ``slot`` where ``take`` (a 0-d bool), as a select."""
+    idx = slot.reshape(1).long()
+
+    def clear(col, fill):
+        old = col.index_select(0, idx)
+        return col.index_copy(0, idx, torch.where(take, fill, old))
+
+    return q._replace(times=clear(q.times, INF), types=clear(q.types, -1),
+                      seqs=clear(q.seqs, I32_MAX),
+                      size=q.size - take.to(_I32))
+
+
+def device_queue_next_time(q: DeviceQueue) -> torch.Tensor:
+    """Earliest pending time under the canonical layout: the head
+    slot (the ``inf`` sentinel when empty)."""
+    return q.times[0]
+
+
+def device_queue_next_time_ref(q: DeviceQueue) -> torch.Tensor:
+    """Earliest pending time in any layout (O(capacity))."""
+    return torch.min(torch.where(q.types >= 0, q.times, INF))
+
+
+def device_queue_occupancy(q: DeviceQueue) -> torch.Tensor:
+    """Number of occupied slots (``size`` also counts ghosts)."""
+    return _i32(torch.sum(q.types >= 0))
+
+
+def device_queue_extract_ref(q: DeviceQueue, max_len: int, lookaheads,
+                             t_cap=None):
+    """The reference window extraction: ``max_len`` serial peek/pop
+    rounds (paper Fig 2 one event at a time), each an O(capacity)
+    masked argmin.  JAX's ``lax.cond`` rounds are selects here, so the
+    extraction makes no host read.  Returns ``(q', ts, tys, args,
+    length)``, zero-padded past ``length``."""
+    dev = q.device
+    T = lookaheads.shape[0]
+    t_max = torch.full((), INF if t_cap is None else _f32(t_cap),
+                       dtype=torch.float32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    length = _zero(dev)
+    ts, tys, args = [], [], []
+    for _ in range(max_len):
+        t, ty, slot = device_queue_peek(q)
+        take = (~done) & (ty >= 0) & (t <= t_max)
+        arg = _at(q.args, slot)
+        q = _pop_slot(q, slot, take)
+        ts.append(torch.where(take, t, 0.0))
+        tys.append(torch.where(take, ty, 0))
+        args.append(torch.where(take, arg, 0.0))
+        la = _at(lookaheads, torch.clamp(ty, 0, T - 1))
+        t_max = torch.where(take, torch.minimum(t_max, t + la), t_max)
+        length = length + take.to(_I32)
+        done = done | ~take
+    return (q, torch.stack(ts), _i32(torch.stack(tys)), torch.stack(args),
+            length)
+
+
+def device_queue_extract(q: DeviceQueue, max_len: int, lookaheads,
+                         t_cap=None):
+    """Single-pass window extraction over the canonical layout: the
+    first ``max_len`` slots are the candidates, the take rule is
+    :func:`window_prefix_mask`, and every column shifts left by the
+    window's length (O(capacity) a column).  Bit-identical to
+    :func:`device_queue_extract_ref`.  Returns ``(q', ts, tys, args,
+    length)``."""
+    if max_len > q.capacity:
+        raise ValueError(
+            f"max_len {max_len} exceeds queue capacity {q.capacity}")
+    k = max_len
+    T = lookaheads.shape[0]
+    ts_c, tys_c = q.times[:k], q.types[:k]
+    valid = tys_c >= 0
+    la = _take(lookaheads, torch.clamp(tys_c, 0, T - 1))
+    wins = torch.where(valid, ts_c + la, INF)
+    take = window_prefix_mask(ts_c, wins, valid, t_cap)
+    length = _i32(torch.sum(take))
+    ts = torch.where(take, ts_c, 0.0)
+    tys = torch.where(take, tys_c, 0)
+    args = torch.where(take[:, None], q.args[:k], 0.0)
+    q = q._replace(
+        times=shift_left(q.times, INF, length, k),
+        types=shift_left(q.types, -1, length, k),
+        args=shift_left(q.args, 0.0, length, k),
+        seqs=shift_left(q.seqs, I32_MAX, length, k),
+        size=q.size - length)
+    return q, ts, tys, args, length
+
+
+def device_queue_fill_rows(q: DeviceQueue, rows) -> DeviceQueue:
+    """Bulk emit insert into the canonical layout: the seq and overflow
+    rule of :func:`device_queue_push_rows`, then one counting-merge of
+    the surviving rows, ordered by ``(time, arrival)``, into the sorted
+    columns (row seqs exceed every queued seq, so a row's place is
+    searchsorted-right on time, capped at the occupancy)."""
+    rows = rows.to(torch.float32)
+    R = rows.shape[0]
+    C = q.capacity
+    dev = q.device
+    t_r = rows[:, 0]
+    ty_r = _i32(rows[:, 1])
+    arg_r = rows[:, 2:]
+    r_idx = _arange(R, dev)
+    valid = ty_r >= 0
+    vrank = _prefix_rank(valid)
+    num_valid = _i32(torch.sum(valid))
+    insert = valid & (q.size + vrank < C)
+    num_insert = _i32(torch.sum(insert))
+    seq_r = q.next_seq + vrank
+
+    tt = torch.where(insert, t_r, INF)
+    perm = _small_lex_perm(tt, torch.where(insert, r_idx, I32_MAX))
+    rt, rty, rarg, rseq, rins = (tt[perm], ty_r[perm], arg_r[perm],
+                                 seq_r[perm], insert[perm])
+    occupancy = device_queue_occupancy(q)
+    older = torch.minimum(
+        torch.searchsorted(q.times, rt.contiguous(), right=True,
+                           out_int32=True), occupancy)
+    # Ascending over the sorted rows (C past the inserted ones).
+    pos = torch.where(rins, older + r_idx, C)
+    i_idx = _arange(C, dev)
+    ins_before = torch.searchsorted(pos, i_idx, right=False, out_int32=True)
+    is_ins = torch.searchsorted(pos, i_idx, right=True,
+                                out_int32=True) > ins_before
+    src = torch.where(is_ins, C + torch.clamp(ins_before, 0, R - 1),
+                      torch.clamp(i_idx - ins_before, 0, C - 1))
+
+    def merge(col, rcol):
+        return _take(torch.cat([col, rcol]), src)
+
+    return q._replace(
+        times=merge(q.times, rt), types=merge(q.types, rty),
+        args=merge(q.args, rarg), seqs=merge(q.seqs, rseq),
+        size=q.size + num_valid, next_seq=q.next_seq + num_valid,
+        dropped=q.dropped + (num_valid - num_insert))
+
+
+def device_queue_to_flat(q: DeviceQueue) -> FlatQueue:
+    """Canonical flat view of a flat or reference queue, on the host:
+    the occupied slots sorted by ``(time, seq)``."""
+    a = queue_to_arrays(q)
+    return _flat_view(q.capacity, a["args"].shape[1],
+                      [(a["times"], a["types"], a["args"], a["seqs"])], a)
+
+
+def _flat_view(C, arg_width, parts, counters) -> FlatQueue:
+    """The live rows of ``parts`` (column tuples), lex-sorted into a
+    ``C``-slot :class:`FlatQueue` with ``counters``' size, next_seq and
+    dropped."""
     times, types, args, seqs = (np.concatenate([p[c] for p in parts])
                                 for c in range(4))
     occ = types >= 0
     order = np.lexsort((seqs[occ], times[occ]))
     n = int(occ.sum())
-    C = q.capacity
     if n > C:
         raise ValueError(
             f"tier occupancy {n} exceeds the logical capacity {C}")
     out_t = np.full((C,), np.inf, np.float32)
     out_y = np.full((C,), -1, np.int32)
-    out_a = np.zeros((C, q.f_args.shape[1]), np.float32)
+    out_a = np.zeros((C, arg_width), np.float32)
     out_s = np.full((C,), I32_MAX, np.int32)
     out_t[:n] = times[occ][order]
     out_y[:n] = types[occ][order]
     out_a[:n] = args[occ][order]
     out_s[:n] = seqs[occ][order]
     return FlatQueue(times=out_t, types=out_y, args=out_a, seqs=out_s,
-                     size=int(a["size"]), next_seq=int(a["next_seq"]),
-                     dropped=int(a["dropped"]))
+                     size=int(counters["size"]),
+                     next_seq=int(counters["next_seq"]),
+                     dropped=int(counters["dropped"]))
+
+
+# ---------------------------------------------------------------------------
+# The two-tier queue: front / staging / main (the ``tiered`` mode)
+# ---------------------------------------------------------------------------
+
+class TieredDeviceQueue(NamedTuple):
+    """Front / staging / main, field for field the JAX
+    ``TieredDeviceQueue``: a sorted front of the earliest events, an
+    unsorted staging ring whose ``s_evict`` tags mark the rows evicted
+    from the front, and the capacity-sized sorted main ring (live slots
+    ``[m_head, m_head + main_n)``; the rest are stale, not cleared).
+    Invariant: ``max(front) <= min(staging ∪ main)`` under the lex
+    ``(time, seq)`` key."""
+
+    f_times: torch.Tensor   # f32[front_cap]
+    f_types: torch.Tensor
+    f_args: torch.Tensor
+    f_seqs: torch.Tensor
+    m_times: torch.Tensor   # f32[capacity]
+    m_types: torch.Tensor
+    m_args: torch.Tensor
+    m_seqs: torch.Tensor
+    s_times: torch.Tensor   # f32[stage_cap]
+    s_types: torch.Tensor
+    s_args: torch.Tensor
+    s_seqs: torch.Tensor
+    s_evict: torch.Tensor   # bool[stage_cap], True = evicted from front
+    front_n: torch.Tensor
+    main_n: torch.Tensor
+    m_head: torch.Tensor
+    stage_n: torch.Tensor
+    size: torch.Tensor
+    next_seq: torch.Tensor
+    dropped: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.m_times.shape[0]
+
+    @property
+    def front_cap(self) -> int:
+        return self.f_times.shape[0]
+
+    @property
+    def stage_cap(self) -> int:
+        return self.s_times.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.f_times.device
+
+
+def tiered_queue_init(capacity: int, *, front_cap: int = 256,
+                      stage_cap: int = 256, arg_width: int = ARG_WIDTH,
+                      device="cpu") -> TieredDeviceQueue:
+    front_cap = min(front_cap, capacity)
+    ft, fy, fa, fs = _sentinel_cols(front_cap, arg_width, device)
+    mt, my, ma, ms = _sentinel_cols(capacity, arg_width, device)
+    st, sy, sa, ss = _sentinel_cols(stage_cap, arg_width, device)
+    return TieredDeviceQueue(
+        f_times=ft, f_types=fy, f_args=fa, f_seqs=fs,
+        m_times=mt, m_types=my, m_args=ma, m_seqs=ms,
+        s_times=st, s_types=sy, s_args=sa, s_seqs=ss,
+        s_evict=torch.zeros((stage_cap,), dtype=torch.bool, device=device),
+        front_n=_zero(device), main_n=_zero(device), m_head=_zero(device),
+        stage_n=_zero(device), size=_zero(device), next_seq=_zero(device),
+        dropped=_zero(device))
+
+
+def tiered_queue_from_host(events, capacity: int, *, front_cap: int = 256,
+                           stage_cap: int = 256, arg_width: int = ARG_WIDTH,
+                           device="cpu") -> TieredDeviceQueue:
+    """Host-built seed queue, one copy to ``device``: the earliest
+    ``front_cap`` events seed the front, the rest the main ring at head
+    0; the semantics of N serial pushes (seq ``i``, events past
+    ``capacity`` dropped with ``size``/``next_seq`` advancing)."""
+    front_cap = min(front_cap, capacity)
+    times, types, args, seqs, n, m = _host_sorted_seed(events, capacity,
+                                                       arg_width)
+    nf = min(m, front_cap)
+
+    def column(n_slots, fill, dtype, src):
+        col = np.full((n_slots,) + src.shape[1:], fill, dtype)
+        col[:src.shape[0]] = src
+        return col
+
+    fields = dict(
+        f_times=column(front_cap, np.inf, np.float32, times[:nf]),
+        f_types=column(front_cap, -1, np.int32, types[:nf]),
+        f_args=column(front_cap, 0, np.float32, args[:nf]),
+        f_seqs=column(front_cap, I32_MAX, np.int32, seqs[:nf]),
+        m_times=column(capacity, np.inf, np.float32, times[nf:]),
+        m_types=column(capacity, -1, np.int32, types[nf:]),
+        m_args=column(capacity, 0, np.float32, args[nf:]),
+        m_seqs=column(capacity, I32_MAX, np.int32, seqs[nf:]),
+        s_times=np.full((stage_cap,), np.inf, np.float32),
+        s_types=np.full((stage_cap,), -1, np.int32),
+        s_args=np.zeros((stage_cap, arg_width), np.float32),
+        s_seqs=np.full((stage_cap,), I32_MAX, np.int32),
+        s_evict=np.zeros((stage_cap,), bool),
+        front_n=nf, main_n=m - nf, m_head=0, stage_n=0,
+        size=n, next_seq=n, dropped=n - m)
+    return queue_from_arrays(TieredDeviceQueue, fields, device)
+
+
+def tiered_queue_has_pending(q: TieredDeviceQueue) -> torch.Tensor:
+    """True while any tier holds a real event (``size`` counts ghosts)."""
+    return (q.front_n > 0) | (q.stage_n > 0) | (q.main_n > 0)
+
+
+def tiered_queue_occupancy(q: TieredDeviceQueue) -> torch.Tensor:
+    """Number of real pending events across the three tiers."""
+    return q.front_n + q.stage_n + q.main_n
+
+
+def _tiered_main_head_time(q: TieredDeviceQueue) -> torch.Tensor:
+    head = _at(q.m_times, torch.clamp(q.m_head, 0, q.capacity - 1))
+    return torch.where(q.main_n > 0, head, INF)
+
+
+def tiered_queue_next_time(q: TieredDeviceQueue) -> torch.Tensor:
+    """Earliest pending time: the front head, or with a drained front
+    the earlier of staging's minimum and the main head."""
+    rest = torch.minimum(torch.min(q.s_times), _tiered_main_head_time(q))
+    return torch.where(q.front_n > 0, q.f_times[0], rest)
+
+
+def _flush_stage(q: TieredDeviceQueue) -> TieredDeviceQueue:
+    """Merge the staging ring into the main ring: a tail append when the
+    sorted block follows the main tail and fits before the ring's end,
+    else the O(capacity) counting-merge of the unrolled ring.  A staged
+    row's place among equal-time main rows follows its ``s_evict`` tag:
+    an evicted row precedes them (searchsorted-left), a direct row
+    follows them (right)."""
+    COUNTS["flush"] += 1
+    S, C = q.stage_cap, q.capacity
+    dev = q.device
+    perm = _small_lex_perm(q.s_times, q.s_seqs)
+    st, sty, sarg, sseq, sev = (q.s_times[perm], q.s_types[perm],
+                                q.s_args[perm], q.s_seqs[perm],
+                                q.s_evict[perm])
+    sval = sty >= 0
+    head = torch.where(q.main_n > 0, q.m_head, 0)
+    tail = head + q.main_n
+    m_last = _at(q.m_times, torch.clamp(tail - 1, 0, C - 1))
+    can_append = (((q.main_n == 0) | (st[0] > m_last))
+                  & (tail + S <= C))
+    # A ring smaller than the staging block never appends.
+    if S <= C and host_read(can_append):
+        COUNTS["flush_append"] += 1
+        q = q._replace(
+            m_times=_update_slice(q.m_times, st, tail),
+            m_types=_update_slice(q.m_types, sty, tail),
+            m_args=_update_slice(q.m_args, sarg, tail),
+            m_seqs=_update_slice(q.m_seqs, sseq, tail),
+            m_head=head)
+    else:
+        COUNTS["flush_merge"] += 1
+        mt = _ring_unroll(q.m_times, INF, q.m_head, q.main_n)
+        my = _ring_unroll(q.m_types, -1, q.m_head, q.main_n)
+        ma = _ring_unroll(q.m_args, 0.0, q.m_head, q.main_n)
+        ms = _ring_unroll(q.m_seqs, I32_MAX, q.m_head, q.main_n)
+        older = torch.where(
+            sev, torch.searchsorted(mt, st, right=False, out_int32=True),
+            torch.searchsorted(mt, st, right=True, out_int32=True))
+        older = torch.minimum(older, q.main_n)
+        pos = torch.where(sval, older + _arange(S, dev), C)
+        # Insert counts per output slot (a scatter-add histogram; the
+        # rows past the end count into a scratch slot), then the
+        # exclusive prefix sum places every main row.
+        counts = torch.zeros((C + 1,), dtype=_I32, device=dev).index_add_(
+            0, pos.long(), torch.ones_like(pos))[:C]
+        ins_before = _i32(torch.cumsum(counts, 0)) - counts
+        i_idx = _arange(C, dev)
+        src = torch.where(counts > 0, C + torch.clamp(ins_before, 0, S - 1),
+                          torch.clamp(i_idx - ins_before, 0, C - 1))
+
+        def merge(col, scol):
+            return _take(torch.cat([col, scol]), src)
+
+        q = q._replace(m_times=merge(mt, st), m_types=merge(my, sty),
+                       m_args=merge(ma, sarg), m_seqs=merge(ms, sseq),
+                       m_head=torch.zeros_like(q.m_head))
+    et, ey, ea, es = _sentinel_cols(S, q.s_args.shape[1], dev)
+    return q._replace(s_times=et, s_types=ey, s_args=ea, s_seqs=es,
+                      s_evict=torch.zeros_like(q.s_evict),
+                      main_n=q.main_n + q.stage_n,
+                      stage_n=torch.zeros_like(q.stage_n))
+
+
+def _refill_front(q: TieredDeviceQueue) -> TieredDeviceQueue:
+    """Flush staging (staged keys may precede the main head), then
+    append the main head to the front's occupied prefix."""
+    if host_read(q.stage_n > 0):
+        q = _flush_stage(q)
+    return _refill_main_only(q)
+
+
+def tiered_queue_extract(q: TieredDeviceQueue, max_len: int, lookaheads,
+                         t_cap=None):
+    """Window extraction from the front tier: the refill when the front
+    holds fewer than ``max_len`` events and another tier has some, then
+    the take rule and prefix pop in one
+    :func:`repro_torch.kernels.queue_front.window_extract` call (the
+    same rule over the same front columns as tiered3's).  Returns
+    ``(q', ts, tys, args, length)``."""
+    if max_len > q.front_cap:
+        raise ValueError(
+            f"max_len {max_len} exceeds front tier capacity {q.front_cap}")
+    from repro_torch.kernels.queue_front import window_extract
+
+    need_refill = (q.front_n < max_len) & ((q.stage_n > 0) | (q.main_n > 0))
+    if host_read(need_refill):
+        q = _refill_front(q)
+    ts, tys, args, length, nt, ny, na, ns = window_extract(
+        q.f_times, q.f_types, q.f_args, q.f_seqs, lookaheads, t_cap,
+        k=max_len)
+    q = q._replace(f_times=nt, f_types=ny, f_args=na, f_seqs=ns,
+                   front_n=q.front_n - length, size=q.size - length)
+    return q, ts, tys, args, length
+
+
+def tiered_queue_fill_rows(q: TieredDeviceQueue, rows) -> TieredDeviceQueue:
+    """Per-batch emit insert touching only the front and staging tiers
+    (the front merge is the ``front_merge`` kernel); a staging ring that
+    could overflow is flushed into main first.  Row layout ``(time,
+    type, arg...)``; ``type < 0`` rows are skipped."""
+    rows = rows.to(torch.float32)
+    if host_read(preflush_flag(q, rows.shape[0])):
+        q = _flush_stage(q)
+    seq_r, insert, counters = _default_fill_accounting(q, rows)
+    b_time = torch.minimum(_tiered_main_head_time(q), torch.min(q.s_times))
+    return _tiered_fill_finish(q, rows, b_time, seq_r, insert, counters)
+
+
+def tiered_queue_to_flat(q: TieredDeviceQueue) -> FlatQueue:
+    """Canonical flat view of a two-tier queue, on the host: every live
+    event of the three tiers, sorted by ``(time, seq)``."""
+    a = queue_to_arrays(q)
+    head, main_n = int(a["m_head"]), int(a["main_n"])
+    cols = ("times", "types", "args", "seqs")
+    parts = [tuple(a[f"f_{c}"] for c in cols),
+             tuple(a[f"m_{c}"][head:head + main_n] for c in cols),
+             tuple(a[f"s_{c}"] for c in cols)]
+    return _flat_view(q.capacity, a["f_args"].shape[1], parts, a)

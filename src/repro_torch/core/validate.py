@@ -1,24 +1,28 @@
-"""Invariant auditing for the device engine (DESIGN.md §9), PyTorch port.
+"""Invariant auditing for the device engines (DESIGN.md §9), PyTorch port.
 
-Counterpart of :mod:`repro.core.validate` for the single tiered3 queue,
-the one queue mode the port has.  Two layers, selected by
-``DeviceEngine(validate=...)``:
+Counterpart of :mod:`repro.core.validate` for every queue mode the port
+runs.  Two layers, selected by ``DeviceEngine(validate=...)``:
 
-* **cheap** — :func:`tiered3_fault_bits`, O(front_cap + num_runs) device
-  work each super-step: an int32 *fault word* (a bit per invariant
-  class) that the engine ORs into its stats carry.  The engine folds
-  ``fault_word == 0`` into the loop guard it already reads to the host
-  once a super-step, so the check adds no host read, and a corrupted
-  pending set stops the run at the first poisoned super-step.
-* **full** — :func:`full_audit`, an O(capacity) cross-tier audit on the
-  host at segment boundaries only: duplicated seqs across tiers, the
-  sortedness of every run remainder, the cross-tier boundary invariant
-  and the occupancy recounted from the raw buffers.
+* **cheap** — an int32 *fault word* (a bit per invariant class) that the
+  engine ORs into its stats carry each super-step, from device work
+  matched to the queue: O(front_cap + num_runs) for a tiered3 queue
+  (:func:`tiered3_fault_bits`), O(front_cap) for a two-tier one
+  (:func:`tiered_fault_bits`), O(capacity) for the flat and reference
+  queues, whose extraction is O(capacity) already
+  (:func:`flat_fault_bits`), and each shard plus the global
+  conservation law for a sharded queue (:func:`sharded_fault_bits`).
+  The engine folds ``fault_word == 0`` into the loop guard it already
+  reads to the host once a super-step, so the check adds no host read,
+  and a corrupted pending set stops the run at the first poisoned
+  super-step.
+* **full** — :func:`full_audit`, an O(capacity) audit on the host at
+  segment boundaries only: for tiered3 queues duplicated seqs across
+  tiers, the sortedness of every run remainder, the cross-tier boundary
+  invariant and the occupancy recounted from the raw buffers; reduced
+  checks for the other modes, as in JAX.
 
 The bit layout and names are the JAX package's (``FAULT_NAMES`` is the
 wire format of :class:`EngineFaultError` and ``RunResult.fault_word``).
-The flat, two-tier and sharded audits wait for the queue modes they
-audit.
 """
 
 from __future__ import annotations
@@ -41,8 +45,11 @@ __all__ = [
     "FAULT_INGEST",
     "fault_names",
     "full_audit",
+    "flat_fault_bits",
     "raise_on_findings",
+    "sharded_fault_bits",
     "tiered3_fault_bits",
+    "tiered_fault_bits",
 ]
 
 # Packed fault-word layout (int32).  Bits are sticky: once set in the
@@ -149,6 +156,72 @@ def tiered3_fault_bits(q, *, local: bool) -> torch.Tensor:
     return bits | _bit(~conserved, FAULT_CONSERVATION)
 
 
+def _lex_sorted_bits(times, seqs, occ_n) -> torch.Tensor:
+    """FRONT_ORDER bit for an occupied-prefix layout: every adjacent
+    occupied pair ascends under ``(time, seq)`` (a NaN fails every
+    compare, so a poisoned slot trips it too)."""
+    i = torch.arange(times.shape[0] - 1, dtype=torch.int32,
+                     device=times.device)
+    pair_occ = (i + 1) < occ_n
+    t0, t1 = times[:-1], times[1:]
+    s0, s1 = seqs[:-1], seqs[1:]
+    ok = (t0 < t1) | ((t0 == t1) & (s0 < s1))
+    return _bit(torch.any(pair_occ & ~ok), FAULT_FRONT_ORDER)
+
+
+def _occupied_slot_bits(times, seqs, occ_mask, next_seq) -> torch.Tensor:
+    return (_bit(torch.any(occ_mask & ~torch.isfinite(times)),
+                 FAULT_TIME_NONFINITE)
+            | _bit(torch.any(occ_mask & (seqs >= next_seq)),
+                   FAULT_SEQ_RANGE))
+
+
+def tiered_fault_bits(q) -> torch.Tensor:
+    """Cheap fault word for a two-tier queue, O(front_cap)."""
+    F, S = q.front_cap, q.stage_cap
+    occ_f = torch.arange(F, dtype=torch.int32,
+                         device=q.f_times.device) < q.front_n
+    bits = (_lex_sorted_bits(q.f_times, q.f_seqs, q.front_n)
+            | _occupied_slot_bits(q.f_times, q.f_seqs, occ_f, q.next_seq))
+    counts_ok = ((q.front_n >= 0) & (q.front_n <= F)
+                 & (q.stage_n >= 0) & (q.stage_n <= S)
+                 & (q.main_n >= 0) & (q.main_n <= q.m_times.shape[0]))
+    occ = q.front_n + q.stage_n + q.main_n
+    return (bits | _bit(~counts_ok, FAULT_TIER_COUNTS)
+            | _bit(occ + q.dropped != q.size, FAULT_CONSERVATION))
+
+
+def flat_fault_bits(q, *, sorted_layout: bool) -> torch.Tensor:
+    """Cheap fault word for a flat queue, O(capacity) like its
+    extraction.  ``sorted_layout=False`` (the reference queue, whose
+    slot placement is legitimately unsorted) skips the order and
+    prefix checks."""
+    occ = q.types >= 0
+    n_occ = torch.sum(occ).to(torch.int32)
+    bits = torch.zeros((), dtype=torch.int32, device=occ.device)
+    if sorted_layout:
+        prefix_ok = ~torch.any(occ & (torch.cumsum((~occ).to(torch.int32),
+                                                   0) > 0))
+        bits = (bits | _lex_sorted_bits(q.times, q.seqs, n_occ)
+                | _bit(~prefix_ok, FAULT_TIER_COUNTS))
+    return (bits | _occupied_slot_bits(q.times, q.seqs, occ, q.next_seq)
+            | _bit(n_occ + q.dropped != q.size, FAULT_CONSERVATION))
+
+
+def sharded_fault_bits(sq) -> torch.Tensor:
+    """Cheap fault word for a sharded queue: each shard under the local
+    discipline (``size`` == its real occupancy), plus the global law
+    ``sum of occupancies + dropped == size``."""
+    from repro_torch.core.queue import tiered3_queue_occupancy
+
+    bits = tiered3_fault_bits(sq.shards[0], local=True)
+    total_occ = tiered3_queue_occupancy(sq.shards[0])
+    for q in sq.shards[1:]:
+        bits = bits | tiered3_fault_bits(q, local=True)
+        total_occ = total_occ + tiered3_queue_occupancy(q)
+    return bits | _bit(total_occ + sq.dropped != sq.size, FAULT_CONSERVATION)
+
+
 # ---------------------------------------------------------------------------
 # Full cross-tier audit (host-side, segment boundaries only)
 # ---------------------------------------------------------------------------
@@ -184,23 +257,19 @@ def _live_regions(a: dict, num_runs: int):
     return regions
 
 
-def full_audit(queue, *, local: bool = False) -> list[tuple[int, str]]:
-    """O(capacity) cross-tier audit of one tiered3 queue on the host;
-    returns findings as ``(fault_bit, message)``.  Call at segment
-    boundaries only."""
-    from repro_torch.core.queue import tiered3_queue_to_arrays
-
-    findings: list[tuple[int, str]] = []
-    a = tiered3_queue_to_arrays(queue)
-    F, S = queue.front_cap, queue.stage_cap
+def _audit_tiered3(a: dict, num_runs: int, F: int, S: int, findings, *,
+                   local: bool) -> int:
+    """The tiered3 audit of one queue's arrays into ``findings``;
+    returns the occupancy its live regions hold."""
     fn, sn = int(a["front_n"]), int(a["stage_n"])
     off, rlen = a["r_off"], a["r_len"]
+    regions = _live_regions(a, num_runs)
+    occ = sum(r[1].size for r in regions)
     if not (0 <= fn <= F and 0 <= sn <= S and 0 <= int(a["main_n"])
             and np.all((off >= 0) & (off <= rlen) & (rlen <= S))):
         findings.append((FAULT_TIER_COUNTS,
                          "tier counter outside structural range"))
-        return findings  # slicing below would be ill-defined
-    regions = _live_regions(a, queue.num_runs)
+        return occ  # the checks below would read ill-defined slices
     for label, times, seqs, expect_sorted in regions:
         _audit_columns(findings, label, times, seqs,
                        expect_sorted=expect_sorted)
@@ -223,13 +292,65 @@ def full_audit(queue, *, local: bool = False) -> list[tuple[int, str]]:
             findings.append((FAULT_FRONT_ORDER,
                              f"tier boundary inverted: front max {fmax} "
                              f"> rest min {rmin}"))
-    occ = sum(r[1].size for r in regions)
     size, dropped = int(a["size"]), int(a["dropped"])
     expect = size if local else size - dropped
     if occ != expect:
         findings.append((FAULT_CONSERVATION,
                          f"occupancy {occ} != expected {expect} "
                          f"(size {size}, dropped {dropped})"))
+    return occ
+
+
+def full_audit(queue, *, local: bool = False) -> list[tuple[int, str]]:
+    """O(capacity) audit of a pending set on the host; returns findings
+    as ``(fault_bit, message)``.  Takes a tiered3 queue, a sharded queue
+    (each shard under the local discipline, then the global law), or a
+    two-tier or flat queue (JAX's reduced checks).  Call at segment
+    boundaries only."""
+    from repro_torch.core.queue import queue_to_arrays
+
+    findings: list[tuple[int, str]] = []
+    if hasattr(queue, "shards"):
+        total_occ = 0
+        for i, q in enumerate(queue.shards):
+            shard_findings: list[tuple[int, str]] = []
+            total_occ += _audit_tiered3(
+                queue_to_arrays(q), q.num_runs, q.front_cap, q.stage_cap,
+                shard_findings, local=True)
+            findings.extend((bit, f"shard {i}: {msg}")
+                            for bit, msg in shard_findings)
+        size, dropped = int(queue.size), int(queue.dropped)
+        if total_occ + dropped != size:
+            findings.append((
+                FAULT_CONSERVATION,
+                f"global occupancy {total_occ} + dropped {dropped} != "
+                f"size {size}"))
+        return findings
+    a = queue_to_arrays(queue)
+    if "r_times" in a:
+        _audit_tiered3(a, queue.num_runs, queue.front_cap, queue.stage_cap,
+                       findings, local=local)
+        return findings
+    if "f_times" in a:  # two-tier
+        fn = int(a["front_n"])
+        _audit_columns(findings, "front", a["f_times"][:fn],
+                       a["f_seqs"][:fn], expect_sorted=True)
+        occ = fn + int(a["stage_n"]) + int(a["main_n"])
+        if occ + int(a["dropped"]) != int(a["size"]):
+            findings.append((FAULT_CONSERVATION,
+                             f"occupancy {occ} + dropped != size"))
+        return findings
+    # flat / reference
+    occ_mask = a["types"] >= 0
+    times, seqs = a["times"][occ_mask], a["seqs"][occ_mask]
+    if times.size and not np.all(np.isfinite(times)):
+        findings.append((FAULT_TIME_NONFINITE,
+                         "flat: non-finite timestamp"))
+    if seqs.size and np.unique(seqs).size != seqs.size:
+        findings.append((FAULT_SEQ_RANGE, "flat: duplicated seq"))
+    if int(occ_mask.sum()) + int(a["dropped"]) != int(a["size"]):
+        findings.append((FAULT_CONSERVATION,
+                         "flat: occupancy + dropped != size"))
     return findings
 
 

@@ -194,8 +194,9 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(queue_mode="flat"), dict(queue_mode="tiered"),
-    dict(queue_mode="reference"), dict(hot_words="static"),
+    dict(shards=2, placement="devices"),
+    dict(shards=4, placement="devices", dispatch_mode="fused"),
+    dict(shards=2, hot_words="static"), dict(hot_words="static"),
     dict(backend="host"),
 ])
 def test_unported_modes_raise(kw):
