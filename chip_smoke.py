@@ -115,6 +115,25 @@ Phases, each printed on its own line:
    super-step and ``front_merge`` once a super-step and once an absorbed
    chunk; each prints its host syncs per super-step inside the engine's
    loop (``loop_syncs``) beside the total.
+5g2. host — the host backend (``build(backend="host")``): (a) phase 4's
+   PHOLD (917,504 LPs, the whole pending set in the host heap) to
+   ``until`` ``HOST_UNTIL`` under ``conservative``, ``speculative`` and
+   ``unbatched`` with ``jit_handlers=True`` (``torch.compile`` of each
+   batch word, or each handler) and ``conservative`` eager, each held
+   bit for bit to a device-backend card run with the same horizon
+   (state, checksum, events, final_time, 0 dropped; the conservative
+   runs also its batch count); (b) phase 5's PoC workload on
+   ``conservative``, compiled, under ``codec="dense"`` and ``"paper"``,
+   held to the oracle and to phase 5's card ``switch`` run, with the
+   time of a call of the compiled words ``[Increment, Set]`` and ``[Set,
+   Increment]`` beside the eager route's; (c) 5g (a)'s open admission
+   stream into ``conservative``, eager, held to 5g (a)'s card run
+   (state, events, dropped, final_time; the host pushes the whole
+   source, so ``ingested`` differs by design); (d) the saturating
+   f32-to-int32 cast on the card against XLA's values (``CAST_XLA``)
+   and its CPU result.  No kernel launches.  Each run prints its setup
+   seconds (the heap's build), run seconds, batches/s, events/s, host
+   reads a batch, words composed and compile seconds (total, largest).
 5h. queue_modes — phase 4's PHOLD (917,504 LPs, a 1,048,576-event
    queue) for ``MODES_BATCHES`` super-steps on the card under
    ``queue_mode="tiered3"`` (the yardstick), then ``"flat"`` and
@@ -193,9 +212,9 @@ Phases, each printed on its own line:
    ``lex_R4_device_ms``, ``lex_R256_device_ms`` in their records).
 
 Each path (PHOLD, each run of PHOLD fused, PoC, the M/M/c network and
-the admission scenario, the segmented runs, each served model, hubert's
-forward) runs with every kernel's launch count set to 0 just before it
-and read just after.
+the admission scenario, the segmented runs, the host runs, each served
+model, hubert's forward) runs with every kernel's launch count set to 0
+just before it and read just after.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
@@ -263,6 +282,14 @@ STREAM_SPILL_CAPACITY = 512
 # The queue modes and the sharded engine on phase 4's PHOLD: each run
 # MODES_BATCHES super-steps, held to one tiered3 card run of as many.
 # The reference queue's serial argmin rounds run MODES_REF_BATCHES.
+# The host phase: PHOLD's horizon (about 2,800 events of phase phold's
+# program), and the saturating cast's inputs with XLA's convert of them
+# (``jnp.asarray(CAST_VALUES, jnp.float32).astype(jnp.int32)``).
+HOST_UNTIL = 85.0
+CAST_VALUES = [3e9, -3e9, float("nan"), 2.5e9, float("inf"), -float("inf"),
+               2147483520.0, -2147483648.0, -1.5, 1.5]
+CAST_XLA = [2147483647, -2147483648, 0, 2147483647, 2147483647,
+            -2147483648, 2147483520, -2147483648, -1, 1]
 MODES_BATCHES = 1024
 MODES_REF_BATCHES = 1024
 SHARDS = 4
@@ -1160,7 +1187,7 @@ def run_modes(label: str, build, state, device_name: str, top_w: int,
     return runs, switch_sim
 
 
-def run_poc(device_name: str) -> None:
+def run_poc(device_name: str):
     from repro_torch.api import Config
     from repro_torch.examples import poc
 
@@ -1178,11 +1205,13 @@ def run_poc(device_name: str) -> None:
             problems.append(f"hot and fallback did not both fire: {counts}")
         return problems
 
-    run_modes("poc",
-              lambda **kw: poc.build_program(
-                  iters, config=Config(max_batch_len=4)).build(
-                      backend="device", **kw),
-              poc.initial_state, device_name, 4, check=check, events=evs)
+    runs, _ = run_modes(
+        "poc",
+        lambda **kw: poc.build_program(
+            iters, config=Config(max_batch_len=4)).build(
+                backend="device", **kw),
+        poc.initial_state, device_name, 4, check=check, events=evs)
+    return runs["switch"]
 
 
 # ---------------------------------------------------------------------------
@@ -1571,6 +1600,189 @@ def run_stream(device_name: str):
               launches=json.dumps(every, separators=(",", ":")),
               bit_identical_to_cpu=True, equals_preseeded=True)
     return cards["a"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 5g2: the host runtimes
+# ---------------------------------------------------------------------------
+
+def drive_host(sim, state, **run_kw):
+    """One host run, driven as ``drive`` does, with the scheduler's run
+    (heap built) timed apart from the heap's build.  Returns ``(result,
+    fields)`` with the numbers every host run prints."""
+    spent = [0.0]
+    schedule = sim._schedule
+
+    def timed(*args, **kw):
+        import torch
+
+        t0 = time.perf_counter()
+        try:
+            return schedule(*args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+
+    sim._schedule = timed
+    res, total_s, launches, counts = drive(sim, state, **run_kw)
+    run_s = spent[0]
+    if any(launches.values()):
+        raise PhaseError(f"host {sim.variant}: kernels launched "
+                         f"{launches}")
+    if sim.sched is not None:
+        comp = sim.sched.composer
+        compile_s = list(comp.compile_seconds.values())
+        composed = comp.num_composed
+    else:
+        from repro_torch.core.scheduler import _COMPILED_HANDLERS
+
+        compile_s = [getattr(_COMPILED_HANDLERS.get(et.handler),
+                             "first_call_s", None) or 0.0
+                     for et in sim.registry] if sim.jit_handlers else []
+        composed = len(sim.registry)
+    # Compiled: the first call of each word compiles it; the rest of
+    # the run is the warm rate.
+    first_calls = composed if sim.jit_handlers else 0
+    warm_s = run_s - sum(compile_s)
+    fields = dict(
+        batches=res.batches, events=res.events, rollbacks=res.rollbacks,
+        setup_s=f"{total_s - run_s:.3f}", run_s=f"{run_s:.3f}",
+        batches_per_s=f"{res.batches / run_s:.1f}",
+        events_per_s=f"{res.events / run_s:.1f}",
+        warm_batches_per_s=f"{(res.batches - first_calls) / warm_s:.1f}",
+        host_reads_per_batch=f"{counts.get('host_syncs', 0) / res.batches:.4f}",
+        words_composed=composed,
+        compile_s_total=f"{sum(compile_s):.3f}",
+        compile_s_largest=f"{max(compile_s, default=0.0):.3f}")
+    return res, fields
+
+
+def _word_call_ms(sim, word, state, device_name) -> tuple:
+    """Time a call of one composed word, compiled (the composer's
+    program) and eager (``compose_word_fn``), on the card."""
+    from repro_torch.core.composer import batch_inputs, compose_word_fn
+
+    comp = sim.sched.composer
+    compiled = comp.program(comp.codec.encode(word))
+    eager = compose_word_fn(comp.registry, word)
+    ts, args = batch_inputs([float(i) for i in range(len(word))],
+                            [None] * len(word), device_name)
+    return tuple(_time_ms(lambda fn=fn: fn(state, ts, args), reps=200)
+                 for fn in (compiled, eager))
+
+
+def run_host(device_name: str, poc_switch, stream_a) -> None:
+    """The host backend on the card: (a) phase ``phold``'s PHOLD to
+    ``HOST_UNTIL`` under the three schedulers, compiled, and
+    ``host/conservative`` eager, each held to a device-backend run with
+    the same horizon; (b) phase ``poc``'s workload on
+    ``host/conservative``, compiled, under both codecs; (c) phase
+    ``stream`` (a)'s open admission into ``host/conservative``, eager;
+    (d) the saturating cast on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Config
+    from repro_torch.core.queue import i32_sat
+    from repro_torch.examples import phold, poc
+    from repro_torch.serving import scenarios
+
+    def build_phold():
+        return phold.build_program(num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP,
+                                   max_batch_len=4, capacity=PHOLD_CAPACITY)
+
+    # One program, built five times: its schedule of 917,504 seeds is
+    # made once.
+    t_phase = time.perf_counter()
+    prog = build_phold()
+    dev, dev_s, _, _ = drive(prog.build(backend="device",
+                                        device=device_name),
+                             phold.initial_state(PHOLD_LPS, device_name),
+                             until=HOST_UNTIL)
+    for sched, jit in (("conservative", True), ("speculative", True),
+                       ("unbatched", True), ("conservative", False)):
+        t0 = time.perf_counter()
+        sim = prog.build(backend="host", scheduler=sched,
+                         device=device_name, jit_handlers=jit)
+        build_s = time.perf_counter() - t0
+        res, fields = drive_host(
+            sim, phold.initial_state(PHOLD_LPS, device_name),
+            until=HOST_UNTIL)
+        problems = _outcome_problems(res, dev)
+        if int(res.state["checksum"]) != int(dev.state["checksum"]):
+            problems.append("checksum differs")
+        if sched == "conservative" and res.batches != dev.batches:
+            problems.append(f"{res.batches} batches, the device run "
+                            f"{dev.batches}")
+        if problems:
+            raise PhaseError(f"host phold {sched} jit={jit}: "
+                             + "; ".join(problems))
+        phase("host", case="a", model="phold", lps=PHOLD_LPS,
+              scheduler=sched, jit_handlers=jit, until=HOST_UNTIL,
+              build_s=f"{build_s:.3f}", **fields,
+              final_time=res.final_time,
+              checksum=int(res.state["checksum"]),
+              device_batches=dev.batches, device_card_s=f"{dev_s:.3f}",
+              bit_identical_to_device=True)
+
+    iters = 16
+    evs = poc.schedule_poc_events(256, 0.3, seed=0)
+    want = poc.reference_final_sum([ty for _, ty in evs], iters)
+    for codec in ("dense", "paper"):
+        sim = poc.build_program(iters, config=Config(
+            max_batch_len=4, codec=codec)).build(backend="host",
+                                                 device=device_name)
+        res, fields = drive_host(sim, poc.initial_state(device_name),
+                                 events=evs)
+        problems = _outcome_problems(res, poc_switch)
+        if int(res.state) != want:
+            problems.append(f"sum {int(res.state)}, oracle {want}")
+        if res.batches != poc_switch.batches:
+            problems.append(f"{res.batches} batches, the card switch "
+                            f"run {poc_switch.batches}")
+        if problems:
+            raise PhaseError(f"host poc {codec}: " + "; ".join(problems))
+        extra = {}
+        if codec == "dense":
+            state = poc.initial_state(device_name) + 3
+            for word, label in (([poc.INCREMENT, poc.SET], "inc_set"),
+                                ([poc.SET, poc.INCREMENT], "set_inc")):
+                comp_ms, eager_ms = _word_call_ms(sim, word, state,
+                                                  device_name)
+                extra[f"{label}_compiled_ms"] = f"{comp_ms:.6f}"
+                extra[f"{label}_eager_ms"] = f"{eager_ms:.6f}"
+        phase("host", case="b", model="poc", iters=iters, codec=codec,
+              scheduler="conservative", jit_handlers=True, **fields,
+              **extra, sum=int(res.state), oracle_and_card_switch=True)
+
+    res_a, _ = stream_a
+    sim = scenarios.build_open_admission_program(
+        num_slots=ADMIT_SLOTS, num_requests=ADMIT_REQUESTS, max_decode=6,
+        config=Config(max_batch_len=4, capacity=STREAM_CAPACITY,
+                      max_emit=2)).build(backend="host", device=device_name,
+                                         jit_handlers=False)
+    res, fields = drive_host(
+        sim, scenarios.initial_state(ADMIT_SLOTS, device_name),
+        arrivals=stream_source(), until=STREAM_UNTIL)
+    problems = _outcome_problems(res, res_a)
+    if problems:
+        raise PhaseError("host stream: " + "; ".join(problems))
+    phase("host", case="c", model="open_admission", requests=ADMIT_REQUESTS,
+          until=STREAM_UNTIL, scheduler="conservative", jit_handlers=False,
+          **fields, ingested=res.ingested, device_ingested=res_a.ingested,
+          device_batches=res_a.batches, equals_device_stream=True)
+
+    xs = np.array(CAST_VALUES, np.float32)
+    card = i32_sat(torch.from_numpy(xs).to(device_name)).cpu()
+    cpu = i32_sat(torch.from_numpy(xs))
+    bare = torch.from_numpy(xs).to(device_name).to(torch.int32).cpu()
+    if card.tolist() != CAST_XLA or not torch.equal(card, cpu):
+        raise PhaseError(f"host cast: card {card.tolist()}, cpu "
+                         f"{cpu.tolist()}, XLA {CAST_XLA}")
+    phase("host", case="d", cast="i32_sat", values=len(xs),
+          equals_xla_and_cpu=True,
+          bare_cast_on_card=json.dumps(bare.tolist(), separators=(",", ":")))
+    phase("host_total", seconds=f"{time.perf_counter() - t_phase:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -2713,13 +2925,15 @@ def main() -> int:
     res, launches, ref, counts, phold_loop_s = run_phold("cuda")
     run_phold_fused("cuda", res, ref, counts)
     del ref
-    run_poc("cuda")
+    poc_switch = run_poc("cuda")
     run_mmc("cuda")
     admit = run_serving_admission("cuda")
     run_overflow("cuda", res, phold_loop_s, counts)
     run_resume("cuda", res, phold_loop_s, counts)
     run_faults("cuda")
     stream_a = run_stream("cuda")
+    run_host("cuda", poc_switch, stream_a)
+    del poc_switch
     t0 = time.perf_counter()
     base, base_counts = run_queue_modes("cuda", res, counts)
     phase("queue_modes_total", seconds=f"{time.perf_counter() - t0:.3f}")

@@ -22,9 +22,16 @@ path (``@prog.entity_handler``), the invariant auditor
 (``validate="cheap"|"full"``), the overflow policies
 (``overflow="error"|"spill"``), and segmented runs: checkpoints
 (``run(checkpoint_every=, checkpoint_dir=, resume_from=)``) and
-streamed arrivals (``run(arrivals=, backpressure=)``).  The host
-backend, the static analyzer (``hot_words="static"``) and
-``placement="devices"`` (more than one GPU) are not ported yet.
+streamed arrivals (``run(arrivals=, backpressure=)``).  It also has
+the host backend, ``build(backend="host", scheduler="conservative"|
+"speculative"|"unbatched", composer="lazy"|"eager")``, which compiles
+each batch word with ``torch.compile`` unless ``jit_handlers=False``.
+The static analyzer (``hot_words="static"``) and ``placement=
+"devices"`` (more than one GPU) are not ported yet.
+
+Open-system runs stream arrivals from a host-side source:
+``sim.run(state0, arrivals=PoissonSource(...))`` (see
+:mod:`repro_torch.stream`).
 """
 
 from repro_torch.core.events import ARG_WIDTH, emits_events
@@ -42,18 +49,36 @@ from repro_torch.core.validate import (
     EngineFaultError,
     fault_names,
 )
+from repro_torch.stream import (
+    ArrivalSource,
+    BurstySource,
+    DiurnalSource,
+    PoissonSource,
+    StreamFeeder,
+    TraceReader,
+    TraceWriter,
+    source_events,
+)
 
 __all__ = [
     "ARG_WIDTH",
     "EMIT_WIDTH",
-    "FAULT_NAMES",
+    "ArrivalSource",
+    "BurstySource",
     "CompiledSim",
     "Config",
+    "DiurnalSource",
     "EngineFaultError",
+    "FAULT_NAMES",
+    "PoissonSource",
     "RunResult",
     "SimProgram",
+    "StreamFeeder",
+    "TraceReader",
+    "TraceWriter",
     "emits_events",
     "fault_names",
     "normalize_arg",
+    "source_events",
     "state_from_numpy",
 ]

@@ -1,12 +1,19 @@
-"""Batch-identifier codec (paper §III-A), PyTorch port.
+"""Batch-identifier codecs (paper §III-A), PyTorch port.
 
-Counterpart of :mod:`repro.core.codec`'s :class:`DenseCodec`: a
-bijective base-|Σ| numbering over ν-free words up to ``max_len``.
-``id(word of length k) = offset(k) + Σ_i digit_i·|Σ|^i`` with the FIRST
-event as the least significant digit and ``offset(k) =
-Σ_{j=1..k-1}|Σ|^j``, so the ids are contiguous — directly usable as
-dispatch indices.  ``encode``/``decode`` run on the host;
-:meth:`DenseCodec.encode_torch` is the on-device Horner evaluation.
+Counterpart of :mod:`repro.core.codec`:
+
+* :class:`PaperCodec` — the paper's Horner scheme over Σν: base
+  ``|Σ|+1``, digit 0 is ν ("no event"), real types are 1-based, and the
+  ids ``1..B`` with ``B = Σ_{i=1..n}(|Σ|+1)^i`` include the redundant
+  ν-containing words (§IV.C).  It serves the host schedulers.
+* :class:`DenseCodec` — a bijective base-|Σ| numbering over ν-free
+  words up to ``max_len``: ``id(word of length k) = offset(k) +
+  Σ_i digit_i·|Σ|^i`` with ``offset(k) = Σ_{j=1..k-1}|Σ|^j``, so the ids
+  are contiguous, directly usable as dispatch indices.
+
+In both the FIRST event is the least significant digit.
+``encode``/``decode`` run on the host; ``encode_torch`` is the
+on-device Horner evaluation.
 """
 
 from __future__ import annotations
@@ -24,9 +31,80 @@ def geometric_sum(base: int, n: int) -> int:
     return (base ** (n + 1) - base) // (base - 1)
 
 
+def paper_batch_count(num_types: int, max_len: int) -> int:
+    """B from §III-A: all words over Σν up to length n (excluding ε)."""
+    return geometric_sum(num_types + 1, max_len)
+
+
 def dense_batch_count(num_types: int, max_len: int) -> int:
     """ν-free word count: Σ_{i=1..n} |Σ|^i."""
     return geometric_sum(num_types, max_len)
+
+
+def redundant_batch_count(num_types: int, max_len: int) -> int:
+    """§IV.C: codes composed by the paper scheme that are never used."""
+    return (paper_batch_count(num_types, max_len)
+            - dense_batch_count(num_types, max_len))
+
+
+@dataclasses.dataclass(frozen=True)
+class PaperCodec:
+    """Paper-faithful Horner codec over Σν (digit 0 = ν)."""
+
+    num_types: int
+    max_len: int
+
+    @property
+    def base(self) -> int:
+        return self.num_types + 1
+
+    @property
+    def num_batches(self) -> int:
+        return paper_batch_count(self.num_types, self.max_len)
+
+    def encode(self, type_ids: Sequence[int]) -> int:
+        """Horner scheme, the first event the least significant digit,
+        so :meth:`decode` yields the handlers in execution order."""
+        if not 1 <= len(type_ids) <= self.max_len:
+            raise ValueError(f"batch length must be in [1, {self.max_len}]")
+        code = 0
+        for t in reversed(type_ids):
+            if not 0 <= t < self.num_types:
+                raise ValueError(f"type id {t} out of range")
+            code = code * self.base + (t + 1)
+        return code
+
+    def decode(self, code: int) -> list[int]:
+        """Inverse of encode; skips ν digits as GENBATCH does."""
+        if code <= 0:
+            raise ValueError("code must be positive (0 is the empty word)")
+        out = []
+        while code:
+            digit = code % self.base
+            if digit > 0:  # "check for ν-event"
+                out.append(digit - 1)
+            code //= self.base
+        return out
+
+    def enumerate_codes(self):
+        """All codes ``1..B`` (paper Alg. 1 ENUMERATEBATCHES); many
+        decode to the same ν-free word (the redundancy of §IV.C)."""
+        return range(1, self.num_batches + 1)
+
+    def encode_torch(self, padded_types: torch.Tensor,
+                     length: torch.Tensor) -> torch.Tensor:
+        """On-device encode: i32[max_len] types + i32 length -> i32 id,
+        the unrolled Horner loop of ``repro``'s ``encode_jnp`` (lanes
+        ``>= length`` are skipped)."""
+        device = padded_types.device
+        types = padded_types.to(torch.int32)
+        length = torch.as_tensor(length, dtype=torch.int32, device=device)
+        code = torch.zeros((), dtype=torch.int32, device=device)
+        for pos in range(self.max_len - 1, -1, -1):
+            valid = pos < length
+            digit = torch.where(valid, types[pos] + 1, 0)
+            code = torch.where(valid, code * self.base + digit, code)
+        return code
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,12 +179,9 @@ class DenseCodec:
         return offs[length.long()] + code
 
 
-def make_codec(kind: str, num_types: int, max_len: int) -> DenseCodec:
+def make_codec(kind: str, num_types: int, max_len: int):
     if kind == "dense":
         return DenseCodec(num_types, max_len)
     if kind == "paper":
-        raise NotImplementedError(
-            "the paper codec serves the host schedulers, which the "
-            "PyTorch port does not have yet; use codec='dense'"
-        )
+        return PaperCodec(num_types, max_len)
     raise ValueError(f"unknown codec kind {kind!r}")

@@ -1,6 +1,13 @@
-"""The on-device simulation engine (PyTorch port).
+"""The host-runtime facade and the on-device simulation engine
+(PyTorch port).
 
-Counterpart of :class:`repro.core.engine.DeviceEngine`: ``queue_mode``
+:class:`Simulator` is the counterpart of :class:`repro.core.engine.
+Simulator`: a Python event loop over a binary heap dispatching composed
+batch programs (the paper's runtime), through the schedulers of
+:mod:`repro_torch.core.scheduler`.
+
+:class:`DeviceEngine` is the counterpart of :class:`repro.core.engine.
+DeviceEngine`: ``queue_mode``
 in ``{"tiered3", "tiered", "flat", "reference"}``, ``dispatch_mode`` in
 ``{"switch", "masked", "fused"}``, ``validate`` in ``{"off", "cheap",
 "full"}`` and ``overflow`` in ``{"drop", "error", "spill"}`` (spill on
@@ -63,12 +70,15 @@ they make is folded into the one guard read.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.core.codec import DenseCodec
+from repro_torch.core.codec import DenseCodec, make_codec
 from repro_torch.core.composer import (
+    EagerComposer,
+    LazyComposer,
     build_fused_dispatcher,
     build_masked_dispatcher,
     build_switch_dispatcher,
@@ -79,6 +89,7 @@ from repro_torch.core.queue import (
     COUNTS,
     I32_MAX,
     INF,
+    HostEventQueue,
     _f32,
     _prefix_rank,
     _scatter_rows,
@@ -92,6 +103,7 @@ from repro_torch.core.queue import (
     device_queue_push_rows,
     host_list,
     host_read,
+    i32_sat,
     tiered3_queue_absorb_rows,
     tiered3_queue_extract,
     tiered3_queue_fill_rows,
@@ -108,6 +120,12 @@ from repro_torch.core.queue import (
     tiered_queue_has_pending,
     tiered_queue_next_time,
     tiered_queue_occupancy,
+)
+from repro_torch.core.scheduler import (
+    ConservativeScheduler,
+    RunStats,
+    SpeculativeScheduler,
+    run_unbatched,
 )
 from repro_torch.core.tree import tree_map
 from repro_torch.core.validate import (
@@ -157,6 +175,75 @@ def resolve_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "engine on the CPU")
     return dev
+
+
+class Simulator:
+    """Host-runtime facade over registry + queue + scheduler.
+
+    ``device`` is where the composed words run (``None``: the CUDA card,
+    which must be present); ``jit_handlers`` picks ``torch.compile`` of
+    each word (or each handler, unbatched) or the eager route.  Prefer
+    ``SimProgram.build(backend="host", ...)``.
+    """
+
+    @classmethod
+    def from_program(cls, program, *, composer: str = "lazy",
+                     state_spec=None, arg_spec=None, device=None,
+                     jit_handlers: bool = True) -> "Simulator":
+        """The host backend of a frozen SimProgram, with the program's
+        scheduled initial events already queued."""
+        cfg = program.config
+        sim = cls(
+            program.host_registry(),
+            max_batch_len=cfg.max_batch_len,
+            codec=cfg.codec,
+            composer=composer,
+            state_spec=state_spec,
+            arg_spec=arg_spec,
+            device=device,
+            jit_handlers=jit_handlers,
+        )
+        for (t, type_id, arg) in program.scheduled_events():
+            sim.queue.push(t, type_id, arg)
+        return sim
+
+    def __init__(self, registry: EventRegistry, *, max_batch_len: int = 4,
+                 codec: str = "dense", composer: str = "lazy",
+                 state_spec=None, arg_spec=None, device=None,
+                 jit_handlers: bool = True):
+        registry.freeze()
+        self.registry = registry
+        self.codec = make_codec(codec, len(registry), max_batch_len)
+        kw = dict(device=device, jit_handlers=jit_handlers)
+        if composer == "lazy":
+            self.composer = LazyComposer(registry, self.codec, **kw)
+        elif composer == "eager":
+            self.composer = EagerComposer(
+                registry, self.codec, state_spec=state_spec,
+                arg_spec=arg_spec, **kw)
+        else:
+            raise ValueError(f"unknown composer {composer!r}")
+        self.device = self.composer.device
+        self.jit_handlers = jit_handlers
+        self.queue = HostEventQueue()
+
+    def schedule(self, time: float, type_name: str, arg: Any = None):
+        et = self.registry[type_name]
+        return self.queue.push(time, et.type_id, arg)
+
+    def run(self, state, *, mode: str = "conservative",
+            max_events: int | None = None) -> tuple[Any, RunStats]:
+        if mode == "conservative":
+            sched = ConservativeScheduler(self.registry, self.composer)
+            return sched.run(state, self.queue, max_events=max_events)
+        if mode == "speculative":
+            sched = SpeculativeScheduler(self.registry, self.composer)
+            return sched.run(state, self.queue, max_events=max_events)
+        if mode == "unbatched":
+            return run_unbatched(
+                self.registry, state, self.queue, max_events=max_events,
+                jit_handlers=self.jit_handlers, device=self.device)
+        raise ValueError(f"unknown mode {mode!r}")
 
 
 @dataclasses.dataclass
@@ -434,7 +521,7 @@ class DeviceEngine:
         if run is not None and all(ty == types[0]
                                    for ty in types[1:length]):
             COUNTS["run_path"] += 1
-            state = run(state, ts, args, args[:, 0].to(torch.int32),
+            state = run(state, ts, args, i32_sat(args[:, 0]),
                         self._lanes < length)
             return state, self.dispatch.empty_emits(ts.device)
         if self.dispatch_mode == "masked":

@@ -45,11 +45,16 @@ backend, and ``build(shards=N)`` the sharded engine with
 one is (checkpoints, streamed arrivals), except ``overflow="spill"``,
 which JAX's sharded engine refuses too.
 
-``SimProgram.host_registry()`` gives the host runtimes' registry for
-handlers that emit nothing — what the serving control plane needs.
-Not ported yet: emitting host handlers and the host backend, the
-static analyzer (and so ``hot_words="static"``), and
-``placement="devices"``, which needs more than one GPU.
+``build(backend="host", scheduler=, composer=)`` is the paper's own
+runtime: a Python event loop over a heap (:mod:`repro_torch.core.
+scheduler`) that runs one composed program per batch word, each handed
+to ``torch.compile`` unless ``jit_handlers=False``.  The host adapter
+returns an emitting handler's rows as ``(delay, type, arg)`` tuples;
+the schedulers read a batch's emissions once and anchor each at its
+emitter's time on the host.
+
+Not ported yet: the static analyzer (and so ``hot_words="static"`` and
+``check=``) and ``placement="devices"``, which needs more than one GPU.
 """
 
 from __future__ import annotations
@@ -62,10 +67,18 @@ import numpy as np
 import torch
 
 from repro_torch.core.events import ARG_WIDTH, EventRegistry
-from repro_torch.core.queue import COUNTS, I32_MAX, host_read
+from repro_torch.core.queue import (
+    COUNTS,
+    I32_MAX,
+    HostEventQueue,
+    host_read,
+    i32_sat,
+)
 from repro_torch.core.tree import tree_map
 
 EMIT_WIDTH = 2 + ARG_WIDTH
+
+_HOST_SCHEDULERS = ("conservative", "speculative", "unbatched")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +152,25 @@ def _check_emits(emits, max_emit: int, name: str) -> torch.Tensor:
     return emits
 
 
+def _adapt_emits_host(fn: Callable, max_emit: int, name: str) -> Callable:
+    """Portable delay rows -> host ``(delay, type, arg)`` tuples.
+
+    The tuples keep device tensors; the schedulers read a batch's
+    tuples to the host in one read after the batch and skip ν-rows
+    (type < 0)."""
+
+    @functools.wraps(fn)
+    def host_handler(state, t, arg):
+        state, emits = fn(state, t, arg)
+        emits = _check_emits(emits, max_emit, name)
+        new = [(emits[i, 0], emits[i, 1], emits[i, 2:])
+               for i in range(max_emit)]
+        return state, new
+
+    host_handler.returns_events = True
+    return host_handler
+
+
 def _adapt_emits_device(fn: Callable, max_emit: int, name: str) -> Callable:
     """Portable delay rows -> on-device absolute-time rows."""
 
@@ -165,13 +197,27 @@ def _sequential_from_entity(local: Callable, name: str) -> Callable:
     @functools.wraps(local)
     def handler(state, t, arg):
         arg = torch.as_tensor(arg, dtype=torch.float32)
-        eid = arg[0].to(torch.int64).reshape(1)
-        sub = tree_map(lambda leaf: leaf.index_select(0, eid)[0], state)
+        eid = i32_sat(arg[0]).to(torch.int64).reshape(1)
+
+        def row(leaf):
+            # JAX's indexing: a negative id counts from the end once,
+            # the gather clamps into range, the scatter drops an id
+            # still out of range (here: writes the row back unchanged).
+            n = leaf.shape[0]
+            idx = torch.where(eid < 0, eid + n, eid)
+            return idx.clamp(0, n - 1), ((idx >= 0) & (idx < n)).reshape(())
+
+        sub = tree_map(lambda leaf: leaf.index_select(0, row(leaf)[0])[0],
+                       state)
         out = local(sub, t, arg)
-        return tree_map(
-            lambda leaf, new: leaf.index_copy_(
-                0, eid, new.to(leaf.dtype).unsqueeze(0)),
-            state, out)
+
+        def put(leaf, new):
+            at, inside = row(leaf)
+            new = torch.where(inside, new.to(leaf.dtype),
+                              leaf.index_select(0, at)[0])
+            return leaf.index_copy_(0, at, new.unsqueeze(0))
+
+        return tree_map(put, state, out)
 
     handler.__name__ = f"entity_seq_{name}"
     return handler
@@ -179,18 +225,24 @@ def _sequential_from_entity(local: Callable, name: str) -> Callable:
 
 @dataclasses.dataclass(frozen=True)
 class RunResult:
-    """Normalized result of one :meth:`CompiledSim.run`: the JAX
-    ``RunResult``'s device-backend fields.  ``emitted``, ``pending``,
-    ``spilled``, ``ingested`` and ``shed`` complete the conservation law
-    ``seeded + ingested + emitted == events + pending + dropped +
-    spilled + shed``; ``fault_word``/``fault_step`` are the auditor's
-    bits (``0``/``-1`` when clean or ``validate="off"``)."""
+    """Normalized result of one :meth:`CompiledSim.run`, the JAX
+    ``RunResult``.  ``events``/``batches``/``dropped``/``final_time``
+    mean the same on every backend (``dropped`` is always 0 on the
+    host's unbounded heap; ``rollbacks`` is non-zero only under the
+    speculative scheduler); ``raw`` keeps the backend's own stats (the
+    device carry, or the host's :class:`~repro_torch.core.scheduler.
+    RunStats`).  ``emitted``, ``pending``, ``spilled``, ``ingested`` and
+    ``shed`` complete the conservation law ``seeded + ingested +
+    emitted == events + pending + dropped + spilled + shed`` on the
+    device; ``fault_word``/``fault_step`` are the auditor's bits
+    (``0``/``-1`` when clean or ``validate="off"``)."""
 
     state: Any
     events: int
     batches: int
     dropped: int
     final_time: float
+    rollbacks: int = 0
     raw: Any = None
     word_counts: Any = None
     emitted: int = 0
@@ -204,6 +256,23 @@ class RunResult:
     @property
     def mean_batch_length(self) -> float:
         return self.events / self.batches if self.batches else 0.0
+
+    def stats(self) -> dict:
+        return {
+            "events": self.events,
+            "batches": self.batches,
+            "dropped": self.dropped,
+            "final_time": self.final_time,
+            "rollbacks": self.rollbacks,
+            "mean_batch_length": self.mean_batch_length,
+            "emitted": self.emitted,
+            "pending": self.pending,
+            "spilled": self.spilled,
+            "fault_word": self.fault_word,
+            "fault_step": self.fault_step,
+            "ingested": self.ingested,
+            "shed": self.shed,
+        }
 
 
 class SimProgram:
@@ -318,8 +387,19 @@ class SimProgram:
         self._frozen = True
         return self
 
+    @property
+    def frozen(self) -> bool:
+        return self._frozen
+
+    @property
+    def names(self) -> list[str]:
+        return [s.name for s in self._specs]
+
     def type_id(self, name: str) -> int:
         return self._by_name[name].type_id
+
+    def __len__(self) -> int:
+        return len(self._specs)
 
     def device_registry(self) -> EventRegistry:
         """Registry with emitting handlers adapted to the on-device
@@ -339,21 +419,21 @@ class SimProgram:
         return self._device_registry
 
     def host_registry(self) -> EventRegistry:
-        """Registry for the host runtimes, for handlers that emit
-        nothing (they take and return the state as they are given it:
-        plain Python objects, bound methods included).  Emitting
-        handlers raise :class:`NotImplementedError`."""
+        """Registry with handlers adapted to the host schedulers'
+        list-of-``(delay, type, arg)`` emission convention.  Handlers
+        that emit nothing are registered as they are (they take and
+        return the state as they are given it: plain Python objects,
+        bound methods included, as the serving control plane does)."""
         self.freeze()
         if self._host_registry is None:
             reg = EventRegistry()
             for spec in self._specs:
-                if spec.emits:
-                    raise NotImplementedError(
-                        f"handler {spec.name!r} emits events; emitting "
-                        "host handlers are not ported to repro_torch yet")
                 fn = spec.fn
                 if spec.entity:
                     fn = _sequential_from_entity(fn, spec.name)
+                if spec.emits:
+                    fn = _adapt_emits_host(fn, self.config.max_emit,
+                                           spec.name)
                 reg.register(spec.name, fn, lookahead=spec.lookahead)
             self._host_registry = reg.freeze()
         return self._host_registry
@@ -371,35 +451,54 @@ class SimProgram:
               front_cap: int | None = None, stage_cap: int | None = None,
               num_runs: int | None = None, dispatch_mode: str = "switch",
               hot_words=None, validate: str = "off",
-              overflow: str = "drop") -> "CompiledSim":
-        """Compile this model for the device backend.
+              overflow: str = "drop", state_spec=None, arg_spec=None,
+              check_causality: bool = False,
+              window_slack: float = float("inf"),
+              jit_handlers: bool = True) -> "CompiledSim":
+        """Compile this model against one runtime.
 
         ``device=None`` runs on the CUDA card and raises when there is
         none; ``device="cpu"`` runs the same code on the CPU, with the
-        kernels' plain versions.  ``queue_mode`` picks the pending set
+        kernels' plain versions.
+
+        ``backend="device"``: ``queue_mode`` picks the pending set
         (``"tiered3"``, ``"tiered"``, ``"flat"``, ``"reference"``);
         ``shards=N`` (with an optional ``shard_fn``) runs N tiered3
         queues under :class:`repro_torch.core.sharded.ShardedDeviceEngine`,
         bit-identical to one queue.  ``hot_words`` (``dispatch_mode=
         "fused"`` only) is a sequence of words, each a sequence of type
-        names or ids.  What the port does not have yet (the host
-        backend, whose knobs are ``scheduler`` and ``composer``,
-        ``placement="devices"``, ``hot_words="static"``) raises
-        :class:`NotImplementedError`; a knob of the other backend raises
-        :class:`ValueError`, as in JAX.
+        names or ids.
+
+        ``backend="host"``: ``scheduler`` (``"conservative"``,
+        ``"speculative"``, ``"unbatched"``) and ``composer`` (``"lazy"``,
+        ``"eager"``, with ``state_spec``/``arg_spec``: example tensors or
+        ``(shape, dtype)`` pairs), ``check_causality`` (conservative),
+        ``window_slack`` (speculative) and ``jit_handlers``: each batch
+        word (each handler, unbatched) goes through ``torch.compile``
+        unless it is ``False``.
+
+        A knob of the other backend raises :class:`ValueError`, as in
+        JAX; what the port does not have yet (``placement="devices"``,
+        ``hot_words="static"``) raises :class:`NotImplementedError`.
         """
         self.freeze()
-        if backend == "device" and (scheduler != "conservative"
-                                    or composer != "lazy"):
-            bad = [k for k, hit in (("scheduler", scheduler != "conservative"),
-                                    ("composer", composer != "lazy")) if hit]
-            raise ValueError(
-                f"{bad} are host-backend knobs; the device backend would "
-                "silently ignore them — drop them or build with "
-                "backend='host'")
+        if backend == "device":
+            misdirected = {
+                "scheduler": scheduler != "conservative",
+                "composer": composer != "lazy",
+                "state_spec": state_spec is not None,
+                "arg_spec": arg_spec is not None,
+                "check_causality": check_causality,
+                "window_slack": window_slack != float("inf"),
+                "jit_handlers": not jit_handlers,
+            }
+            bad = [k for k, hit in misdirected.items() if hit]
+            if bad:
+                raise ValueError(
+                    f"{bad} are host-backend knobs; the device backend "
+                    "would silently ignore them — drop them or build "
+                    "with backend='host'")
         if backend == "host":
-            # A device knob on the host backend is an error, as in JAX,
-            # before the backend's own absence.
             misdirected = {
                 "queue_mode": queue_mode != "tiered3",
                 "shards": shards is not None,
@@ -420,10 +519,14 @@ class SimProgram:
                     f"{bad} are device-backend knobs; the host backend "
                     "would silently ignore them — drop them or build "
                     "with backend='device'")
-            raise NotImplementedError(
-                "the host backend is not ported to repro_torch yet")
+            return self._build_host(
+                device=device, scheduler=scheduler, composer=composer,
+                state_spec=state_spec, arg_spec=arg_spec,
+                check_causality=check_causality,
+                window_slack=window_slack, jit_handlers=jit_handlers)
         if backend != "device":
-            raise ValueError(f"unknown backend {backend!r}")
+            raise ValueError(f"unknown backend {backend!r}; "
+                             "expected 'device' or 'host'")
         if shard_fn is not None and shards is None:
             raise ValueError("shard_fn requires shards=N")
         if placement != "serial" and shards is None:
@@ -467,14 +570,71 @@ class SimProgram:
 
         return CompiledSim(self, DeviceEngine.from_program(self, **kw))
 
+    def _build_host(self, *, device, scheduler, composer, state_spec,
+                    arg_spec, check_causality, window_slack,
+                    jit_handlers) -> "CompiledSim":
+        from repro_torch.core.composer import EagerComposer, LazyComposer
+        from repro_torch.core.engine import resolve_device
+        from repro_torch.core.scheduler import (
+            ConservativeScheduler,
+            SpeculativeScheduler,
+        )
+
+        if scheduler not in _HOST_SCHEDULERS:
+            raise ValueError(f"unknown scheduler {scheduler!r}; "
+                             f"expected one of {_HOST_SCHEDULERS}")
+        device = resolve_device(device)
+        if scheduler == "unbatched":
+            return CompiledSim(self, backend="host", variant="unbatched",
+                               jit_handlers=jit_handlers, device=device)
+        kw = dict(device=device, jit_handlers=jit_handlers)
+        if composer == "lazy":
+            comp = LazyComposer.from_program(self, **kw)
+        elif composer == "eager":
+            if arg_spec is None:
+                arg_spec = ((ARG_WIDTH,), torch.float32)
+            comp = EagerComposer.from_program(
+                self, state_spec=state_spec, arg_spec=arg_spec, **kw)
+        else:
+            raise ValueError(f"unknown composer {composer!r}")
+        if scheduler == "conservative":
+            sched = ConservativeScheduler.from_program(
+                self, composer=comp, check_causality=check_causality)
+        else:
+            sched = SpeculativeScheduler.from_program(
+                self, composer=comp, window_slack=window_slack)
+        return CompiledSim(self, backend="host", sched=sched,
+                           variant=scheduler, jit_handlers=jit_handlers,
+                           device=device)
+
 
 class CompiledSim:
-    """One (model, device engine) pairing; ``run`` is re-runnable: every
-    call rebuilds the initial pending set from the program's schedule."""
+    """One (model, runtime) pairing with a uniform ``run`` contract:
+    ``run`` is re-runnable, every call rebuilds the initial pending set
+    from the program's schedule.  A device backend holds its ``engine``,
+    a host backend its scheduler (``sched``; ``None`` for
+    ``variant="unbatched"``), whose composed words stay compiled across
+    runs."""
 
-    def __init__(self, program: SimProgram, engine):
+    def __init__(self, program: SimProgram, engine=None, *,
+                 backend: str = "device", sched=None, variant: str = "",
+                 jit_handlers: bool = True, device=None):
         self.program = program
         self.engine = engine
+        self.backend = backend
+        self.sched = sched
+        self.variant = variant
+        self.jit_handlers = jit_handlers
+        self.device = engine.device if engine is not None else device
+
+    def __repr__(self):
+        return (f"CompiledSim({self.program.name!r}, "
+                f"backend={self.backend!r}, variant={self.variant!r})")
+
+    @property
+    def registry(self) -> EventRegistry:
+        return (self.program.device_registry() if self.backend == "device"
+                else self.program.host_registry())
 
     def _initial_events(self, events):
         if events is None:
@@ -845,6 +1005,58 @@ class CompiledSim:
                 break
         return state, queue, stats, pool_rows, pool_seqs, ingested, shed
 
+    # -- host runs ----------------------------------------------------------
+    def _run_host(self, state, evs, t_end, *, max_batches, max_events,
+                  arrivals, backpressure, device_knobs) -> RunResult:
+        if device_knobs:
+            raise ValueError(
+                "checkpoint_every/checkpoint_dir/resume_from are "
+                "device-backend knobs; the host backend would silently "
+                "ignore them — drop them or build with backend='device'")
+        if arrivals is not None and backpressure != "block":
+            raise ValueError(
+                "host backends push the stream into an unbounded heap: "
+                "backpressure='shed'/'error' can never trigger there — "
+                "use the default 'block' or build backend='device'")
+        queue = HostEventQueue()
+        queue.push_all(evs)
+        n_ingested = 0
+        if arrivals is not None:
+            # Seeds first (seqs 0..n0-1), then the stream in source
+            # order: the device's seq reservation, so the heap's (time,
+            # seq) order is the closed pre-seeded run's.
+            arrivals.seek(0)
+            rows = [row for block in arrivals.blocks()
+                    for row in np.asarray(block, np.float32) if row[1] >= 0]
+            queue.push_all((float(row[0]), int(row[1]),
+                            normalize_arg(row[2:])) for row in rows)
+            n_ingested = len(rows)
+        state, rs = self._schedule(state, queue, max_events=max_events,
+                                   max_batches=max_batches, t_end=t_end)
+        return RunResult(
+            state=state,
+            events=rs.events_executed,
+            batches=rs.batches_executed,
+            dropped=0,
+            final_time=float(rs.final_time),
+            rollbacks=rs.rollbacks,
+            raw=rs,
+            ingested=n_ingested,
+        )
+
+    def _schedule(self, state, queue, *, max_events, max_batches, t_end):
+        """The host scheduler's run over the built heap: ``(state,
+        RunStats)``."""
+        if self.variant == "unbatched":
+            from repro_torch.core.scheduler import run_unbatched
+
+            return run_unbatched(
+                self.program.host_registry(), state, queue,
+                jit_handlers=self.jit_handlers, max_events=max_events,
+                max_batches=max_batches, t_end=t_end, device=self.device)
+        return self.sched.run(state, queue, max_events=max_events,
+                              max_batches=max_batches, t_end=t_end)
+
     def run(self, state, *, until: float | None = None,
             max_batches: int | None = None, max_events: int | None = None,
             events: Sequence | None = None, arrivals=None,
@@ -887,6 +1099,15 @@ class CompiledSim:
             raise ValueError(
                 "backpressure= configures streamed runs — pass "
                 "arrivals= as well")
+        if self.backend == "host":
+            return self._run_host(
+                state, self._initial_events(events), t_end,
+                max_batches=max_batches, max_events=max_events,
+                arrivals=arrivals, backpressure=backpressure,
+                device_knobs=(checkpoint_every is not None
+                              or checkpoint_dir is not None
+                              or resume_from is not None
+                              or _segment_hook is not None))
         if max_events is not None:
             raise ValueError("max_events is host-only; the device loop "
                              "counts batches — use max_batches")

@@ -84,6 +84,21 @@ class HostEventQueue:
         self.push_count += 1
         return ev
 
+    def push_all(self, items) -> None:
+        """Push ``(time, type_id, arg)`` items in order, each with the
+        seq that one :meth:`push` after another would give it, and
+        restore the heap once (O(n), where n pushes are O(n log n)): the
+        pop order, by (time, seq), is the same."""
+        heap = self._heap
+        n0 = len(heap)
+        for (time, type_id, arg) in items:
+            ev = Event(time=float(time), type_id=int(type_id), arg=arg,
+                       seq=self._seq)
+            heap.append((ev.time, ev.seq, ev))
+            self._seq += 1
+        heapq.heapify(heap)
+        self.push_count += len(heap) - n0
+
     def push_event(self, ev: Event) -> None:
         """Re-insert an existing event, PRESERVING its seq (its tie-break
         rank among same-timestamp events)."""
@@ -127,6 +142,21 @@ def _arange(n: int, device) -> torch.Tensor:
 
 def _i32(x) -> torch.Tensor:
     return x.to(_I32)
+
+
+def i32_sat(x: torch.Tensor) -> torch.Tensor:
+    """Float to int32 as XLA's convert does: truncate toward zero,
+    clamp to ``[-2**31, 2**31 - 1]`` and map NaN to 0.  A bare
+    ``.to(torch.int32)`` is undefined out of range (-2**31 on the CPU
+    for NaN, ±inf and every value past either end).  The ends are
+    compared before the cast: 2**31 is an f32 and lies past the int32
+    top, and 2147483520.0 is the largest f32 that fits."""
+    hi = x >= 2.0 ** 31
+    lo = x < -(2.0 ** 31)
+    safe = torch.where(hi | lo | torch.isnan(x), torch.zeros_like(x), x)
+    out = safe.to(_I32)
+    out = torch.where(hi, torch.full_like(out, I32_MAX), out)
+    return torch.where(lo, torch.full_like(out, -2**31), out)
 
 
 def _take(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -951,7 +981,7 @@ def tiered3_queue_extract(q: Tiered3DeviceQueue, max_len: int, lookaheads,
 def _default_fill_accounting(q: Tiered3DeviceQueue, rows):
     """Valid row ``r`` gets ``seq = next_seq + vrank(r)`` and survives
     iff ``size + vrank(r) < capacity`` (``size`` counts ghosts)."""
-    ty_r = _i32(rows[:, 1])
+    ty_r = i32_sat(rows[:, 1])
     valid = ty_r >= 0
     vrank = _prefix_rank(valid)
     num_valid = _i32(torch.sum(valid))
@@ -985,7 +1015,7 @@ def _tiered_fill_finish(q, rows, b_time, seq_r, insert, counters,
     R = rows.shape[0]
     F = q.front_cap
     t_r = rows[:, 0].contiguous()
-    ty_r = _i32(rows[:, 1])
+    ty_r = i32_sat(rows[:, 1])
     arg_r = rows[:, 2:].contiguous()
     r_idx = _arange(R, q.device)
     if b_seq is None:
@@ -1246,7 +1276,7 @@ def device_queue_push_rows_serial(q: DeviceQueue, rows) -> DeviceQueue:
     :func:`device_queue_push_rows`, slot placement included."""
     rows = rows.to(torch.float32)
     for i in range(rows.shape[0]):
-        ty = _i32(rows[i, 1])
+        ty = i32_sat(rows[i, 1])
         pushed = device_queue_push(q, rows[i, 0], ty, rows[i, 2:])
         q = DeviceQueue(*(torch.where(ty >= 0, new, old)
                           for new, old in zip(pushed, q)))
@@ -1264,7 +1294,7 @@ def device_queue_push_rows(q: DeviceQueue, rows) -> DeviceQueue:
     C = q.capacity
     dev = q.device
     t_r = rows[:, 0].contiguous()
-    ty_r = _i32(rows[:, 1])
+    ty_r = i32_sat(rows[:, 1])
     arg_r = rows[:, 2:].contiguous()
     valid = ty_r >= 0
     vrank = _prefix_rank(valid)
@@ -1422,7 +1452,7 @@ def device_queue_fill_rows(q: DeviceQueue, rows) -> DeviceQueue:
     C = q.capacity
     dev = q.device
     t_r = rows[:, 0]
-    ty_r = _i32(rows[:, 1])
+    ty_r = i32_sat(rows[:, 1])
     arg_r = rows[:, 2:]
     r_idx = _arange(R, dev)
     valid = ty_r >= 0

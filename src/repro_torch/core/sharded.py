@@ -67,6 +67,7 @@ from repro_torch.core.queue import (
     _take,
     host_list,
     host_read,
+    i32_sat,
     preflush_flag,
     tiered3_queue_absorb_rows,
     tiered3_queue_fill_rows_tagged,
@@ -187,7 +188,7 @@ class ShardedDeviceEngine(DeviceEngine):
         if self.shard_fn is not None:
             dest = torch.as_tensor(self.shard_fn(tys, args)).to(torch.int32)
         else:
-            dest = torch.abs(args[:, 0].to(torch.int32))
+            dest = torch.abs(i32_sat(args[:, 0]))
         return torch.remainder(dest, self.shards).to(torch.int32)
 
     # -- queue construction -------------------------------------------------
@@ -242,7 +243,7 @@ class ShardedDeviceEngine(DeviceEngine):
         seqs = seqs.to(torch.int32)
         valid = rows[:, 1] >= 0
         insert = valid if insert is None else insert & valid
-        dest = self._shard_of(rows[:, 1].to(torch.int32), rows[:, 2:])
+        dest = self._shard_of(i32_sat(rows[:, 1]), rows[:, 2:])
         n_ins = torch.sum(insert).to(torch.int32)
         next_seq = torch.maximum(
             sq.next_seq, torch.max(torch.where(insert, seqs + 1, 0)))
@@ -320,7 +321,7 @@ class ShardedDeviceEngine(DeviceEngine):
 
             # 5. global seq and overflow accounting (the insert-time size
             # is post-extract, as in the single queue).
-            ty_r = emits[:, 1].to(torch.int32)
+            ty_r = i32_sat(emits[:, 1])
             valid_r = ty_r >= 0
             vrank = _prefix_rank(valid_r)
             num_valid = torch.sum(valid_r).to(torch.int32)

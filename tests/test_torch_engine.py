@@ -197,7 +197,7 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     dict(shards=2, placement="devices"),
     dict(shards=4, placement="devices", dispatch_mode="fused"),
     dict(shards=2, hot_words="static"), dict(hot_words="static"),
-    dict(backend="host"),
+    dict(shards=2, placement="devices", dispatch_mode="masked"),
 ])
 def test_unported_modes_raise(kw):
     prog = tphold.build_program(num_lps=4)
@@ -212,7 +212,9 @@ def test_api_import_leaves_jax_out():
             "repro_torch.serving.scenarios, "
             "repro_torch.kernels.queue_front, repro_torch.kernels.ops, "
             "repro_torch.models, repro_torch.serving.engine, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.core, "
+            "repro_torch.core.scheduler, repro_torch.core.composer, "
+            "repro_torch.core.codec, repro_torch.poc; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro', "
             "'ml_dtypes') or m.startswith(('jax.', 'repro.', "
             "'ml_dtypes.'))]; "

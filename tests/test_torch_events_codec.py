@@ -56,8 +56,9 @@ def test_codec_rejects_out_of_range():
         tc.encode([])
     with pytest.raises(ValueError):
         tc.decode(tc.num_batches)
-    with pytest.raises(NotImplementedError):
-        tcodec.make_codec("paper", 2, 3)
+    assert tcodec.make_codec("paper", 2, 3) == tcodec.PaperCodec(2, 3)
+    with pytest.raises(ValueError, match="unknown codec"):
+        tcodec.make_codec("bogus", 2, 3)
     assert tcodec.make_codec("dense", 2, 3) == tc
 
 

@@ -450,12 +450,11 @@ def test_validated_churn_and_fault_words(single_runs, validate):
 # ---------------------------------------------------------------------------
 
 def test_parity_matrix_builds_every_device_entry():
-    """Every ``device/*`` entry of ``ALL_BACKENDS`` and
-    ``STREAM_BACKENDS`` builds in the port, except
-    ``device/fused-static`` (the static analyzer, ROADMAP A12) and
-    ``placement="devices"`` (ROADMAP D1), which raise
-    :class:`NotImplementedError`; the remaining gap is the host
-    runtimes."""
+    """Every entry of ``ALL_BACKENDS`` and ``STREAM_BACKENDS`` builds in
+    the port and runs, the host entries with ``device="cpu",
+    jit_handlers=False``, except ``device/fused-static`` (the static
+    analyzer, ROADMAP A12) and ``placement="devices"`` (ROADMAP D1),
+    which raise :class:`NotImplementedError`."""
     entries = dict(_parity.ALL_BACKENDS)
     entries.update(_parity.STREAM_BACKENDS)
     entries["device/tiered3-4shard-devices"] = dict(
@@ -464,10 +463,8 @@ def test_parity_matrix_builds_every_device_entry():
     for label, kw in entries.items():
         prog = tphold.build_program(num_lps=4, t_stop=4.0)
         if not label.startswith("device/"):
-            with pytest.raises(NotImplementedError, match="host backend"):
-                prog.build(**kw)
-            continue
-        if kw.get("hot_words") == "static" or \
+            kw = dict(kw, jit_handlers=False)
+        elif kw.get("hot_words") == "static" or \
                 kw.get("placement") == "devices":
             with pytest.raises(NotImplementedError,
                                match="ROADMAP (A12|D1)"):
@@ -478,4 +475,4 @@ def test_parity_matrix_builds_every_device_entry():
         res = sim.run(tphold.initial_state(4))
         assert res.events > 0, label
         built.append(label)
-    assert len(built) >= 12 and len(refused) == 2, (built, refused)
+    assert len(built) >= 19 and len(refused) == 2, (built, refused)
