@@ -134,6 +134,23 @@ Phases, each printed on its own line:
    and its CPU result.  No kernel launches.  Each run prints its setup
    seconds (the heap's build), run seconds, batches/s, events/s, host
    reads a batch, words composed and compile seconds (total, largest).
+5g3. analysis — the static analyzer (``repro_torch.analysis``): (a) its
+   five targets (``ANALYSIS_TARGETS``) analyzed with their example
+   states on the card and on the CPU, the two reports equal
+   (``to_json``) and clean, with no kernel launched and no engine count
+   moved, each with its seconds; (b) ``build(dispatch_mode="fused",
+   hot_words="static")`` for phase 5's PoC and phase 5c's closed
+   admission scenario, each bit for bit equal to that phase's
+   ``switch`` card run (state, events, batches, word histogram, final
+   queue), with the static hot set's size and the windows that took a
+   hot slot; (c) ``check="error"`` on a program whose lookahead (5.0)
+   exceeds its emission delay (1.0) raises ``AnalysisError`` at build
+   (example state declared, on the card) and at the first run (none
+   declared), before any launch or handler call on a real tensor, and
+   passes PHOLD at phase 4's width, with its analysis seconds; (d) the
+   run handlers (``make_run_handler``, ``make_masked_run_handler``) on
+   out-of-range entity ids (``C3_CASES``) on the card, equal to the CPU
+   and to JAX's values, with no device-side assert.
 5h. queue_modes — phase 4's PHOLD (917,504 LPs, a 1,048,576-event
    queue) for ``MODES_BATCHES`` super-steps on the card under
    ``queue_mode="tiered3"`` (the yardstick), then ``"flat"`` and
@@ -212,9 +229,10 @@ Phases, each printed on its own line:
    ``lex_R4_device_ms``, ``lex_R256_device_ms`` in their records).
 
 Each path (PHOLD, each run of PHOLD fused, PoC, the M/M/c network and
-the admission scenario, the segmented runs, the host runs, each served
-model, hubert's forward) runs with every kernel's launch count set to 0
-just before it and read just after.
+the admission scenario, the segmented runs, the host runs, the
+analyses and the static fused runs, each served model, hubert's
+forward) runs with every kernel's launch count set to 0 just before it
+and read just after.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
@@ -290,6 +308,15 @@ CAST_VALUES = [3e9, -3e9, float("nan"), 2.5e9, float("inf"), -float("inf"),
                2147483520.0, -2147483648.0, -1.5, 1.5]
 CAST_XLA = [2147483647, -2147483648, 0, 2147483647, 2147483647,
             -2147483648, 2147483520, -2147483648, -1, 1]
+# The analysis phase: the analyzer's five targets, and C3's entity ids
+# with JAX's results for ``s + 1`` over the leaf [0, 1, 2, 3].
+ANALYSIS_TARGETS = ("repro_torch.examples.phold:make_program",
+                    "repro_torch.examples.mmc_network:make_program",
+                    "repro_torch.serving.scenarios:make_program",
+                    "repro_torch.serving.scenarios:make_open_program",
+                    "repro_torch.poc:make_program")
+C3_CASES = [([2**31 - 1, 1], [0, 2, 2, 3]), ([-1, 1], [0, 2, 2, 4]),
+            ([-5, 1], [0, 2, 2, 3]), ([4, 1], [0, 2, 2, 3])]
 MODES_BATCHES = 1024
 MODES_REF_BATCHES = 1024
 SHARDS = 4
@@ -1786,6 +1813,192 @@ def run_host(device_name: str, poc_switch, stream_a) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5g3: the static analyzer, build(check=) and hot_words="static"
+# ---------------------------------------------------------------------------
+
+def _late_program(calls):
+    """A program whose declared lookahead (5.0) exceeds its only
+    emission delay (1.0): ``check="error"`` must refuse it."""
+    import torch
+    from torch._subclasses.fake_tensor import is_fake
+
+    from repro_torch.api import Config, SimProgram
+
+    prog = SimProgram("late", config=Config(max_batch_len=4, capacity=64,
+                                             max_emit=1))
+
+    @prog.handler("A", lookahead=5.0, emits=True)
+    def late(state, t, arg):
+        calls.append(is_fake(t))
+        emit = torch.full((1, 6), -1.0, device=t.device)
+        emit[0, 0] = 1.0
+        emit[0, 1] = 0.0
+        emit[0, 2] = 0.0
+        return state + 1, emit
+
+    prog.schedule(0.0, "A")
+    return prog
+
+
+def run_analysis(device_name: str, poc_switch, admit) -> None:
+    """(a) the five analyzer targets with their example states on the
+    card and on the CPU: equal reports, no launch; (b) ``hot_words=
+    "static"`` for phase ``poc``'s PoC and phase ``serving_admission``'s
+    closed admission, each held bit for bit to that phase's ``switch``
+    card run; (c) ``check="error"`` refusing a late lookahead at build
+    and, deferred, at the first run, before any launch or handler call,
+    and passing PHOLD at phase ``phold``'s width; (d) C3: both run
+    handlers on out-of-range entity ids, against the CPU and JAX's
+    values."""
+    import torch
+
+    from repro_torch.analysis import analyze
+    from repro_torch.analysis.__main__ import _resolve
+    from repro_torch.api import AnalysisError, Config
+    from repro_torch.core import queue as q
+    from repro_torch.core import vectorize as vec
+    from repro_torch.core.tree import tree_map
+    from repro_torch.examples import phold, poc
+    from repro_torch.serving import scenarios
+
+    t_phase = time.perf_counter()
+    for target in ANALYSIS_TARGETS:
+        prog = _resolve(target)
+        cpu_state = prog._example_state
+        card_state = tree_map(lambda x: x.to(device_name), cpu_state)
+        reset_launches()
+        q.COUNTS.clear()
+        t0 = time.perf_counter()
+        card = analyze(prog, state=card_state)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = analyze(prog, state=cpu_state)
+        cpu_s = time.perf_counter() - t0
+        launches = read_launches()
+        problems = []
+        if card.to_json() != cpu.to_json():
+            problems.append("the card template's report differs")
+        if not card.ok or card.dead:
+            problems.append(f"not clean: {[str(f) for f in card.errors]}, "
+                            f"dead {card.dead}")
+        if any(launches.values()) or any(q.COUNTS.values()):
+            problems.append(f"launched {launches}, counts {dict(q.COUNTS)}")
+        if problems:
+            raise PhaseError(f"analysis {target}: " + "; ".join(problems))
+        phase("analysis", case="a", target=target, handlers=len(card.nodes),
+              reachable_words=card.reachable_word_count,
+              findings=len(card.findings), card_template_s=f"{card_s:.3f}",
+              cpu_template_s=f"{cpu_s:.3f}", reports_equal=True, launches=0)
+
+    iters = 16
+    evs = poc.schedule_poc_events(256, 0.3, seed=0)
+
+    def build_poc():
+        prog = poc.build_program(iters, config=Config(max_batch_len=4))
+        prog.example_state(poc.initial_state(device_name))
+        return prog.build(backend="device", device=device_name,
+                          dispatch_mode="fused", hot_words="static")
+
+    def build_admit():
+        prog = scenarios.build_admission_program(
+            num_slots=ADMIT_SLOTS, num_requests=ADMIT_REQUESTS,
+            max_decode=6, config=Config(max_batch_len=4, capacity=65536,
+                                        max_emit=2))
+        prog.example_state(scenarios.initial_state(ADMIT_SLOTS, device_name))
+        return prog.build(backend="device", device=device_name,
+                          dispatch_mode="fused", hot_words="static")
+
+    for label, build, state, run_kw, ref in (
+            ("poc", build_poc, lambda: poc.initial_state(device_name),
+             dict(events=evs), poc_switch),
+            ("serving_admission", build_admit,
+             lambda: scenarios.initial_state(ADMIT_SLOTS, device_name),
+             dict(max_batches=ADMIT_BATCHES), admit)):
+        sim, res, counts, fields = run_timed(
+            f"analysis static {label}", build, state, **run_kw)
+        problems = parity_problems(res, ref)
+        if counts.get("fused_hot", 0) + counts.get("fused_fallback", 0) \
+                != res.batches:
+            problems.append("a window took neither fused route")
+        if problems:
+            raise PhaseError(f"analysis static {label}: "
+                             + "; ".join(problems))
+        phase("analysis", case="b", scenario=label, hot_words="static",
+              hot_set=len(sim.engine.hot_words), **fields,
+              bit_identical_to_switch=True)
+
+    calls = []
+    prog = _late_program(calls)
+    prog.example_state(torch.zeros((), dtype=torch.int32,
+                                   device=device_name))
+    reset_launches()
+    q.COUNTS.clear()
+    t0 = time.perf_counter()
+    try:
+        prog.build(backend="device", device=device_name, check="error")
+        raise PhaseError("analysis check: the late lookahead built")
+    except AnalysisError:
+        at_build_s = time.perf_counter() - t0
+    sim = _late_program(calls).build(backend="device", device=device_name,
+                                     check="error")
+    try:
+        sim.run(torch.zeros((), dtype=torch.int32, device=device_name))
+        raise PhaseError("analysis check: the deferred check did not fire")
+    except AnalysisError:
+        pass
+    launches = read_launches()
+    # ``calls`` holds is_fake(t) of every call: tracing only.
+    if any(launches.values()) or any(q.COUNTS.values()) or not all(calls):
+        raise PhaseError(f"analysis check: launched {launches}, counts "
+                         f"{dict(q.COUNTS)}, real handler calls "
+                         f"{calls.count(False)}")
+    prog = phold.build_program(num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP,
+                               max_batch_len=4, capacity=PHOLD_CAPACITY)
+    prog.example_state(phold.initial_state(PHOLD_LPS, device_name))
+    spent = []
+    analyze_phold = prog.analyze
+
+    def timed_analyze(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return analyze_phold(*args, **kw)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    prog.analyze = timed_analyze
+    prog.build(backend="device", device=device_name, check="error")
+    phase("analysis", case="c", late_raised_at_build=True,
+          late_raised_at_first_run=True, late_build_s=f"{at_build_s:.3f}",
+          launches=0, real_handler_calls=0, phold_lps=PHOLD_LPS,
+          phold_check="error", phold_passed=True,
+          phold_analysis_s=f"{spent[0]:.3f}")
+
+    leaf = torch.arange(4, dtype=torch.int32)
+    for masked in (False, True):
+        make = (vec.make_masked_run_handler if masked
+                else vec.make_run_handler)
+        run = make(lambda s, t, a: s + 1)
+        for ids, want in C3_CASES:
+            got = {}
+            for dev in ("cpu", device_name):
+                ts = torch.zeros(2, device=dev)
+                args = torch.zeros((2, 4), device=dev)
+                ids_t = torch.tensor(ids, dtype=torch.int32, device=dev)
+                extra = ([torch.ones(2, dtype=torch.bool, device=dev)]
+                         if masked else [])
+                out = run(leaf.clone().to(dev), ts, args, ids_t, *extra)
+                torch.cuda.synchronize()
+                got[dev] = out.cpu().tolist()
+            if got["cpu"] != want or got[device_name] != want:
+                raise PhaseError(f"analysis C3 masked={masked} ids {ids}: "
+                                 f"card {got[device_name]}, cpu "
+                                 f"{got['cpu']}, JAX {want}")
+    phase("analysis", case="d", run_handlers="run,masked",
+          id_cases=len(C3_CASES), equals_cpu_and_jax=True)
+    phase("analysis_total", seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+
+# ---------------------------------------------------------------------------
 # Phases 5h-5i: the queue modes and the sharded engine
 # ---------------------------------------------------------------------------
 
@@ -2933,6 +3146,7 @@ def main() -> int:
     run_faults("cuda")
     stream_a = run_stream("cuda")
     run_host("cuda", poc_switch, stream_a)
+    run_analysis("cuda", poc_switch, admit)
     del poc_switch
     t0 = time.perf_counter()
     base, base_counts = run_queue_modes("cuda", res, counts)

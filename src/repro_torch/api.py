@@ -26,17 +26,21 @@ streamed arrivals (``run(arrivals=, backpressure=)``).  It also has
 the host backend, ``build(backend="host", scheduler="conservative"|
 "speculative"|"unbatched", composer="lazy"|"eager")``, which compiles
 each batch word with ``torch.compile`` unless ``jit_handlers=False``.
-The static analyzer (``hot_words="static"``) and ``placement=
-"devices"`` (more than one GPU) are not ported yet.
+The static analyzer is :func:`analyze` (``build(check="warn"|
+"error")``, ``hot_words="static"``, ``python -m repro_torch.analysis
+module:callable``); ``placement="devices"`` (more than one GPU) is not
+ported yet.
 
 Open-system runs stream arrivals from a host-side source:
 ``sim.run(state0, arrivals=PoissonSource(...))`` (see
 :mod:`repro_torch.stream`).
 """
 
+from repro_torch.analysis import Finding, ProgramReport, analyze
 from repro_torch.core.events import ARG_WIDTH, emits_events
 from repro_torch.core.program import (
     EMIT_WIDTH,
+    AnalysisError,
     CompiledSim,
     Config,
     RunResult,
@@ -63,6 +67,7 @@ from repro_torch.stream import (
 __all__ = [
     "ARG_WIDTH",
     "EMIT_WIDTH",
+    "AnalysisError",
     "ArrivalSource",
     "BurstySource",
     "CompiledSim",
@@ -70,12 +75,15 @@ __all__ = [
     "DiurnalSource",
     "EngineFaultError",
     "FAULT_NAMES",
+    "Finding",
     "PoissonSource",
+    "ProgramReport",
     "RunResult",
     "SimProgram",
     "StreamFeeder",
     "TraceReader",
     "TraceWriter",
+    "analyze",
     "emits_events",
     "fault_names",
     "normalize_arg",

@@ -19,6 +19,7 @@ on-device Horner evaluation.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Sequence
 
 import torch
@@ -157,6 +158,24 @@ class DenseCodec:
         """Yield (code, word) for every distinct batch, in id order."""
         for code in self.enumerate_codes():
             yield code, self.decode(code)
+
+    def words_over(self, type_ids):
+        """Yield ``(code, word)`` in id order for every ν-free word drawn
+        only from ``type_ids``: the reachable compositions the static
+        analyzer hands to fused dispatch.
+
+        Within a length group the ids number the words in base |Σ| with
+        the FIRST event least significant, so the product runs over the
+        reversed word and restores execution order.
+        """
+        alphabet = sorted(set(int(t) for t in type_ids))
+        for t in alphabet:
+            if not 0 <= t < self.num_types:
+                raise ValueError(f"type id {t} out of range")
+        for k in range(1, self.max_len + 1):
+            for rev in itertools.product(alphabet, repeat=k):
+                word = list(reversed(rev))
+                yield self.encode(word), word
 
     def encode_torch(self, padded_types: torch.Tensor,
                      length: torch.Tensor) -> torch.Tensor:

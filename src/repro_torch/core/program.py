@@ -53,14 +53,18 @@ returns an emitting handler's rows as ``(delay, type, arg)`` tuples;
 the schedulers read a batch's emissions once and anchor each at its
 emitter's time on the host.
 
-Not ported yet: the static analyzer (and so ``hot_words="static"`` and
-``check=``) and ``placement="devices"``, which needs more than one GPU.
+``build(check="warn"|"error")`` runs the static analyzer
+(:mod:`repro_torch.analysis`) over the model before a single event
+executes, and ``hot_words="static"`` takes the fused hot set from its
+reachable compositions.  Not ported yet: ``placement="devices"``, which
+needs more than one GPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
@@ -75,10 +79,16 @@ from repro_torch.core.queue import (
     i32_sat,
 )
 from repro_torch.core.tree import tree_map
+from repro_torch.core.vectorize import entity_index
 
 EMIT_WIDTH = 2 + ARG_WIDTH
 
 _HOST_SCHEDULERS = ("conservative", "speculative", "unbatched")
+_CHECK_MODES = ("off", "warn", "error")
+
+
+class AnalysisError(ValueError):
+    """``build(check="error")`` found error-severity static findings."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,13 +209,16 @@ def _sequential_from_entity(local: Callable, name: str) -> Callable:
         arg = torch.as_tensor(arg, dtype=torch.float32)
         eid = i32_sat(arg[0]).to(torch.int64).reshape(1)
 
+        rows = {}
+
         def row(leaf):
-            # JAX's indexing: a negative id counts from the end once,
-            # the gather clamps into range, the scatter drops an id
-            # still out of range (here: writes the row back unchanged).
+            # JAX's indexing (the run path's): the scatter drops an id
+            # still out of range, here by writing the row back as it is.
+            # Once an entity count, not once a leaf.
             n = leaf.shape[0]
-            idx = torch.where(eid < 0, eid + n, eid)
-            return idx.clamp(0, n - 1), ((idx >= 0) & (idx < n)).reshape(())
+            if n not in rows:
+                rows[n] = entity_index(eid, n)
+            return rows[n]
 
         sub = tree_map(lambda leaf: leaf.index_select(0, row(leaf)[0])[0],
                        state)
@@ -213,7 +226,7 @@ def _sequential_from_entity(local: Callable, name: str) -> Callable:
 
         def put(leaf, new):
             at, inside = row(leaf)
-            new = torch.where(inside, new.to(leaf.dtype),
+            new = torch.where(inside.reshape(()), new.to(leaf.dtype),
                               leaf.index_select(0, at)[0])
             return leaf.index_copy_(0, at, new.unsqueeze(0))
 
@@ -378,10 +391,36 @@ class SimProgram:
 
     def example_state(self, state) -> "SimProgram":
         """Declare a representative initial state (shapes and dtypes
-        only), as :meth:`repro.core.program.SimProgram.example_state`
-        does; the static analyzer that reads it is not ported yet."""
+        only; values are never read, and its tensors may lie on any
+        device).  This is what the static analyzer traces handlers
+        against, what ``build(check=...)`` analyzes at build time, and
+        what ``hot_words="static"`` needs.  Allowed after freeze: it is
+        metadata, not a handler."""
         self._example_state = state
         return self
+
+    def analyze(self, state=None, roots=()):
+        """Run the static analyzer (:mod:`repro_torch.analysis`) over
+        this program; returns a ``ProgramReport``.  ``state`` defaults
+        to the declared :meth:`example_state`."""
+        from repro_torch.analysis import analyze as _analyze
+
+        return _analyze(self, state=state, roots=roots)
+
+    def _run_check(self, mode: str, state=None):
+        """Shared ``check=`` implementation: analyze, then raise
+        (``"error"``) or warn (``"warn"``) on error-severity findings."""
+        report = self.analyze(state=state)
+        if report.errors:
+            msg = (
+                f"static analysis found {len(report.errors)} "
+                f"error-severity finding(s) in {self.name!r}:\n  "
+                + "\n  ".join(str(f) for f in report.errors)
+            )
+            if mode == "error":
+                raise AnalysisError(msg)
+            warnings.warn(msg, stacklevel=3)
+        return report
 
     def freeze(self) -> "SimProgram":
         self._frozen = True
@@ -451,7 +490,8 @@ class SimProgram:
               front_cap: int | None = None, stage_cap: int | None = None,
               num_runs: int | None = None, dispatch_mode: str = "switch",
               hot_words=None, validate: str = "off",
-              overflow: str = "drop", state_spec=None, arg_spec=None,
+              overflow: str = "drop", check: str = "off",
+              state_spec=None, arg_spec=None,
               check_causality: bool = False,
               window_slack: float = float("inf"),
               jit_handlers: bool = True) -> "CompiledSim":
@@ -467,7 +507,9 @@ class SimProgram:
         queues under :class:`repro_torch.core.sharded.ShardedDeviceEngine`,
         bit-identical to one queue.  ``hot_words`` (``dispatch_mode=
         "fused"`` only) is a sequence of words, each a sequence of type
-        names or ids.
+        names or ids, or ``"static"``: the first 32 compositions the
+        static analyzer finds reachable, in dense-code order (needs
+        :meth:`example_state`).
 
         ``backend="host"``: ``scheduler`` (``"conservative"``,
         ``"speculative"``, ``"unbatched"``) and ``composer`` (``"lazy"``,
@@ -477,11 +519,31 @@ class SimProgram:
         word (each handler, unbatched) goes through ``torch.compile``
         unless it is ``False``.
 
+        ``check`` (either backend) runs the static analyzer over the
+        model: ``"error"`` raises :class:`AnalysisError` on any
+        error-severity finding (unsound lookahead, malformed emit rows,
+        impure handlers) before a single event executes; ``"warn"``
+        reports them as warnings.  The analysis runs at build time when
+        :meth:`example_state` is declared; otherwise it is deferred to
+        the first :meth:`CompiledSim.run`, which checks against the
+        run's own initial state before dispatching anything.
+
         A knob of the other backend raises :class:`ValueError`, as in
-        JAX; what the port does not have yet (``placement="devices"``,
-        ``hot_words="static"``) raises :class:`NotImplementedError`.
+        JAX; what the port does not have yet (``placement="devices"``)
+        raises :class:`NotImplementedError`.
         """
         self.freeze()
+        if check not in _CHECK_MODES:
+            raise ValueError(
+                f"unknown check mode {check!r}; expected one of "
+                f"{_CHECK_MODES}")
+        deferred_check = "off"
+        report = None
+        if check != "off":
+            if self._example_state is not None:
+                report = self._run_check(check)
+            else:
+                deferred_check = check
         if backend == "device":
             misdirected = {
                 "scheduler": scheduler != "conservative",
@@ -523,7 +585,8 @@ class SimProgram:
                 device=device, scheduler=scheduler, composer=composer,
                 state_spec=state_spec, arg_spec=arg_spec,
                 check_causality=check_causality,
-                window_slack=window_slack, jit_handlers=jit_handlers)
+                window_slack=window_slack, jit_handlers=jit_handlers,
+                check=deferred_check)
         if backend != "device":
             raise ValueError(f"unknown backend {backend!r}; "
                              "expected 'device' or 'host'")
@@ -543,11 +606,14 @@ class SimProgram:
                 raise ValueError(
                     f"unknown hot_words spec {hot_words!r}; "
                     "expected 'static' or a sequence of words")
-            raise NotImplementedError(
-                "hot_words='static' takes the hot set from the static "
-                "analyzer, which is not ported to repro_torch yet "
-                "(ROADMAP A12); pass the words, e.g. from "
-                "hot_words_from_counts over a profiled run")
+            if self._example_state is None:
+                raise ValueError(
+                    "hot_words='static' derives the hot set from the "
+                    "static analyzer, which needs a state template — "
+                    "declare one with prog.example_state(state) first")
+            if report is None:
+                report = self.analyze()
+            hot_words = report.static_hot_words()
         if hot_words is not None:
             # Type names are the API-level spelling; the engine takes
             # ids.
@@ -565,14 +631,15 @@ class SimProgram:
 
             return CompiledSim(self, ShardedDeviceEngine.from_program(
                 self, shards=shards, shard_fn=shard_fn, placement=placement,
-                **kw))
+                **kw), check=deferred_check)
         from repro_torch.core.engine import DeviceEngine
 
-        return CompiledSim(self, DeviceEngine.from_program(self, **kw))
+        return CompiledSim(self, DeviceEngine.from_program(self, **kw),
+                           check=deferred_check)
 
     def _build_host(self, *, device, scheduler, composer, state_spec,
                     arg_spec, check_causality, window_slack,
-                    jit_handlers) -> "CompiledSim":
+                    jit_handlers, check) -> "CompiledSim":
         from repro_torch.core.composer import EagerComposer, LazyComposer
         from repro_torch.core.engine import resolve_device
         from repro_torch.core.scheduler import (
@@ -586,7 +653,8 @@ class SimProgram:
         device = resolve_device(device)
         if scheduler == "unbatched":
             return CompiledSim(self, backend="host", variant="unbatched",
-                               jit_handlers=jit_handlers, device=device)
+                               jit_handlers=jit_handlers, device=device,
+                               check=check)
         kw = dict(device=device, jit_handlers=jit_handlers)
         if composer == "lazy":
             comp = LazyComposer.from_program(self, **kw)
@@ -605,7 +673,7 @@ class SimProgram:
                 self, composer=comp, window_slack=window_slack)
         return CompiledSim(self, backend="host", sched=sched,
                            variant=scheduler, jit_handlers=jit_handlers,
-                           device=device)
+                           device=device, check=check)
 
 
 class CompiledSim:
@@ -618,7 +686,8 @@ class CompiledSim:
 
     def __init__(self, program: SimProgram, engine=None, *,
                  backend: str = "device", sched=None, variant: str = "",
-                 jit_handlers: bool = True, device=None):
+                 jit_handlers: bool = True, device=None,
+                 check: str = "off"):
         self.program = program
         self.engine = engine
         self.backend = backend
@@ -626,6 +695,11 @@ class CompiledSim:
         self.variant = variant
         self.jit_handlers = jit_handlers
         self.device = engine.device if engine is not None else device
+        # Deferred build(check=...): no example state was declared, so
+        # the analyzer runs against the first run()'s own initial state,
+        # still before any event executes, then once only.
+        self.check = check
+        self._check_done = False
 
     def __repr__(self):
         return (f"CompiledSim({self.program.name!r}, "
@@ -1099,9 +1173,13 @@ class CompiledSim:
             raise ValueError(
                 "backpressure= configures streamed runs — pass "
                 "arrivals= as well")
+        evs = self._initial_events(events)
+        if self.check != "off" and not self._check_done:
+            self.program._run_check(self.check, state=state)
+            self._check_done = True
         if self.backend == "host":
             return self._run_host(
-                state, self._initial_events(events), t_end,
+                state, evs, t_end,
                 max_batches=max_batches, max_events=max_events,
                 arrivals=arrivals, backpressure=backpressure,
                 device_knobs=(checkpoint_every is not None
@@ -1112,7 +1190,7 @@ class CompiledSim:
             raise ValueError("max_events is host-only; the device loop "
                              "counts batches — use max_batches")
         return self._run_device(
-            state, self._initial_events(events), t_end,
+            state, evs, t_end,
             (1 << 30) if max_batches is None else int(max_batches),
             checkpoint_every=checkpoint_every,
             checkpoint_dir=checkpoint_dir, resume_from=resume_from,

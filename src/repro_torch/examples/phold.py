@@ -75,3 +75,11 @@ def initial_state(num_lps: int, device="cpu"):
         "counts": torch.zeros((num_lps,), dtype=torch.int32, device=device),
         "checksum": torch.tensor(1, dtype=torch.int64, device=device),
     }
+
+
+def make_program() -> SimProgram:
+    """Analyzer/CLI target: smoke-size PHOLD with its example state
+    declared (``python -m repro_torch.analysis
+    repro_torch.examples.phold:make_program``)."""
+    prog = build_program(num_lps=8, t_stop=20.0)
+    return prog.example_state(initial_state(8))

@@ -79,11 +79,16 @@ def build_program(iters: int = DEFAULT_ITERS,
     return prog
 
 
+ANALYSIS_ITERS = 16          # the analyzer target's K
+
+
 def make_program():
     """The PoC model with its example state and entry points declared
     (the §IV.B workload is injected with ``run(events=...)``, so both
-    types are external entries)."""
-    prog = build_program()
+    types are external entries): the analyzer's target.  Tracing runs
+    the Python loop, one graph node an iteration, so the target keeps K
+    small; neither handler emits, so its report does not depend on K."""
+    prog = build_program(ANALYSIS_ITERS)
     prog.external_entry("Increment", "Set")
     return prog.example_state(initial_state())
 

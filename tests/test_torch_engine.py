@@ -196,7 +196,8 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 @pytest.mark.parametrize("kw", [
     dict(shards=2, placement="devices"),
     dict(shards=4, placement="devices", dispatch_mode="fused"),
-    dict(shards=2, hot_words="static"), dict(hot_words="static"),
+    dict(shards=2, placement="devices", validate="cheap"),
+    dict(shards=3, placement="devices", queue_mode="tiered3"),
     dict(shards=2, placement="devices", dispatch_mode="masked"),
 ])
 def test_unported_modes_raise(kw):
@@ -214,7 +215,8 @@ def test_api_import_leaves_jax_out():
             "repro_torch.models, repro_torch.serving.engine, "
             "repro_torch.launch.serve, repro_torch.core, "
             "repro_torch.core.scheduler, repro_torch.core.composer, "
-            "repro_torch.core.codec, repro_torch.poc; "
+            "repro_torch.core.codec, repro_torch.poc, "
+            "repro_torch.analysis, repro_torch.analysis.__main__; "
             "bad = [m for m in sys.modules if m in ('jax', 'repro', "
             "'ml_dtypes') or m.startswith(('jax.', 'repro.', "
             "'ml_dtypes.'))]; "

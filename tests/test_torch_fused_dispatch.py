@@ -212,10 +212,21 @@ def test_knob_validation():
     with pytest.raises(ValueError, match="dispatch_mode"):
         DeviceEngine(_torch_registry(), max_batch_len=2, capacity=32,
                      device="cpu", dispatch_mode="vectorized")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="example_state"):
         prog.build(device="cpu", dispatch_mode="fused", hot_words="static")
     with pytest.raises(ValueError, match="unknown hot_words"):
         prog.build(device="cpu", dispatch_mode="fused", hot_words="hot")
+    # With a template declared, the static hot set (PoC's 30 reachable
+    # words at windows of 4, the first 32 dense codes) builds and runs.
+    prog.example_state(tpoc.initial_state())
+    sim = prog.build(device="cpu", dispatch_mode="fused", hot_words="static")
+    assert [tuple(w) for w in sim.engine.hot_words] == [
+        tuple(tpoc.build_program(4).build(device="cpu").engine.codec.decode(c))
+        for c in range(30)]
+    evs = tpoc.schedule_poc_events(40, 0.3, seed=1)
+    res = sim.run(tpoc.initial_state(), events=evs)
+    base = prog.build(device="cpu").run(tpoc.initial_state(), events=evs)
+    assert int(res.state) == int(base.state) and res.batches == base.batches
 
 
 def test_dispatch_attr_always_available():

@@ -480,8 +480,7 @@ def test_public_surface_matches_jax():
     from repro_torch.core.program import RunResult as TResult
 
     assert repro_torch.core.__all__ == repro.core.__all__
-    assert set(repro.api.__all__) - set(repro_torch.api.__all__) == {
-        "AnalysisError", "Finding", "ProgramReport", "analyze"}
+    assert set(repro.api.__all__) - set(repro_torch.api.__all__) == set()
     j = JResult(state=None, events=3, batches=2, dropped=0, final_time=1.5,
                 rollbacks=1)
     t = TResult(state=None, events=3, batches=2, dropped=0, final_time=1.5,

@@ -452,9 +452,10 @@ def test_validated_churn_and_fault_words(single_runs, validate):
 def test_parity_matrix_builds_every_device_entry():
     """Every entry of ``ALL_BACKENDS`` and ``STREAM_BACKENDS`` builds in
     the port and runs, the host entries with ``device="cpu",
-    jit_handlers=False``, except ``device/fused-static`` (the static
-    analyzer, ROADMAP A12) and ``placement="devices"`` (ROADMAP D1),
-    which raise :class:`NotImplementedError`."""
+    jit_handlers=False`` and ``device/fused-static`` with the state
+    declared as the example state (as ``_parity.run_all`` does), except
+    ``placement="devices"`` (ROADMAP D1), which raises
+    :class:`NotImplementedError`."""
     entries = dict(_parity.ALL_BACKENDS)
     entries.update(_parity.STREAM_BACKENDS)
     entries["device/tiered3-4shard-devices"] = dict(
@@ -464,15 +465,17 @@ def test_parity_matrix_builds_every_device_entry():
         prog = tphold.build_program(num_lps=4, t_stop=4.0)
         if not label.startswith("device/"):
             kw = dict(kw, jit_handlers=False)
-        elif kw.get("hot_words") == "static" or \
-                kw.get("placement") == "devices":
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP (A12|D1)"):
+        elif kw.get("placement") == "devices":
+            with pytest.raises(NotImplementedError, match="ROADMAP D1"):
                 prog.build(device="cpu", **kw)
             refused.append(label)
             continue
+        if kw.get("hot_words") == "static":
+            prog.example_state(tphold.initial_state(4))
         sim = prog.build(device="cpu", **kw)
         res = sim.run(tphold.initial_state(4))
         assert res.events > 0, label
         built.append(label)
-    assert len(built) >= 19 and len(refused) == 2, (built, refused)
+    assert "device/fused-static" in built
+    assert len(built) >= 20 and refused == [
+        "device/tiered3-4shard-devices"], (built, refused)

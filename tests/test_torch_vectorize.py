@@ -113,6 +113,66 @@ def test_masked_run_handler_matches_jax(state_axis, mask):
         _assert_same(got, state)
 
 
+# Entity ids out of range (ROADMAP C3): JAX's gather clamps, its
+# scatter drops, and a negative id wraps once.  The values are JAX's
+# for ``s + 1`` over the leaf [0, 1, 2, 3] with both lanes real.
+C3_CASES = {
+    "i32_max": ([2**31 - 1, 1], [0, 2, 2, 3]),
+    "minus_one": ([-1, 1], [0, 2, 2, 4]),
+    "minus_five": ([-5, 1], [0, 2, 2, 3]),
+    "past_end": ([4, 1], [0, 2, 2, 3]),
+}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case", sorted(C3_CASES))
+def test_out_of_range_ids_match_jax(case, masked):
+    ids, table = C3_CASES[case]
+    ids = np.asarray(ids, np.int32)
+    leaf = np.arange(4, dtype=np.int32)
+    ts = np.zeros(2, np.float32)
+    args = np.zeros((2, 4), np.float32)
+    mask = np.ones(2, bool)
+    make_j = jvec.make_masked_run_handler if masked else jvec.make_run_handler
+    make_t = tvec.make_masked_run_handler if masked else tvec.make_run_handler
+    jrun = make_j(lambda s, t, a: s + 1)
+    trun = make_t(lambda s, t, a: s + 1)
+    jargs = [jnp.asarray(leaf), jnp.asarray(ts), jnp.asarray(args),
+             jnp.asarray(ids)] + ([jnp.asarray(mask)] if masked else [])
+    targs = [torch.from_numpy(leaf.copy()), torch.from_numpy(ts),
+             torch.from_numpy(args), torch.from_numpy(ids)] + (
+        [torch.from_numpy(mask)] if masked else [])
+    want = np.asarray(jrun(*jargs))
+    got = trun(*targs)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.tolist() == table
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_out_of_range_ids_per_leaf_size_match_jax(masked):
+    # Leaves of different entity counts wrap, clamp and drop each by
+    # its own count: id 4 is past the end of the first leaf only.
+    ids = np.asarray([-1, 4], np.int32)
+    state = {"a": np.arange(4, dtype=np.int32),
+             "b": np.arange(6, dtype=np.int32)}
+    ts = np.zeros(2, np.float32)
+    args = np.zeros((2, 4), np.float32)
+    mask = np.ones(2, bool)
+    make_j = jvec.make_masked_run_handler if masked else jvec.make_run_handler
+    make_t = tvec.make_masked_run_handler if masked else tvec.make_run_handler
+    jrun = make_j(lambda s, t, a: {k: v + 1 for k, v in s.items()})
+    trun = make_t(lambda s, t, a: {k: v + 1 for k, v in s.items()})
+    jargs = [_as_jax(state), jnp.asarray(ts), jnp.asarray(args),
+             jnp.asarray(ids)] + ([jnp.asarray(mask)] if masked else [])
+    targs = [_as_torch(state), torch.from_numpy(ts),
+             torch.from_numpy(args), torch.from_numpy(ids)] + (
+        [torch.from_numpy(mask)] if masked else [])
+    want = jrun(*jargs)
+    _assert_same(trun(*targs), want)
+    assert np.asarray(want["a"]).tolist() == [0, 1, 2, 4]
+    assert np.asarray(want["b"]).tolist() == [0, 1, 2, 3, 5, 6]
+
+
 def test_is_single_type_run():
     for ids in ([2, 2, 2], [0], [], [1, 1, 0], (3, 3)):
         assert tvec.is_single_type_run(ids) == jvec.is_single_type_run(ids)
