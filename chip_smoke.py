@@ -213,6 +213,28 @@ Phases, each printed on its own line:
    frame embeddings) against ``attn_impl="blockwise"`` on the same
    weights.  Every row's logits must reach a cosine of 0.999, with
    ``flash_attention`` launched once a layer and no other kernel.
+6e. train — the training path (``repro_torch.training``,
+   ``repro_torch.launch.train``), which launches no kernel (JAX's runs
+   ``blockwise`` attention and no Pallas kernel): (a) granite-moe-1b-a400m
+   at full width and depth (24 ``(gqa, moe)`` layers, d_model 1024, 32
+   experts top-8, 1.33 B parameters, bf16 weights from seed 0), 8 x 1024
+   tokens in 2 strided microbatches, cosine AdamW at 3e-4: 2 steps
+   without remat and 4 with it from the same state; remat's first loss
+   and grad norm within 1e-3 relative of the plain step's, its peak
+   device memory lower, every loss finite; ms a step, tokens/s, peak
+   memory and the state's bytes printed; (b) the supervisor through
+   ``launch.train.train``: the same width cut to 2 layers, 8 x 512
+   tokens, 8 steps, a checkpoint every 4, a crash at 6 and a straggler at
+   7: one restart, one mitigation, 10 steps run, ``opt.step`` 8, the
+   first replayed loss bit-identical to the first pass's, later ones
+   within 1e-3; a checkpoint's bytes, save and restore seconds; (c) one
+   microbatched, rematerialized step of the reduced granite and
+   stablelm on the card and on the CPU from one f32 state and batch
+   (loss, grad norm and every leaf within the ``CARD_*`` tolerances,
+   printed beside the worst errors), and a step with gradient
+   compression; (d) ``LM(cfg, attn_impl="pallas").loss`` against
+   trainable leaves raises before any launch, directly and through the
+   train step.
 7. timing — each kernel and its plain version at the main path's shapes
    (CUDA events over back-to-back calls: ``ms``), the kernel's device
    time with the host taken out (calls captured in a CUDA graph:
@@ -231,8 +253,8 @@ Phases, each printed on its own line:
 Each path (PHOLD, each run of PHOLD fused, PoC, the M/M/c network and
 the admission scenario, the segmented runs, the host runs, the
 analyses and the static fused runs, each served model, hubert's
-forward) runs with every kernel's launch count set to 0 just before it
-and read just after.
+forward, the training phase) runs with every kernel's launch count set
+to 0 just before it and read just after.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
@@ -246,6 +268,8 @@ from __future__ import annotations
 import concurrent.futures
 import gc
 import json
+import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -333,6 +357,22 @@ TIERED_BATCHES = PHOLD_BATCHES
 FUSED_SHARD_TIERS = dict(front_cap=32, stage_cap=64, num_runs=4)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+
+# Phase train: granite-moe-1b-a400m (hf ibm-granite/granite-3.0-1b-a400m-base)
+TRAIN = "granite-moe-1b-a400m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 1024, 2
+TRAIN_STEPS_PLAIN, TRAIN_STEPS_REMAT = 2, 4
+TRAIN_LR = 3e-4
+TRAIN_REMAT_RTOL = 1e-3    # remat's first step against no remat's; replays
+SUP_LAYERS, SUP_SEQ, SUP_STEPS = 2, 512, 8
+SUP_CKPT_EVERY, SUP_CRASH, SUP_STRAGGLER = 4, 6, 7
+# (c): card against CPU in f32 from one state.  The gradients are the
+# gate: each leaf's within CARD_GRAD_RTOL in relative L2 norm.  After the
+# step a parameter's element may be up to 2 lr apart where its gradient
+# is near 0 (Adam's first step is +-lr whatever the gradient's size), so
+# the updated leaves are held only to CARD_LEAF_LRS lr beyond 1e-6 of |p|.
+CARD_LOSS_RTOL, CARD_NORM_RTOL, CARD_LEAF_LRS = 1e-5, 1e-4, 2.05
+CARD_GRAD_RTOL = 1e-4
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 
@@ -2534,6 +2574,371 @@ def run_hubert() -> dict:
     return {"flash_attention": every["flash_attention"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase train: the training path
+# ---------------------------------------------------------------------------
+
+def _state_bytes(state) -> int:
+    from repro_torch.core.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state))
+
+
+def _train_steps(model, opt_cfg, dc, remat: bool, steps: int) -> dict:
+    """``steps`` train steps of ``model`` from ``init_train_state(model,
+    0)`` on ``make_batch(dc, i)``: each step's loss, grad_norm and
+    seconds (host clock around a step ended by the read of its loss),
+    the state's bytes and the peak device memory of the steps (reset
+    after the state was built)."""
+    import torch
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.training.train_step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    state = init_train_state(model, 0)
+    step = make_train_step(model, opt_cfg, num_microbatches=TRAIN_MICRO,
+                           remat=remat)
+    state_bytes = _state_bytes(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"loss": [], "grad_norm": [], "seconds": []}
+    for i in range(steps):
+        batch = make_batch(dc, i, model.device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        out["loss"].append(float(metrics["loss"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["state_bytes"] = state_bytes
+    out["opt_step"] = int(state["opt"]["step"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_full_width() -> None:
+    """(a) granite-moe-1b-a400m at full width and depth: steps without
+    and with remat from the same state."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import LM
+    from repro_torch.training.optim import AdamWConfig
+
+    cfg = get_config(TRAIN)
+    t0 = time.perf_counter()
+    model = LM(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, schedule="cosine",
+                          total_steps=TRAIN_STEPS_REMAT)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    runs = {"plain": _train_steps(model, opt_cfg, dc, False,
+                                  TRAIN_STEPS_PLAIN),
+            "remat": _train_steps(model, opt_cfg, dc, True,
+                                  TRAIN_STEPS_REMAT)}
+    params = sum(p.numel() for p in model.parameters())
+    problems = []
+    for name, run in runs.items():
+        if not all(map(math.isfinite, run["loss"] + run["grad_norm"])):
+            problems.append(f"{name}: non-finite loss or grad_norm "
+                            f"{run['loss']} {run['grad_norm']}")
+        steady = run["seconds"][1:]
+        ms = sum(steady) / len(steady) * 1e3
+        phase("train", case="a", arch=cfg.name, layers=cfg.num_layers,
+              d_model=cfg.d_model, experts=cfg.moe.num_experts,
+              top_k=cfg.moe.top_k, params=params, batch=TRAIN_BATCH,
+              seq_len=TRAIN_SEQ, microbatches=TRAIN_MICRO, remat=name,
+              steps=len(run["loss"]), build_s=f"{build_s:.3f}",
+              first_step_ms=f"{run['seconds'][0] * 1e3:.1f}",
+              ms_per_step=f"{ms:.1f}",
+              tokens_per_s=f"{tokens / ms * 1e3:.1f}",
+              max_memory_allocated=run["peak"],
+              state_bytes=run["state_bytes"],
+              losses=json.dumps([float(f"{x:.6f}") for x in run["loss"]]),
+              grad_norms=json.dumps([float(f"{x:.6f}")
+                                     for x in run["grad_norm"]]))
+    plain, remat = runs["plain"], runs["remat"]
+    rel = {key: _rel(remat[key][0], plain[key][0])
+           for key in ("loss", "grad_norm")}
+    for key, err in rel.items():
+        if err > TRAIN_REMAT_RTOL:
+            problems.append(f"remat's first {key} {remat[key][0]} against "
+                            f"{plain[key][0]} (rel {err:.2e})")
+    if remat["peak"] >= plain["peak"]:
+        problems.append(f"remat's peak {remat['peak']} is not below "
+                        f"{plain['peak']}")
+    if problems:
+        raise PhaseError("train (a): " + "; ".join(problems))
+    phase("train", case="a_check", remat_loss_rel=f"{rel['loss']:.3e}",
+          remat_grad_norm_rel=f"{rel['grad_norm']:.3e}",
+          tol=TRAIN_REMAT_RTOL,
+          peak_ratio=f"{remat['peak'] / plain['peak']:.4f}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_supervised() -> None:
+    """(b) the supervisor through ``launch.train.train``: granite at full
+    width cut to one pattern unit, a crash replayed from a checkpoint
+    and a straggler."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import train as launch_train
+
+    full = get_config(TRAIN)
+    cfg = dataclasses.replace(full, num_layers=SUP_LAYERS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        args = launch_train.parse_args([
+            "--arch", TRAIN, "--batch", str(TRAIN_BATCH), "--seq-len",
+            str(SUP_SEQ), "--steps", str(SUP_STEPS), "--ckpt-every",
+            str(SUP_CKPT_EVERY), "--inject-crash", str(SUP_CRASH),
+            "--inject-straggler", str(SUP_STRAGGLER), "--log-every", "1",
+            "--ckpt-dir", os.path.join(tmp, "run")])
+        t0 = time.perf_counter()
+        run = launch_train.train(cfg, args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        rep = run.report
+        problems = []
+        if (rep.restarts, rep.straggler_mitigations, rep.steps_run) != \
+                (1, 1, SUP_STEPS + SUP_CRASH - SUP_CKPT_EVERY):
+            problems.append(f"report {rep}")
+        if int(run.state["opt"]["step"]) != SUP_STEPS:
+            problems.append(f"opt.step {int(run.state['opt']['step'])}")
+        first = {s: loss for s, loss, _, _ in run.log[:SUP_CRASH]}
+        replay = run.log[SUP_CRASH:]
+        s0, l0 = replay[0][0], replay[0][1]
+        if s0 != SUP_CKPT_EVERY + 1 or l0 != first[s0]:
+            problems.append(f"first replayed step {s0} loss {l0!r} against "
+                            f"{first.get(s0)!r}: not bit-identical")
+        worst = 0.0
+        for s, loss, _, _ in replay[1:]:
+            if s in first:
+                worst = max(worst, _rel(loss, first[s]))
+        if worst > TRAIN_REMAT_RTOL:
+            problems.append(f"later replayed steps off by rel {worst:.2e}")
+        if not all(math.isfinite(x) for _, *vals in run.log for x in vals):
+            problems.append("non-finite metrics")
+        # One synchronous save and one restore of the final state.
+        mgr = CheckpointManager(os.path.join(tmp, "timed"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(SUP_STEPS, run.state)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        t0 = time.perf_counter()
+        restored, at = mgr.restore(run.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if at != SUP_STEPS or not all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(restored),
+                                                  tree_leaves(run.state))):
+            problems.append("restored state differs")
+        if problems:
+            raise PhaseError("train (b): " + "; ".join(problems))
+        phase("train", case="b", arch=cfg.name,
+              layers=f"{cfg.num_layers}_of_{full.num_layers}",
+              batch=TRAIN_BATCH, seq_len=SUP_SEQ, steps=SUP_STEPS,
+              ckpt_every=SUP_CKPT_EVERY, crash_at=SUP_CRASH,
+              straggler_at=SUP_STRAGGLER, restarts=rep.restarts,
+              straggler_mitigations=rep.straggler_mitigations,
+              steps_run=rep.steps_run,
+              checkpoints_saved=rep.checkpoints_saved,
+              opt_step=int(run.state["opt"]["step"]),
+              first_replay=f"step{s0}_bit_identical",
+              later_replay_rel=f"{worst:.3e}", run_s=f"{run_s:.3f}",
+              checkpoint_bytes=nbytes, save_s=f"{save_s:.3f}",
+              restore_s=f"{restore_s:.3f}",
+              final_loss=f"{rep.final_loss:.6f}")
+        del run, restored
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_card_against_cpu() -> None:
+    """(c) the reduced granite and stablelm on the card and on the CPU
+    from one f32 state and batch: the microbatched, rematerialized
+    gradients leaf by leaf, then one step from them; then one step with
+    gradient compression."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import key_leaves, tree_map
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import LM
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.train_step import (
+        init_train_state,
+        make_grad_fn,
+        make_train_step,
+        train_state,
+    )
+
+    for arch in ("granite-moe-1b-a400m", "stablelm-12b"):
+        cfg = get_config(arch).reduced()
+        cpu = LM(cfg, device="cpu")
+        card = LM(cfg)
+        params = tree_map(lambda t: t.float(),
+                          init_train_state(cpu, 0)["params"])
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                        global_batch=8)
+        batch = make_batch(dc, 0)
+        opt_cfg = AdamWConfig()
+        out, grads = {}, {}
+        for name, model in (("cpu", cpu), ("card", card)):
+            state = train_state(tree_map(lambda t: t.to(model.device),
+                                         params))
+            on = {k: v.to(model.device) for k, v in batch.items()}
+            grads[name] = make_grad_fn(model, num_microbatches=2,
+                                       remat=True)(state["params"], on)
+            step = make_train_step(model, opt_cfg, num_microbatches=2,
+                                   remat=True)
+            out[name] = step(state, on)
+        (cs, cm), (gs, gm) = out["cpu"], out["card"]
+        lr = float(cm["lr"])
+        loss_rel = _rel(float(gm["loss"]), float(cm["loss"]))
+        norm_rel = _rel(float(gm["grad_norm"]), float(cm["grad_norm"]))
+        grad_loss_rel = _rel(float(grads["card"][0]),
+                             float(grads["cpu"][0]))
+        worst_grad, worst_grad_path = 0.0, ""
+        for (path, c), (_, g) in zip(key_leaves(grads["cpu"][1]),
+                                     key_leaves(grads["card"][1])):
+            err = float((g.cpu() - c).norm()) / max(float(c.norm()), 1e-30)
+            if err >= worst_grad:
+                worst_grad, worst_grad_path = err, path
+        worst_leaf, worst_path = 0.0, ""
+        for (path, c), (_, g) in zip(key_leaves(cs["params"]),
+                                     key_leaves(gs["params"])):
+            err = float(((g.cpu() - c).abs()
+                         - 1e-6 * c.abs()).max()) / lr
+            if err > worst_leaf:
+                worst_leaf, worst_path = err, path
+        problems = []
+        if max(loss_rel, grad_loss_rel) > CARD_LOSS_RTOL:
+            problems.append(f"loss rel {loss_rel:.2e}, {grad_loss_rel:.2e}")
+        if worst_grad > CARD_GRAD_RTOL:
+            problems.append(f"gradient {worst_grad_path} off by rel "
+                            f"{worst_grad:.2e}")
+        if norm_rel > CARD_NORM_RTOL:
+            problems.append(f"grad_norm rel {norm_rel:.2e}")
+        if worst_leaf > CARD_LEAF_LRS:
+            problems.append(f"leaf {worst_path} off by {worst_leaf:.3f} lr")
+        comp = train_state(tree_map(lambda t: t.to(card.device), params),
+                           compression=True)
+        comp_state, comp_m = make_train_step(
+            card, opt_cfg, num_microbatches=2, remat=True)(
+                comp, {k: v.to(card.device) for k, v in batch.items()})
+        ef_ok = all(
+            tuple(e.shape) == tuple(p.shape) and e.dtype == torch.float32
+            for (_, e), (_, p) in zip(key_leaves(comp_state["ef"]),
+                                      key_leaves(comp_state["params"])))
+        if not math.isfinite(float(comp_m["loss"])) or not ef_ok:
+            problems.append(f"compression: loss {float(comp_m['loss'])}, "
+                            f"ef shapes ok {ef_ok}")
+        if problems:
+            raise PhaseError(f"train (c) {arch}: " + "; ".join(problems))
+        phase("train", case="c", arch=cfg.name, dtype="float32",
+              microbatches=2, remat=True, lr=f"{lr:.3e}",
+              loss_cpu=f"{float(cm['loss']):.7f}",
+              loss_card=f"{float(gm['loss']):.7f}",
+              loss_rel=f"{loss_rel:.3e}", loss_tol=CARD_LOSS_RTOL,
+              grad_norm_rel=f"{norm_rel:.3e}", grad_norm_tol=CARD_NORM_RTOL,
+              worst_grad=worst_grad_path.replace(" ", ""),
+              worst_grad_rel_l2=f"{worst_grad:.3e}",
+              grad_tol=CARD_GRAD_RTOL,
+              worst_leaf=worst_path.replace(" ", ""),
+              worst_leaf_err_in_lr=f"{worst_leaf:.4f}",
+              leaf_tol=f"{CARD_LEAF_LRS}*lr+1e-6*|p|",
+              compression_loss=f"{float(comp_m['loss']):.6f}",
+              ef_leaves=len(list(key_leaves(comp_state["ef"]))))
+
+
+def train_refusal() -> None:
+    """(d) a kernel-route LM's loss under autograd raises before any
+    launch, directly and through the train step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import LM
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.train_step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = get_config("stablelm-12b").reduced()
+    model = LM(cfg, attn_impl="pallas")
+    state = init_train_state(model, 0)
+    batch = make_batch(DataConfig(cfg.vocab_size, 32, 2), 0, model.device)
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(
+        state["params"])]
+    messages = []
+    for call in (
+            lambda: model.loss(batch, params=tree_unflatten(
+                state["params"], leaves)),
+            lambda: make_train_step(model, AdamWConfig())(state, batch)):
+        before = read_launches()
+        try:
+            call()
+        except RuntimeError as err:
+            if "has no backward" not in str(err):
+                raise
+            messages.append(str(err).split(":")[0])
+        else:
+            raise PhaseError("train (d): a kernel route trained")
+        if read_launches() != before:
+            raise PhaseError("train (d): a kernel launched before the "
+                             "refusal")
+    phase("train", case="d", attn_impl="pallas", refused=len(messages),
+          message=json.dumps(messages[0]))
+
+
+def run_train() -> None:
+    """Phase train: (a)-(d) with every kernel's launch count zeroed just
+    before and read just after (JAX's training path runs no kernel)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    reset_launches()
+    train_full_width()
+    train_supervised()
+    train_card_against_cpu()
+    train_refusal()
+    every = read_launches()
+    if any(every.values()):
+        raise PhaseError(f"train: kernels launched {every}")
+    phase("train_total", seconds=f"{time.perf_counter() - t_phase:.3f}",
+          launches=json.dumps(every, separators=(",", ":")))
+
+
 def _uncounted_params(cfg) -> int:
     """Parameters the port holds that ``ArchConfig.param_count`` leaves
     out: the norm scales (two a layer and the final one), the mamba
@@ -3161,6 +3566,7 @@ def main() -> int:
     rwkv_launches = run_serve_rwkv()
     jamba_launches = run_serve_jamba()
     hubert_launches = run_hubert()
+    run_train()
     lookaheads = torch.tensor([1.0], device="cuda")
     kernels = time_kernels(res.raw["final_queue"], lookaheads, launches,
                            errs)

@@ -40,47 +40,18 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-
-def _key_path(tree, prefix: str = ""):
-    """``(keystr, leaf)`` pairs in JAX's flatten order and spelling."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _key_path(tree[k], f"{prefix}[{k!r}]")
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        for name, v in zip(tree._fields, tree):
-            yield from _key_path(v, f"{prefix}.{name}")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _key_path(v, f"{prefix}[{i}]")
-    elif tree is not None:
-        yield prefix, tree
+from repro_torch.core.tree import key_leaves, tree_unflatten
 
 
 def _leaf_paths(tree) -> list[tuple[str, Any]]:
     out = []
-    for name, leaf in _key_path(tree):
+    for name, leaf in key_leaves(tree):
         fname = (
             name.replace("']['", ".").replace("['", "").replace("']", "")
             .replace("[", ".").replace("]", "").replace("/", "_")
         )
         out.append((fname, leaf))
     return out
-
-
-def _unflatten(tree, leaves):
-    """``tree``'s structure with its leaves replaced in flatten order."""
-    if isinstance(tree, dict):
-        out = {}
-        for k in sorted(tree):
-            out[k] = _unflatten(tree[k], leaves)
-        return type(tree)((k, out[k]) for k in tree)
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_unflatten(v, leaves) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_unflatten(v, leaves) for v in tree)
-    if tree is None:
-        return None
-    return next(leaves)
 
 
 def _to_host(leaf):
@@ -262,4 +233,4 @@ class CheckpointManager:
                 leaves.append(float(arr))
             else:
                 leaves.append(np.asarray(arr).astype(np.asarray(tmpl).dtype))
-        return _unflatten(template, iter(leaves)), step
+        return tree_unflatten(template, leaves), step

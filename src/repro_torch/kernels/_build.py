@@ -93,6 +93,19 @@ def signature(*tensors) -> tuple:
     return tuple((t.shape, t.stride(), t.dtype, t.device) for t in tensors)
 
 
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise when autograd would record a call of ``kernel``: it has no
+    backward (nor has the JAX package's Pallas kernel, so ``jax.grad``
+    fails there too), and its output would carry no gradient, so a loss
+    through it would train on zeros.  Checked on both routes, before any
+    launch."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward (neither has the JAX package's "
+            "Pallas kernel): autograd cannot differentiate through it; "
+            "train with attn_impl='blockwise' or 'reference'")
+
+
 def remember(key, plan):
     if len(PLANS) >= MAX_PLANS:
         PLANS.clear()

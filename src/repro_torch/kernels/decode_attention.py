@@ -36,7 +36,13 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import PLANS, launch_on, remember, signature
+from repro_torch.kernels._build import (
+    PLANS,
+    launch_on,
+    refuse_autograd,
+    remember,
+    signature,
+)
 from repro_torch.kernels.flash_attention import (
     DTYPES,
     _lib,
@@ -176,6 +182,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     """The same function through the CUDA kernel: one C call, which
     launches the split kernel and, with more than one split, the merge
     kernel.  The partials' workspace comes from ``torch.empty``."""
+    refuse_autograd("decode_attention", q, k_cache, v_cache)
     key = ("decode",) + signature(q, k_cache, v_cache, lengths)
     plan = PLANS.get(key) or remember(
         key, _decode_plan(q, k_cache, v_cache, lengths))
@@ -199,6 +206,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
 def decode_attention(q, k_cache, v_cache, lengths):
     """q: [B,H,D]; caches: [B,KV,S,D]; lengths: i32[B] -> [B,H,D]."""
     if q.device.type == "cpu":
+        refuse_autograd("decode_attention", q, k_cache, v_cache)
         return decode_attention_plain(q, k_cache, v_cache, lengths)
     if q.device.type == "cuda":
         return decode_attention_cuda(q, k_cache, v_cache, lengths)

@@ -30,7 +30,13 @@ import math
 
 import torch
 
-from repro_torch.kernels._build import PLANS, launch_on, remember, signature
+from repro_torch.kernels._build import (
+    PLANS,
+    launch_on,
+    refuse_autograd,
+    remember,
+    signature,
+)
 from repro_torch.kernels.ref import flash_attention_ref
 
 # Kernel launches since the last reset.  Only the CUDA route adds to it,
@@ -160,6 +166,7 @@ def _flash_plan(q, k, v):
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """The same function as one launch of the CUDA kernel."""
+    refuse_autograd("flash_attention", q, k, v)
     key = ("flash",) + signature(q, k, v)
     plan = PLANS.get(key) or remember(key, _flash_plan(q, k, v))
     launch, code, dims, strides, scale = plan
@@ -188,6 +195,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128):
     if T % block_q:
         raise ValueError(f"T={T} must be a multiple of block_q={block_q}")
     if q.device.type == "cpu":
+        refuse_autograd("flash_attention", q, k, v)
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal)

@@ -42,6 +42,7 @@ from repro_torch.kernels._build import (
     copy_width,
     launch_on,
     pointer_width,
+    refuse_autograd,
     remember,
     signature,
 )
@@ -205,6 +206,7 @@ def mamba_scan_cuda(xdt, dt, bc, cc, a):
     """The same function as one launch of the CUDA kernel.  The full
     checks run on the first call of a signature; later calls allocate,
     take the pointers' alignment and launch on the raw stream."""
+    refuse_autograd("mamba_scan", xdt, dt, bc, cc, a)
     key = ("mamba_scan",) + signature(xdt, dt, bc, cc, a)
     plan = PLANS.get(key) or remember(
         key, mamba_scan_launch_args(xdt, dt, bc, cc, a))
@@ -228,6 +230,7 @@ def mamba_scan(xdt, dt, bc, cc, a):
     """xdt/dt: [B,T,I]; bc/cc: [B,T,N]; a: [I,N] -> (y [B,T,I] f32,
     h_T [B,I,N] f32)."""
     if xdt.device.type == "cpu":
+        refuse_autograd("mamba_scan", xdt, dt, bc, cc, a)
         check_operands(xdt, dt, bc, cc, a)
         return mamba_scan_plain(xdt, dt, bc, cc, a)
     if xdt.device.type == "cuda":

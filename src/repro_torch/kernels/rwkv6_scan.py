@@ -43,6 +43,7 @@ from repro_torch.kernels._build import (
     copy_width,
     launch_on,
     pointer_width,
+    refuse_autograd,
     remember,
     signature,
 )
@@ -218,6 +219,7 @@ def rwkv6_scan_cuda(r, k, v, logw, u):
     """The same function as one launch of the CUDA kernel.  The full
     checks run on the first call of a signature; later calls allocate,
     take the pointers' alignment and launch on the raw stream."""
+    refuse_autograd("rwkv6_scan", r, k, v, logw, u)
     key = ("rwkv6_scan",) + signature(r, k, v, logw, u)
     plan = PLANS.get(key) or remember(
         key, rwkv6_scan_launch_args(r, k, v, logw, u))
@@ -241,6 +243,7 @@ def rwkv6_scan(r, k, v, logw, u):
     """r/k/v/logw: [B,H,T,K]; u: [H,K] -> (y [B,H,T,K] f32,
     S_T [B,H,K,K] f32)."""
     if r.device.type == "cpu":
+        refuse_autograd("rwkv6_scan", r, k, v, logw, u)
         check_operands(r, k, v, logw, u)
         return rwkv6_scan_plain(r, k, v, logw, u)
     if r.device.type == "cuda":

@@ -7,7 +7,7 @@ f32, or rounded once to the activation dtype — what ``proj_einsum``
 does with ``PREFER_F32_PROJ=True`` (that §Perf knob is not ported).
 Initializers draw from an explicit ``torch.Generator``.
 
-Not ported yet: ``apply_m_rope`` and ``cross_entropy_loss``.  The JAX
+Not ported yet: ``apply_m_rope`` (ROADMAP A14).  The JAX
 sharding constraints (``gather_head_for_unembed``, ``shard_batch_dim``)
 have no counterpart on one card.
 """
@@ -24,18 +24,22 @@ DEFAULT_DTYPE = torch.bfloat16
 
 def proj(x, w, out_dtype=None):
     """``x[..., d] @ w[d, f]`` accumulated in f32; returns f32, or the
-    f32 result rounded once to ``out_dtype``."""
+    f32 result rounded once to ``out_dtype``.
+
+    On the card a product that autograd records (a training step's)
+    takes the CPU's route, f32 operands: the mixed-dtype ``torch.mm(...,
+    out_dtype=)`` has no derivative."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x2.is_cuda:
-        if x2.dtype == w.dtype and (w.dtype == torch.float32
-                                    or out_dtype == w.dtype):
-            # cuBLAS accumulates a bf16 product in f32 and rounds once
-            # (LM turns off its reduced-precision split-K reductions);
-            # f32 operands give f32 (TF32 stays off by default).
-            y = x2 @ w
-        else:
-            y = torch.mm(x2, w, out_dtype=torch.float32)
+    if x2.is_cuda and x2.dtype == w.dtype and (w.dtype == torch.float32
+                                               or out_dtype == w.dtype):
+        # cuBLAS accumulates a bf16 product in f32 and rounds once
+        # (LM turns off its reduced-precision split-K reductions);
+        # f32 operands give f32 (TF32 stays off by default).
+        y = x2 @ w
+    elif x2.is_cuda and not (torch.is_grad_enabled()
+                             and (x2.requires_grad or w.requires_grad)):
+        y = torch.mm(x2, w, out_dtype=torch.float32)
     else:
         y = x2.float() @ w.float()
     y = y.reshape(*lead, w.shape[-1])
@@ -172,3 +176,19 @@ def embed_apply(embedding, tokens):
 def unembed_apply(embedding_or_head, x):
     """Logits in f32: ``x[..., d] · head[v, d]``."""
     return proj(x, embedding_or_head.t())
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy_loss(logits, labels, *, ignore_id: int = -1):
+    """Mean token NLL in f32; ``labels == ignore_id`` masked out, the
+    mean taken over ``max(sum(mask), 1)`` tokens."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels != ignore_id).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -5,12 +5,23 @@ with ``mlp``, ``moe`` and ``rwkv_cm`` FFNs: the dense GQA architectures
 (stablelm-12b, llama3-405b, phi4-mini, minicpm-2b), granite-moe
 (``(gqa, moe)``), rwkv6-1.6b (``(rwkv, rwkv_cm)``) and the jamba hybrid
 (``(gqa, mlp)``, ``(mamba, moe)``, ``(mamba, mlp)``, ...).  MLA layers,
-M-RoPE, ``remat`` and ``seq_parallel`` raise
-:class:`NotImplementedError`.  Entry points, as in the JAX package:
+M-RoPE and ``seq_parallel`` raise :class:`NotImplementedError`.  Entry
+points, as in the JAX package:
 
 * ``forward``      — full-sequence logits and the summed MoE aux loss;
+* ``loss``         — the training loss, ``ce + MOE_AUX_WEIGHT * aux``;
 * ``prefill``      — full sequence + the decode cache;
 * ``decode_step``  — one token against the cache.
+
+``forward``, ``prefill`` and ``decode_step`` build no graph, and the
+module's own parameters take no gradient.  ``loss`` runs with grad
+enabled on the leaves of a train state's param tree, which keeps the
+JAX layout (each stage's layers stacked ``[repeat, ...]``;
+:meth:`LM.stacked_params`, :meth:`LM.bind`); ``remat`` recomputes each
+pattern unit in the backward (``torch.utils.checkpoint``).  The
+kernels have no backward: under ``attn_impl="pallas"`` a loss against
+trainable leaves raises, as ``jax.grad`` fails through the Pallas
+kernels.
 
 The JAX ``lax.scan`` over stacked layer params becomes a Python loop
 over ``self.layers``.  The decode cache keeps the JAX layout: a dict of
@@ -41,6 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core.engine import resolve_device
@@ -53,6 +65,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import (
     DEFAULT_DTYPE,
+    cross_entropy_loss,
     dense_init,
     embed_apply,
     embed_init,
@@ -82,6 +95,7 @@ from repro_torch.models.ssm import (
 )
 
 ATTN_IMPLS = ("blockwise", "reference", "pallas")
+MOE_AUX_WEIGHT = 0.01
 MIXERS = ("gqa", "mamba", "rwkv")
 FFNS = ("mlp", "moe", "rwkv_cm")
 
@@ -261,49 +275,109 @@ class LM(nn.Module):
         return torch.arange(T, dtype=torch.int32,
                             device=tokens.device)[None, :].expand(B, T)
 
-    def _run_layers(self, x, positions, *, collect_cache=False):
-        """-> (x, the summed MoE aux loss (f32 scalar), per-layer cache
-        entries: {"k", "v"} for GQA, {"h", "conv"} for Mamba, {"x_att",
-        "S"} and {"x_ffn"} for RWKV; empty unless ``collect_cache``)."""
+    def _layer_views(self) -> list:
+        """Each layer's parameter groups (``mixer_norm``, ``mixer``,
+        ``ffn_norm``, ``ffn``) from the module, in layer order."""
+        return [{"mixer_norm": lp.mixer_norm, "mixer": lp.mixer,
+                 "ffn_norm": lp.ffn_norm, "ffn": lp.ffn}
+                for lp in self.layers]
+
+    def bind(self, params) -> dict:
+        """A JAX-layout param tree (``stages[s]['l{j}']`` leaves stacked
+        ``[repeat, ...]``, as :meth:`stacked_params` makes and the JAX
+        ``LM.init`` holds) -> ``{"embed", "head", "final_norm",
+        "layers"}`` read as the module's own weights are: ``layers`` has
+        each layer's groups as views of the stacked leaves, taken with
+        one ``unbind`` a leaf, so autograd gathers a leaf's gradient in
+        one ``stack``."""
         cfg = self.cfg
+        units = [{lj: _unstack(unit, repeat) for lj, unit in stage.items()}
+                 for (_, repeat), stage in zip(self.stages,
+                                               params["stages"])]
+        layers = [units[si][lj][i] for si, i, lj, _ in _layer_keys(cfg)]
+        return {"embed": params["embed"],
+                "head": params["embed"] if cfg.tie_embeddings
+                else params["head"],
+                "final_norm": params["final_norm"], "layers": layers}
+
+    def _own(self) -> dict:
+        """:meth:`bind`'s result for the module's own weights."""
+        return {"embed": self.embed, "head": self._head(),
+                "final_norm": self.final_norm, "layers": self._layer_views()}
+
+    def _layer_full(self, spec, lp, x, positions, aux):
+        """One layer over the full sequence -> (x, aux, cache entries:
+        {"k", "v"} for GQA, {"h", "conv"} for Mamba, {"x_att", "S",
+        "x_ffn"} for RWKV)."""
+        cfg = self.cfg
+        c = {}
+        h = self.norm_apply(lp["mixer_norm"], x, eps=cfg.norm_eps)
+        if spec.mixer == "gqa":
+            y, (c["k"], c["v"]) = gqa_apply(
+                lp["mixer"], h, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, positions=positions,
+                causal=cfg.causal, rope_theta=cfg.rope_theta,
+                impl=self.attn_impl, q_block=cfg.attn_q_block,
+                kv_block=cfg.attn_kv_block)
+        elif spec.mixer == "mamba":
+            mm = cfg.mamba
+            y, (c["h"], c["conv"]) = mamba_apply(
+                lp["mixer"], h, d_state=mm.d_state, d_conv=mm.d_conv,
+                chunk=mm.chunk, return_state=True, impl=self.attn_impl)
+        else:
+            y, (c["x_att"], c["S"]) = rwkv6_attn(
+                lp["mixer"], h, head_dim=cfg.rwkv_head_dim,
+                chunk=cfg.rwkv_chunk, return_state=True,
+                impl=self.attn_impl)
+        x = x + y
+        h = self.norm_apply(lp["ffn_norm"], x, eps=cfg.norm_eps)
+        if spec.ffn == "mlp":
+            y = mlp_apply(lp["ffn"], h, activation=cfg.activation)
+        elif spec.ffn == "moe":
+            mo = cfg.moe
+            y, aux_l = moe_apply(
+                lp["ffn"], h, num_experts=mo.num_experts, top_k=mo.top_k,
+                capacity_factor=mo.capacity_factor,
+                activation=cfg.activation)
+            aux = aux + aux_l
+        else:
+            y, c["x_ffn"] = rwkv6_channel_mix(lp["ffn"], h,
+                                              return_state=True)
+        return x + y, aux, c
+
+    def _run_layers(self, x, positions, *, layers=None, collect_cache=False,
+                    remat=False):
+        """-> (x, the summed MoE aux loss (f32 scalar), per-layer cache
+        entries, empty unless ``collect_cache``).  ``layers``: each
+        layer's parameter groups (the module's own when ``None``).
+
+        ``remat`` (with grad enabled) runs each pattern unit, the JAX
+        package's scanned unit, under ``torch.utils.checkpoint``: its
+        activations are recomputed in the backward, as JAX's
+        ``nothing_saveable`` policy does."""
+        layers = self._layer_views() if layers is None else layers
+        specs = [spec for pattern, repeat in self.stages
+                 for _ in range(repeat) for spec in pattern]
         caches = []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for lp in self.layers:
-            c = {}
-            h = self.norm_apply(lp.mixer_norm, x, eps=cfg.norm_eps)
-            if lp.spec.mixer == "gqa":
-                y, (c["k"], c["v"]) = gqa_apply(
-                    lp.mixer, h, num_heads=cfg.num_heads,
-                    num_kv_heads=cfg.num_kv_heads,
-                    head_dim=cfg.resolved_head_dim, positions=positions,
-                    causal=cfg.causal, rope_theta=cfg.rope_theta,
-                    impl=self.attn_impl, q_block=cfg.attn_q_block,
-                    kv_block=cfg.attn_kv_block)
-            elif lp.spec.mixer == "mamba":
-                mm = cfg.mamba
-                y, (c["h"], c["conv"]) = mamba_apply(
-                    lp.mixer, h, d_state=mm.d_state, d_conv=mm.d_conv,
-                    chunk=mm.chunk, return_state=True, impl=self.attn_impl)
-            else:
-                y, (c["x_att"], c["S"]) = rwkv6_attn(
-                    lp.mixer, h, head_dim=cfg.rwkv_head_dim,
-                    chunk=cfg.rwkv_chunk, return_state=True,
-                    impl=self.attn_impl)
-            x = x + y
-            h = self.norm_apply(lp.ffn_norm, x, eps=cfg.norm_eps)
-            if lp.spec.ffn == "mlp":
-                y = mlp_apply(lp.ffn, h, activation=cfg.activation)
-            elif lp.spec.ffn == "moe":
-                mo = cfg.moe
-                y, aux_l = moe_apply(
-                    lp.ffn, h, num_experts=mo.num_experts, top_k=mo.top_k,
-                    capacity_factor=mo.capacity_factor,
-                    activation=cfg.activation)
-                aux = aux + aux_l
-            else:
-                y, c["x_ffn"] = rwkv6_channel_mix(lp.ffn, h,
-                                                  return_state=True)
-            x = x + y
+        if remat and torch.is_grad_enabled():
+            li = 0
+            for pattern, repeat in self.stages:
+                for _ in range(repeat):
+                    unit = list(range(li, li + len(pattern)))
+                    li += len(pattern)
+
+                    def body(x, aux, unit=unit):
+                        for i in unit:
+                            x, aux, _ = self._layer_full(
+                                specs[i], layers[i], x, positions, aux)
+                        return x, aux
+
+                    x, aux = checkpoint(body, x, aux, use_reentrant=False)
+            return x, aux, caches
+        for spec, lp in zip(specs, layers):
+            x, aux, c = self._layer_full(spec, lp, x, positions, aux)
             if collect_cache:
                 caches.append(c)
         return x, aux, caches
@@ -316,18 +390,69 @@ class LM(nn.Module):
         ids = torch.arange(cfg.padded_vocab, device=logits.device)
         return torch.where(ids < cfg.vocab_size, logits, -1e30)
 
+    def _logits(self, tokens, p, *, remat=False):
+        cfg = self.cfg
+        x = embed_apply(p["embed"], tokens)
+        x, aux, _ = self._run_layers(x, self._positions(tokens),
+                                     layers=p["layers"], remat=remat)
+        x = self.norm_apply(p["final_norm"], x, eps=cfg.norm_eps)
+        return self._mask_pad(unembed_apply(p["head"], x)), aux
+
     @torch.no_grad()
     def forward(self, tokens, *, remat: bool = False):
         """tokens: i32[B,T] -> (logits [B,T,V] f32, moe_aux f32: the
-        Switch aux losses of the MoE layers, summed; 0 without any)."""
-        if remat:
-            raise NotImplementedError("remat is not ported to repro_torch")
-        cfg = self.cfg
-        x = embed_apply(self.embed, tokens)
-        x, aux, _ = self._run_layers(x, self._positions(tokens))
-        x = self.norm_apply(self.final_norm, x, eps=cfg.norm_eps)
-        logits = self._mask_pad(unembed_apply(self._head(), x))
-        return logits, aux
+        Switch aux losses of the MoE layers, summed; 0 without any).
+        No graph is built (the serving paths' forward)."""
+        return self._logits(tokens, self._own(), remat=remat)
+
+    def loss(self, batch: dict, *, params, remat: bool = False):
+        """batch: {'tokens', 'labels'} -> scalar f32 loss, ``ce +
+        MOE_AUX_WEIGHT * aux``; causal models shift internally (labels
+        may equal tokens), encoders predict labels frame-wise.
+
+        Runs with grad enabled.  ``params``: a JAX-layout tree whose
+        leaves the caller differentiates against (:meth:`bind`; the train
+        step's leaves), as JAX's ``loss(params, batch)`` takes them.
+        ``embeds`` and M-RoPE ``positions`` are not ported (ROADMAP
+        A14)."""
+        for name in ("embeds", "positions"):
+            if batch.get(name) is not None:
+                raise NotImplementedError(
+                    f"batch[{name!r}] is not ported to repro_torch "
+                    "(ROADMAP A14)")
+        p = self.bind(params)
+        with torch.enable_grad():
+            logits, aux = self._logits(batch["tokens"], p, remat=remat)
+            labels = batch["labels"]
+            if self.cfg.causal:
+                logits = logits[:, :-1]
+                labels = labels[:, 1:]
+            return cross_entropy_loss(logits, labels) + MOE_AUX_WEIGHT * aux
+
+    @torch.no_grad()
+    def stacked_params(self) -> dict:
+        """The module's weights as the JAX ``LM.init`` pytree: ``embed``,
+        ``final_norm``, ``head`` (untied models), and ``stages`` with
+        each stage's layers stacked on a leading ``[repeat]`` axis;
+        copies on the model's device, same dtypes."""
+        tree = {"embed": self.embed.clone(),
+                "final_norm": {k: t.clone()
+                               for k, t in self.final_norm.items()},
+                "stages": []}
+        if not self.cfg.tie_embeddings:
+            tree["head"] = self.head.clone()
+        stacks: dict = {}
+        for si, _, lj, li in _layer_keys(self.cfg):
+            for name, t in self.layers[li].named_parameters():
+                stacks.setdefault((si, lj, tuple(name.split("."))),
+                                  []).append(t)
+        for si, (pattern, _) in enumerate(self.stages):
+            unit = {f"l{j}": {} for j in range(len(pattern))}
+            for (s, lj, path), ts in stacks.items():
+                if s == si:
+                    _set_path(unit[lj], path, torch.stack(ts))
+            tree["stages"].append(unit)
+        return tree
 
     # ------------------------------------------------------------------
     # Decode cache
@@ -530,6 +655,17 @@ def params_from_jax(cfg: ArchConfig, tree) -> dict:
                 state[f"layers.{li}.{group}.{path}"] = _to_tensor(
                     np.asarray(a)[i])
     return state
+
+
+def _unstack(tree: dict, n: int) -> list:
+    """A nested dict of ``[n, ...]`` leaves -> ``n`` nested dicts of
+    views, one ``unbind`` a leaf."""
+    out: list = [{} for _ in range(n)]
+    for name, a in tree.items():
+        parts = _unstack(a, n) if isinstance(a, dict) else a.unbind(0)
+        for i in range(n):
+            out[i][name] = parts[i]
+    return out
 
 
 def _set_path(tree: dict, path, value) -> None:
