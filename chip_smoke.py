@@ -25,9 +25,13 @@ Phases, each printed on its own line:
    element one bf16 rounding from the plain version's at most:
    ``BF16_ROUNDING``), every output finite, at the serving paths' head
    layouts (stablelm-12b: H 32, KV 8, head_dim 160; jamba: H 64, KV 8,
-   head_dim 128, flash at its exact prompt lengths; hubert-xlarge: H 16,
-   KV 16, head_dim 80, bidirectional, T = S = 499 and 32), every head
-   dim from 16 to 256 in steps of 16 on the route each dtype takes, and
+   head_dim 128, flash at its exact prompt lengths, and qwen2-vl's, the
+   same heads, at phase vlm's T 256; hubert-xlarge: H 16, KV 16,
+   head_dim 80, bidirectional, T = S = 499 and 32; deepseek's MLA
+   prefill: H = KV = 16, qk head dim 192 with v zero past its 128
+   columns, causal, T 4, 16, 32 and 2048, the padded output columns 0),
+   every head dim from 16 to 256 in steps of 16 on the route each dtype
+   takes, and
    the designs' edges (``FLASH_SHAPES``, ``DECODE_SHAPES``: T off the
    query tile, G 1 to 16, S != T, decode lengths at split boundaries and
    0 beside long ones); a sequence of length 0 must come out 0.  The
@@ -205,14 +209,37 @@ Phases, each printed on its own line:
    choices (its own choices are compared and each difference printed
    with its margins), every logit row must reach a cosine of 0.999, and
    the mamba layer's output, kernel against plain, 0.9999.
+6c2. serve_deepseek — deepseek-v2-lite-16b at full width and depth (27
+   layers: ``(mla, mlp)``, then 26 ``(mla, moe)`` with 64 experts top-6
+   and 2 shared; MLA kv_lora_rank 512, qk head dim 128 + 64, v 128:
+   15.7 B parameters in bf16) through the same launcher with the same
+   defaults.  Every request must finish, with ``flash_attention``
+   launched 2 * layers * prefills times (MLA prefill at qk head dim 192)
+   and no other kernel (the absorbed decode over the 512 + 64 latent
+   cache is plain torch, as in JAX); the cache must hold ``ckv`` and
+   ``kr`` only, 31,104 bytes a token.  Then the teacher-forced check
+   against ``blockwise`` with the routing teacher-forced, as 6c's.
+6c3. vlm — qwen2-vl-72b cut to its first 2 of 80 layers at full width
+   (d_model 8192, 64 heads, 8 KV heads, head_dim 128, M-RoPE sections
+   (16, 24, 24), d_ff 29568: 4.2 B parameters): (a) ``prefill`` from
+   seeded patch embeddings ``[1, 256, 8192]`` on a three-stream grid (64
+   text positions, then a 2 x 8 x 12 image block), ``flash_attention``
+   launched once a layer and no other kernel, then ``forward`` on the
+   same input; every logit row, the prefill's last row and the K/V cache
+   must reach a cosine of 0.999 against ``blockwise``; (b) the serve
+   launcher's defaults (text tokens): ``flash_attention`` 2 * layers *
+   prefills, ``decode_attention`` layers * decode events, run under
+   torch's CUDA sync debug mode ("warn"): every synchronizing call is
+   printed by its line, and none may come from outside the engine (the
+   model's M-RoPE, attention and kernels wait on nothing).
 6d. hubert — hubert-xlarge at full width (d_model 1280, 16 heads of 80,
    d_ff 5120, layernorm, gelu, bidirectional), depth cut to 2 of its 48
    layers, bf16, random weights from seed 0: ``LM(cfg,
-   attn_impl="pallas").forward`` on one sequence of 512 token positions
-   (the port's ``LM`` takes tokens through the 504-entry table, not
-   frame embeddings) against ``attn_impl="blockwise"`` on the same
-   weights.  Every row's logits must reach a cosine of 0.999, with
-   ``flash_attention`` launched once a layer and no other kernel.
+   attn_impl="pallas").forward(embeds=...)`` on seeded frame embeddings
+   ``[1, 512, 1280]`` against ``attn_impl="blockwise"`` on the same
+   weights.  Every row's logits must reach a cosine of 0.999 (over the
+   504 vocabulary entries), with ``flash_attention`` launched once a
+   layer and no other kernel.
 6e. train — the training path (``repro_torch.training``,
    ``repro_torch.launch.train``), which launches no kernel (JAX's runs
    ``blockwise`` attention and no Pallas kernel): (a) granite-moe-1b-a400m
@@ -228,8 +255,9 @@ Phases, each printed on its own line:
    7: one restart, one mitigation, 10 steps run, ``opt.step`` 8, the
    first replayed loss bit-identical to the first pass's, later ones
    within 1e-3; a checkpoint's bytes, save and restore seconds; (c) one
-   microbatched, rematerialized step of the reduced granite and
-   stablelm on the card and on the CPU from one f32 state and batch
+   microbatched, rematerialized step of the reduced granite, stablelm,
+   deepseek (MLA) and hubert (an ``embeds`` batch of the data pipeline)
+   on the card and on the CPU from one f32 state and batch
    (loss, grad norm and every leaf within the ``CARD_*`` tolerances,
    printed beside the worst errors), and a step with gradient
    compression; (d) ``LM(cfg, attn_impl="pallas").loss`` against
@@ -244,7 +272,9 @@ Phases, each printed on its own line:
    the f32 operations it must do and its exps on the special-function
    units, and, for
    attention, one ``scaled_dot_product_attention`` call on the same
-   inputs, timed both ways (``library_ms``, ``library_device_ms``);
+   inputs, timed both ways (``library_ms``, ``library_device_ms``),
+   flash also at deepseek's MLA layout (T 16, 32 and 2048; the record
+   at the serving bucket, T 32);
    ``rwkv6_scan`` and ``mamba_scan`` at the serving prefill's T 16 and at
    T 2048 (no PyTorch call computes either); the queue kernels also in
    their spill and stream modes (``fenced_device_ms``,
@@ -252,9 +282,9 @@ Phases, each printed on its own line:
 
 Each path (PHOLD, each run of PHOLD fused, PoC, the M/M/c network and
 the admission scenario, the segmented runs, the host runs, the
-analyses and the static fused runs, each served model, hubert's
-forward, the training phase) runs with every kernel's launch count set
-to 0 just before it and read just after.
+analyses and the static fused runs, each served model, qwen2-vl's
+embeds prefill, hubert's forward, the training phase) runs with every
+kernel's launch count set to 0 just before it and read just after.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
@@ -383,6 +413,27 @@ HUBERT_LAYERS = 2          # of 48
 # frames of 10 s run through the kernel directly (FLASH_SHAPES).
 HUBERT_T = 512
 
+# Phase serve_deepseek: deepseek-v2-lite-16b at full width and depth
+# (arXiv:2405.04434, hf deepseek-ai/DeepSeek-V2-Lite): 27 layers, MLA
+# (kv_lora_rank 512, qk_nope 128, qk_rope 64, v 128), 64 experts top-6
+# and 2 shared, the first layer dense.
+DEEPSEEK = "deepseek-v2-lite-16b"
+# Phase vlm: qwen2-vl-72b (arXiv:2409.12191, hf Qwen/Qwen2-VL-72B) cut to
+# its first VLM_LAYERS layers at full width; (a) feeds VLM_T frame
+# embeddings: VLM_TEXT text positions, then an image block of
+# VLM_IMAGE (t, h, w) patches, so the three M-RoPE streams differ.
+VLM = "qwen2-vl-72b"
+VLM_LAYERS = 2             # of 80
+VLM_TEXT = 64
+VLM_IMAGE = (2, 8, 12)
+VLM_T = VLM_TEXT + VLM_IMAGE[0] * VLM_IMAGE[1] * VLM_IMAGE[2]   # 256
+# The MLA prefill's flash layout (deepseek: H = KV = 16, qk head dim
+# 128 + 64, v zero-padded from 128): the serve launcher's prompt lengths
+# (4-16), its bucket (32) and T 2048.
+MLA_FLASH = [(1, 16, 16, T, T, 192, True) for T in (4, 16, 32, 2048)]
+MLA_V_DIM = 128
+MLA_ROPE_DIM = 64       # the one rope key all heads share
+
 # The serving path's attention shapes (stablelm-12b: 32 heads, 8 KV
 # heads, head_dim 160) and the designs' edges: (B, H, KV, T, S, D,
 # causal) for flash -- T off the 128-row tile (7, 16, 100, 499, 1000), G
@@ -403,6 +454,8 @@ FLASH_SHAPES = [(1, 32, 8, 32, 32, 160, True), (1, 32, 8, 128, 128, 160, True),
                 (1, 16, 16, HUBERT_T, HUBERT_T, 80, False),
                 (1, 16, 16, 499, 499, 80, False),
                 (1, 16, 16, 32, 32, 80, False),
+                # qwen2-vl's prefill in phase vlm (a): jamba's heads at VLM_T
+                (1, 64, 8, VLM_T, VLM_T, 128, True),
                 (2, 32, 8, 100, 100, 160, True),
                 (1, 8, 8, 1000, 1000, 64, True),
                 (1, 32, 8, 100, 300, 160, False),
@@ -786,19 +839,27 @@ def check_attention() -> dict:
                              "one bf16 rounding from the plain version's")
 
     sweep = [(1, 6, 2, 100, 100, D, D % 32 == 0) for D in FLASH_HEAD_DIMS]
+    mla = len(FLASH_SHAPES) + len(sweep)
     for dtype in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL[str(dtype).split(".")[1]]
-        for B, H, KV, T, S, D, causal in FLASH_SHAPES + sweep:
+        for i, (B, H, KV, T, S, D, causal) in enumerate(
+                FLASH_SHAPES + sweep + MLA_FLASH):
             q = _randn(gen, (B, T, H, D), dtype).transpose(1, 2)
             k = _randn(gen, (B, S, KV, D), dtype).transpose(1, 2)
             v = _randn(gen, (B, S, KV, D), dtype).transpose(1, 2)
+            if i >= mla:            # MLA's v, zero past its 128 columns
+                v[..., MLA_V_DIM:] = 0
             label = (f"flash {str(dtype)[6:]} B{B} H{H} KV{KV} T{T} S{S} "
                      f"D{D} {'causal' if causal else 'full'} "
+                     f"{'mla ' if i >= mla else ''}"
                      f"{fa.flash_route(dtype, D)}")
             got = fa.flash_attention_cuda(q, k, v, causal=causal)
             want = fa.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
             gate("flash_attention", label, got, want, tol, dtype)
+            if i >= mla and bool(got[..., MLA_V_DIM:].any()):
+                raise PhaseError(f"flash_attention {label}: the padded "
+                                 "v columns came out non-zero")
         for B, H, KV, S, D, lengths in DECODE_SHAPES:
             if lengths == "edges":
                 lengths = _edge_lengths(B, KV, S)
@@ -2275,137 +2336,191 @@ def run_sharded(device_name: str, base, base_counts, hot, admit,
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: serving stablelm-12b at full width
+# Phase 6: serving at full width
 # ---------------------------------------------------------------------------
 
-def run_serve() -> dict:
-    """Serve launcher's defaults on the card; returns the attention
-    kernels' launches in that run."""
+# Where the serving path may wait on the card: the engine's own host
+# reads (one a decode batch) and the copies it makes of the host's
+# token ids; a model or kernel that synchronizes does so unseen by
+# ``ServeStats.host_reads``.
+SYNC_ALLOWED = ("repro_torch/serving/", "repro_torch/launch/")
+
+
+def sync_sites(fn):
+    """``fn()`` under torch's CUDA sync debug mode "warn" -> (its result,
+    ``{"file:line": count}`` of the synchronizing CUDA calls it made (a
+    read to the host, a blocking copy, a stream wait), each at the
+    innermost line of ``repro_torch`` on the stack when it was made.
+    The mode's own switches are left out: one reported a sync on the
+    H100 with no line of ``repro_torch`` on its stack."""
+    import collections
+    import warnings
+
     import torch
 
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
+    sites = collections.Counter()
+    inside = False
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not inside or "synchronizing" not in str(message):
+            return
+        frame = sys._getframe(1)
+        while frame and "/repro_torch/" not in frame.f_code.co_filename:
+            frame = frame.f_back
+        if frame:
+            filename, lineno = frame.f_code.co_filename, frame.f_lineno
+        path = pathlib.Path(filename).resolve()
+        if path.is_relative_to(ROOT):
+            path = path.relative_to(ROOT)
+        sites[f"{path}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        inside = True
+        try:
+            out = fn()
+        finally:
+            inside = False
+            torch.cuda.set_sync_debug_mode("default")
+    return out, dict(sites)
+
+
+def serve_counted(model, args, want_of, label: str, *,
+                  sync_free: bool = False):
+    """Drive ``launch.serve.serve`` on ``model`` with every kernel's
+    count zeroed just before and read just after; gate that every
+    request finished, one host read a decode batch, and the launches
+    ``want_of(stats)`` (``{name: count}``; every other kernel 0).  With
+    ``sync_free`` the run goes under :func:`sync_sites` and no
+    synchronizing call may come from outside ``SYNC_ALLOWED`` (each site
+    is printed).  Returns (engine, stats, launches, peak device bytes
+    since the caller's last reset, seconds)."""
+    import torch
+
     from repro_torch.launch import serve
 
-    args = serve.parse_args(SERVE_ARGS)
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = serve.build_model(args)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    cfg = model.cfg
-    param_bytes = sum(p.numel() * p.element_size()
-                      for p in model.parameters())
-
-    # The main path: counts are zeroed just before and read just after.
     reset_launches()
-    engine = serve.serve(model, args)
+    if sync_free:
+        engine, sites = sync_sites(lambda: serve.serve(model, args))
+    else:
+        engine, sites = serve.serve(model, args), None
     torch.cuda.synchronize()
     every = read_launches()
-    launches = {name: every[name] for name in (*fa.LAUNCHES, *da.LAUNCHES)}
+    seconds = time.perf_counter() - t0
     stats = engine.stats
-    peak = torch.cuda.max_memory_allocated()
-
     problems = []
+    if sites is not None:
+        hidden = {k: n for k, n in sites.items()
+                  if not any(a in k for a in SYNC_ALLOWED)}
+        phase("syncs", label=label.replace(" ", "_"),
+              engine=sum(sites.values()) - sum(hidden.values()),
+              hidden=sum(hidden.values()),
+              decode_batches=stats.decode_batches,
+              sites=json.dumps(sites, separators=(",", ":")))
+        if hidden:
+            problems.append(f"synchronizing calls outside the engine: "
+                            f"{hidden}")
     done = sum(r.done for r in engine.requests.values())
     if done != args.requests or len(engine.requests) != args.requests:
         problems.append(f"{done} of {args.requests} requests done")
-    L = mixer_layers(cfg).get("gqa", 0)
-    if launches["flash_attention"] != 2 * L * stats.prefills:
-        problems.append(f"flash_attention launched "
-                        f"{launches['flash_attention']} times for "
-                        f"{stats.prefills} prefills of {L} gqa layers")
-    if launches["decode_attention"] != L * stats.decode_events:
-        problems.append(f"decode_attention launched "
-                        f"{launches['decode_attention']} times for "
-                        f"{stats.decode_events} decode events of {L} gqa "
-                        "layers")
+    want = {name: 0 for name in every}
+    want.update(want_of(stats))
+    if every != want:
+        problems.append(f"launches {every}, expected {want} for "
+                        f"{stats.prefills} prefills and "
+                        f"{stats.decode_events} decode events")
     if stats.host_reads != stats.decode_batches:
         problems.append(f"{stats.host_reads} host reads in "
                         f"{stats.decode_batches} decode batches")
-    others = {n: c for n, c in every.items() if n not in launches and c}
-    if others:
-        problems.append(f"other kernels launched: {others}")
     if problems:
-        raise PhaseError("serve: " + "; ".join(problems))
+        raise PhaseError(f"{label}: " + "; ".join(problems))
+    return engine, stats, every, torch.cuda.max_memory_allocated(), seconds
+
+
+def _serve_fields(engine, stats, params: int, param_bytes: int) -> dict:
     tokens = sum(len(r.output) for r in engine.requests.values())
+    return dict(
+        params=params, param_bytes=param_bytes,
+        requests=sum(r.done for r in engine.requests.values()),
+        tokens=tokens, decode_events=stats.decode_events,
+        fused_batches=stats.fused_batches, singles=stats.singles,
+        prefills=stats.prefills, wall_s=f"{stats.wall_seconds:.3f}",
+        prefill_ms_per_request=f"{stats.prefill_seconds / stats.prefills * 1e3:.3f}",
+        decode_ms_per_token_step=f"{stats.decode_seconds / stats.decode_events * 1e3:.3f}",
+        generated_tokens_per_s=f"{tokens / stats.wall_seconds:.2f}",
+        host_reads_per_decode_batch=f"{stats.host_reads / stats.decode_batches:.3f}",
+        weight_read_bound_ms=f"{param_bytes / HBM_BYTES_PER_S * 1e3:.3f}")
+
+
+def _fresh_card() -> None:
+    """Collect the models of the phases before (engines hold theirs in
+    reference cycles), so a phase's peak is its own."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _build_timed(build):
+    """``build()`` on a collected card -> (model, init seconds, parameters,
+    parameter bytes)."""
+    import torch
+
+    _fresh_card()
+    t0 = time.perf_counter()
+    model = build()
+    torch.cuda.synchronize()
+    return (model, time.perf_counter() - t0,
+            sum(p.numel() for p in model.parameters()),
+            sum(p.numel() * p.element_size() for p in model.parameters()))
+
+
+def run_serve() -> dict:
+    """stablelm-12b with the serve launcher's defaults on the card;
+    returns the attention kernels' launches in that run."""
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(SERVE_ARGS)
+    model, init_s, params, param_bytes = _build_timed(
+        lambda: serve.build_model(args))
+    cfg = model.cfg
+    L = mixer_layers(cfg).get("gqa", 0)
+    engine, stats, every, peak, _ = serve_counted(
+        model, args, lambda st: {"flash_attention": 2 * L * st.prefills,
+                                 "decode_attention": L * st.decode_events},
+        "serve")
     phase("serve", arch=cfg.name, layers=L, d_model=cfg.d_model,
-          head_dim=cfg.resolved_head_dim, params=sum(
-              p.numel() for p in model.parameters()),
-          param_bytes=param_bytes, init_s=f"{init_s:.3f}",
-          max_memory_allocated=peak, requests=done, tokens=tokens,
-          decode_events=stats.decode_events,
-          fused_batches=stats.fused_batches, singles=stats.singles,
-          prefills=stats.prefills, wall_s=f"{stats.wall_seconds:.3f}",
-          prefill_ms_per_request=f"{stats.prefill_seconds / stats.prefills * 1e3:.3f}",
-          decode_ms_per_token_step=f"{stats.decode_seconds / stats.decode_events * 1e3:.3f}",
-          generated_tokens_per_s=f"{tokens / stats.wall_seconds:.2f}",
-          host_reads_per_decode_batch=f"{stats.host_reads / stats.decode_batches:.3f}",
-          weight_read_bound_ms=f"{param_bytes / HBM_BYTES_PER_S * 1e3:.3f}",
-          launches=json.dumps(launches, separators=(",", ":")))
+          head_dim=cfg.resolved_head_dim, init_s=f"{init_s:.3f}",
+          max_memory_allocated=peak,
+          **_serve_fields(engine, stats, params, param_bytes),
+          launches=json.dumps(every, separators=(",", ":")))
     teacher_force(model, "reference")
-    return launches
+    return {name: every[name]
+            for name in ("flash_attention", "decode_attention")}
 
 
 def run_serve_rwkv() -> dict:
     """rwkv6-1.6b with the serve launcher's defaults on the card;
     returns ``rwkv6_scan``'s launches in that run."""
-    import torch
-
     from repro_torch.launch import serve
 
     args = serve.parse_args(RWKV_SERVE_ARGS)
-    # The stablelm engine holds its model in a reference cycle (handlers
-    # bound to the engine): collect it so the peak below is rwkv6's own.
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = serve.build_model(args)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    model, init_s, params, param_bytes = _build_timed(
+        lambda: serve.build_model(args))
     cfg = model.cfg
-    param_bytes = sum(p.numel() * p.element_size()
-                      for p in model.parameters())
-
-    # The main path: counts are zeroed just before and read just after.
-    reset_launches()
-    engine = serve.serve(model, args)
-    torch.cuda.synchronize()
-    every = read_launches()
-    stats = engine.stats
-    peak = torch.cuda.max_memory_allocated()
-
-    problems = []
-    done = sum(r.done for r in engine.requests.values())
-    if done != args.requests or len(engine.requests) != args.requests:
-        problems.append(f"{done} of {args.requests} requests done")
     L = mixer_layers(cfg).get("rwkv", 0)
-    want = {name: 0 for name in every}
-    want["rwkv6_scan"] = 2 * L * stats.prefills
-    if every != want:
-        problems.append(f"launches {every}, expected {want} for "
-                        f"{stats.prefills} prefills of {L} layers")
-    if stats.host_reads != stats.decode_batches:
-        problems.append(f"{stats.host_reads} host reads in "
-                        f"{stats.decode_batches} decode batches")
-    if problems:
-        raise PhaseError("serve_rwkv: " + "; ".join(problems))
-    tokens = sum(len(r.output) for r in engine.requests.values())
+    engine, stats, every, peak, _ = serve_counted(
+        model, args, lambda st: {"rwkv6_scan": 2 * L * st.prefills},
+        "serve_rwkv")
     phase("serve_rwkv", arch=cfg.name, layers=L, d_model=cfg.d_model,
           heads=cfg.d_model // cfg.rwkv_head_dim,
-          head_dim=cfg.rwkv_head_dim,
-          params=sum(p.numel() for p in model.parameters()),
-          param_bytes=param_bytes, init_s=f"{init_s:.3f}",
-          max_memory_allocated=peak, requests=done, tokens=tokens,
-          decode_events=stats.decode_events,
-          fused_batches=stats.fused_batches, singles=stats.singles,
-          prefills=stats.prefills, wall_s=f"{stats.wall_seconds:.3f}",
-          prefill_ms_per_request=f"{stats.prefill_seconds / stats.prefills * 1e3:.3f}",
-          decode_ms_per_token_step=f"{stats.decode_seconds / stats.decode_events * 1e3:.3f}",
-          generated_tokens_per_s=f"{tokens / stats.wall_seconds:.2f}",
-          host_reads_per_decode_batch=f"{stats.host_reads / stats.decode_batches:.3f}",
-          weight_read_bound_ms=f"{param_bytes / HBM_BYTES_PER_S * 1e3:.3f}",
+          head_dim=cfg.rwkv_head_dim, init_s=f"{init_s:.3f}",
+          max_memory_allocated=peak,
+          **_serve_fields(engine, stats, params, param_bytes),
           launches=json.dumps(every, separators=(",", ":")))
     teacher_force_rwkv(model)
     return {"rwkv6_scan": every["rwkv6_scan"]}
@@ -2428,56 +2543,23 @@ def jamba_truncation():
 def run_serve_jamba() -> dict:
     """The jamba truncation with the serve launcher's defaults on the
     card; returns the kernels' launches in that run."""
-    import torch
-
     from repro_torch.launch import serve
     from repro_torch.models import LM
 
     args = serve.parse_args(["--arch", JAMBA])
-    # The engines before hold their models in reference cycles: collect
-    # them so the peak below is jamba's own.
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     cfg = jamba_truncation()
-    t0 = time.perf_counter()
-    model = LM(cfg, attn_impl="pallas").init(args.seed)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    params = sum(p.numel() for p in model.parameters())
-    param_bytes = sum(p.numel() * p.element_size()
-                      for p in model.parameters())
-
-    # The main path: counts are zeroed just before and read just after.
-    reset_launches()
-    engine = serve.serve(model, args)
-    torch.cuda.synchronize()
-    every = read_launches()
-    stats = engine.stats
-    peak = torch.cuda.max_memory_allocated()
-
-    problems = []
-    done = sum(r.done for r in engine.requests.values())
-    if done != args.requests or len(engine.requests) != args.requests:
-        problems.append(f"{done} of {args.requests} requests done")
+    model, init_s, params, param_bytes = _build_timed(
+        lambda: LM(cfg, attn_impl="pallas").init(args.seed))
     layers = mixer_layers(cfg)
-    want = {name: 0 for name in every}
-    want["mamba_scan"] = 2 * layers.get("mamba", 0) * stats.prefills
-    want["flash_attention"] = 2 * layers.get("gqa", 0) * stats.prefills
-    want["decode_attention"] = layers.get("gqa", 0) * stats.decode_events
-    if every != want:
-        problems.append(f"launches {every}, expected {want} for "
-                        f"{stats.prefills} prefills and "
-                        f"{stats.decode_events} decode events of {layers}")
-    if stats.host_reads != stats.decode_batches:
-        problems.append(f"{stats.host_reads} host reads in "
-                        f"{stats.decode_batches} decode batches")
+    engine, stats, every, peak, _ = serve_counted(
+        model, args, lambda st: {
+            "mamba_scan": 2 * layers.get("mamba", 0) * st.prefills,
+            "flash_attention": 2 * layers.get("gqa", 0) * st.prefills,
+            "decode_attention": layers.get("gqa", 0) * st.decode_events},
+        "serve_jamba")
     if params != cfg.param_count() + _uncounted_params(cfg):
-        problems.append(f"{params} parameters, the config counts "
-                        f"{cfg.param_count()}")
-    if problems:
-        raise PhaseError("serve_jamba: " + "; ".join(problems))
-    tokens = sum(len(r.output) for r in engine.requests.values())
+        raise PhaseError(f"serve_jamba: {params} parameters, the config "
+                         f"counts {cfg.param_count()}")
     phase("serve_jamba", arch=cfg.name, layers=cfg.num_layers,
           pattern=json.dumps([[s.mixer, s.ffn] for s in cfg.block_pattern],
                              separators=(",", ":")),
@@ -2485,33 +2567,23 @@ def run_serve_jamba() -> dict:
           kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
           experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
           d_inner=cfg.mamba.d_inner(cfg.d_model), d_state=cfg.mamba.d_state,
-          params=params, param_bytes=param_bytes, init_s=f"{init_s:.3f}",
-          max_memory_allocated=peak, requests=done, tokens=tokens,
-          decode_events=stats.decode_events,
-          fused_batches=stats.fused_batches, singles=stats.singles,
-          prefills=stats.prefills, wall_s=f"{stats.wall_seconds:.3f}",
-          prefill_ms_per_request=f"{stats.prefill_seconds / stats.prefills * 1e3:.3f}",
-          decode_ms_per_token_step=f"{stats.decode_seconds / stats.decode_events * 1e3:.3f}",
-          generated_tokens_per_s=f"{tokens / stats.wall_seconds:.2f}",
-          host_reads_per_decode_batch=f"{stats.host_reads / stats.decode_batches:.3f}",
-          weight_read_bound_ms=f"{param_bytes / HBM_BYTES_PER_S * 1e3:.3f}",
+          init_s=f"{init_s:.3f}", max_memory_allocated=peak,
+          **_serve_fields(engine, stats, params, param_bytes),
           launches=json.dumps(every, separators=(",", ":")))
-    teacher_force_jamba(model)
+    teacher_force_routed(model, "teacher_force_jamba")
     del engine, model
-    gc.collect()
-    torch.cuda.empty_cache()
+    _fresh_card()
     return {name: every[name] for name in
             ("mamba_scan", "flash_attention", "decode_attention")}
 
 
 def run_hubert() -> dict:
     """hubert-xlarge's encoder forward on the card in bf16 through
-    ``LM(cfg, attn_impl="pallas").forward``, against ``blockwise`` on the
-    same weights; returns the kernels' launches in the kernel route's
-    forward."""
+    ``LM(cfg, attn_impl="pallas").forward(embeds=...)`` on seeded frame
+    embeddings, against ``blockwise`` on the same weights; returns the
+    kernels' launches in the kernel route's forward."""
     import dataclasses
 
-    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -2525,18 +2597,18 @@ def run_hubert() -> dict:
     full = get_config(HUBERT)
     cfg = dataclasses.replace(full, num_layers=HUBERT_LAYERS)
     model = LM(cfg, attn_impl="pallas").init(0)
-    rng = np.random.default_rng(4)
-    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (1, HUBERT_T)),
-                          dtype=torch.int32, device=model.device)
+    # Frame embeddings in place of the conv feature extractor's output,
+    # at the data pipeline's scale (0.02 N(0, 1)), from a seed.
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    frames = torch.randn((1, HUBERT_T, cfg.d_model), generator=gen,
+                         device="cuda") * 0.02
     # The main path: counts are zeroed just before and read just after.
     reset_launches()
-    with torch.no_grad():
-        logits, _ = model.forward(tokens)
+    logits, _ = model.forward(embeds=frames)
     torch.cuda.synchronize()
     every = read_launches()
     model.attn_impl = "blockwise"
-    with torch.no_grad():
-        plain, _ = model.forward(tokens)
+    plain, _ = model.forward(embeds=frames)
     torch.cuda.synchronize()
     plain_launches = read_launches()
     # The vocabulary's 504 entries (the padded tail holds -1e30).
@@ -2563,7 +2635,7 @@ def run_hubert() -> dict:
           d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
           head_dim=cfg.resolved_head_dim, causal=cfg.causal,
           dtype=str(model.embed.dtype)[6:], T=HUBERT_T,
-          input="tokens_through_the_504-entry_table_not_frame_embeddings",
+          input=f"frame_embeddings_[1,{HUBERT_T},{cfg.d_model}]",
           against="blockwise", rows=HUBERT_T,
           min_cosine=f"{float(cos.min()):.6f}",
           max_abs_diff=f"{float((a - b).abs().max()):.4f}",
@@ -2572,6 +2644,185 @@ def run_hubert() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"flash_attention": every["flash_attention"]}
+
+
+# ---------------------------------------------------------------------------
+# Phases serve_deepseek and vlm: MLA, M-RoPE and embeds on the card
+# ---------------------------------------------------------------------------
+
+def run_serve_deepseek() -> dict:
+    """deepseek-v2-lite-16b at full width and depth through the serve
+    launcher with its defaults: MLA prefill on ``flash_attention`` (qk
+    head dim 192), the absorbed decode in plain torch; then the
+    teacher-forced check with the routing teacher-forced.  Returns the
+    kernels' launches in the serve run."""
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    args = serve.parse_args(["--arch", DEEPSEEK])
+    model, init_s, params, param_bytes = _build_timed(
+        lambda: serve.build_model(args))
+    cfg = model.cfg
+    L = mixer_layers(cfg).get("mla", 0)
+    engine, stats, every, peak, serve_s = serve_counted(
+        model, args, lambda st: {"flash_attention": 2 * L * st.prefills},
+        "serve_deepseek")
+    problems = []
+    if L != cfg.num_layers:
+        problems.append(f"{L} mla layers of {cfg.num_layers}")
+    if params != cfg.param_count() + _uncounted_params(cfg):
+        problems.append(f"{params} parameters, the config counts "
+                        f"{cfg.param_count()}")
+    layer = engine.cache["stages"][0]["l0"]
+    latent_bytes = sum(
+        leaf[0, 0, 0].numel() * leaf.element_size() * repeat
+        for (_, repeat), stage in zip(cfg.stages(), engine.cache["stages"])
+        for unit in stage.values() for leaf in unit.values())
+    if sorted(layer) != ["ckv", "kr"] or latent_bytes != (
+            cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) * 2 * L:
+        problems.append(f"cache leaves {sorted(layer)}, {latent_bytes} "
+                        "bytes a token")
+    if problems:
+        raise PhaseError("serve_deepseek: " + "; ".join(problems))
+    m = cfg.mla
+    phase("serve_deepseek", arch=cfg.name, layers=cfg.num_layers,
+          d_model=cfg.d_model, heads=cfg.num_heads,
+          kv_lora_rank=m.kv_lora_rank,
+          qk_head_dim=m.qk_nope_head_dim + m.qk_rope_head_dim,
+          v_head_dim=m.v_head_dim, experts=cfg.moe.num_experts,
+          top_k=cfg.moe.top_k, shared=cfg.moe.num_shared,
+          init_s=f"{init_s:.3f}", max_memory_allocated=peak,
+          latent_cache_bytes_per_token=latent_bytes,
+          serve_s=f"{serve_s:.3f}",
+          **_serve_fields(engine, stats, params, param_bytes),
+          launches=json.dumps(every, separators=(",", ":")))
+    teacher_force_routed(model, "teacher_force_deepseek")
+    del engine, model
+    _fresh_card()
+    phase("serve_deepseek_total",
+          seconds=f"{time.perf_counter() - t_phase:.3f}")
+    return {"flash_attention": every["flash_attention"]}
+
+
+def vlm_truncation():
+    """qwen2-vl-72b at its published widths, cut to its first
+    ``VLM_LAYERS`` layers (the 80-layer model, 72 B parameters, fits no
+    single card)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(VLM), num_layers=VLM_LAYERS)
+
+
+def vlm_grid(device):
+    """The ``[3, 1, VLM_T]`` M-RoPE (t, h, w) grid: ``VLM_TEXT`` text
+    positions (equal in every stream), then the image block's patches at
+    ``VLM_TEXT + (t, h, w)``: three streams that really differ."""
+    import torch
+
+    t, h, w = VLM_IMAGE
+    text = torch.arange(VLM_TEXT, device=device)
+    tt, hh, ww = torch.meshgrid(torch.arange(t, device=device),
+                                torch.arange(h, device=device),
+                                torch.arange(w, device=device),
+                                indexing="ij")
+    image = torch.stack([tt.flatten(), hh.flatten(), ww.flatten()])
+    grid = torch.cat([text.expand(3, VLM_TEXT), VLM_TEXT + image], dim=1)
+    return grid[:, None, :].to(torch.int32)
+
+
+def run_vlm() -> None:
+    """qwen2-vl-72b's truncation on the card: (a) ``prefill`` and
+    ``forward`` from seeded patch embeddings on a three-stream M-RoPE
+    grid, kernel route against ``blockwise`` on the same weights; (b) the
+    serve launcher's defaults (text tokens)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+
+    t_phase = time.perf_counter()
+    cfg = vlm_truncation()
+    model, init_s, params, param_bytes = _build_timed(
+        lambda: LM(cfg, attn_impl="pallas").init(0))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    embeds = torch.randn((1, VLM_T, cfg.d_model), generator=gen,
+                         device="cuda") * 0.02
+    grid = vlm_grid(embeds.device)
+    if bool((grid[0] == grid[1]).all()) or bool((grid[1] == grid[2]).all()):
+        raise PhaseError("vlm: the position streams do not differ")
+    L = mixer_layers(cfg).get("gqa", 0)
+
+    # (a) The main path: counts are zeroed just before and read just after.
+    reset_launches()
+    logits, cache = model.prefill(embeds=embeds, positions=grid,
+                                  max_len=VLM_T)
+    torch.cuda.synchronize()
+    every = read_launches()
+    want = {name: 0 for name in every}
+    want["flash_attention"] = L
+    full, _ = model.forward(embeds=embeds, positions=grid)
+    model.attn_impl = "blockwise"
+    plain_logits, plain_cache = model.prefill(embeds=embeds, positions=grid,
+                                              max_len=VLM_T)
+    plain_full, _ = model.forward(embeds=embeds, positions=grid)
+    model.attn_impl = "pallas"
+    torch.cuda.synchronize()
+    V = cfg.vocab_size
+    cos = F.cosine_similarity(full[0, :, :V].float(),
+                              plain_full[0, :, :V].float(), dim=-1)
+    last_cos = float(F.cosine_similarity(logits[0, :V].float(),
+                                         plain_logits[0, :V].float(), dim=0))
+    kv_cos = min(float(F.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0))
+        for a, b in zip(
+            cache["stages"][0]["l0"].values(),
+            plain_cache["stages"][0]["l0"].values()))
+    problems = []
+    if every != want:
+        problems.append(f"(a) launches {every}, expected {want}")
+    if not bool(torch.isfinite(full).all()):
+        problems.append("(a) logits not finite")
+    if min(float(cos.min()), last_cos, kv_cos) < MIN_COSINE:
+        problems.append(f"(a) cosine: rows {float(cos.min())}, prefill's "
+                        f"last {last_cos}, K/V {kv_cos} (min {MIN_COSINE})")
+    if params != cfg.param_count() + _uncounted_params(cfg):
+        problems.append(f"{params} parameters, the config counts "
+                        f"{cfg.param_count()}")
+    if problems:
+        raise PhaseError("vlm: " + "; ".join(problems))
+    phase("vlm", case="a", arch=cfg.name,
+          layers=f"{cfg.num_layers}_of_80", d_model=cfg.d_model,
+          heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+          head_dim=cfg.resolved_head_dim,
+          m_rope_sections=json.dumps(list(cfg.m_rope_sections)),
+          params=params, param_bytes=param_bytes, init_s=f"{init_s:.3f}",
+          input=f"patch_embeddings_[1,{VLM_T},{cfg.d_model}]",
+          grid=f"{VLM_TEXT}_text+{'x'.join(map(str, VLM_IMAGE))}_image",
+          against="blockwise", rows=VLM_T,
+          min_cosine=f"{float(cos.min()):.6f}",
+          prefill_last_cosine=f"{last_cos:.6f}",
+          kv_cache_min_cosine=f"{kv_cos:.6f}",
+          max_abs_diff=f"{float((full - plain_full).abs().max()):.4f}",
+          launches=json.dumps(every, separators=(",", ":")))
+    del full, plain_full, cache, plain_cache
+
+    # (b) the serve launcher's defaults on the cut model (text tokens)
+    torch.cuda.reset_peak_memory_stats()
+    args = serve.parse_args(["--arch", VLM])
+    engine, stats, every, peak, serve_s = serve_counted(
+        model, args, lambda st: {"flash_attention": 2 * L * st.prefills,
+                                 "decode_attention": L * st.decode_events},
+        "vlm (b)", sync_free=True)
+    phase("vlm", case="b", arch=cfg.name, layers=cfg.num_layers,
+          max_memory_allocated=peak, serve_s=f"{serve_s:.3f}",
+          **_serve_fields(engine, stats, params, param_bytes),
+          launches=json.dumps(every, separators=(",", ":")))
+    del engine, model
+    _fresh_card()
+    phase("vlm_total", seconds=f"{time.perf_counter() - t_phase:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -2782,10 +3033,10 @@ def train_supervised() -> None:
 
 
 def train_card_against_cpu() -> None:
-    """(c) the reduced granite and stablelm on the card and on the CPU
-    from one f32 state and batch: the microbatched, rematerialized
-    gradients leaf by leaf, then one step from them; then one step with
-    gradient compression."""
+    """(c) the reduced granite, stablelm, deepseek (MLA) and hubert (fed
+    frame embeddings) on the card and on the CPU from one f32 state and
+    batch: the microbatched, rematerialized gradients leaf by leaf, then
+    one step from them; then one step with gradient compression."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2800,14 +3051,15 @@ def train_card_against_cpu() -> None:
         train_state,
     )
 
-    for arch in ("granite-moe-1b-a400m", "stablelm-12b"):
+    for arch in ("granite-moe-1b-a400m", "stablelm-12b", DEEPSEEK, HUBERT):
         cfg = get_config(arch).reduced()
         cpu = LM(cfg, device="cpu")
         card = LM(cfg)
         params = tree_map(lambda t: t.float(),
                           init_train_state(cpu, 0)["params"])
         dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
-                        global_batch=8)
+                        global_batch=8, input_mode=cfg.input_mode,
+                        d_model=cfg.d_model)
         batch = make_batch(dc, 0)
         opt_cfg = AdamWConfig()
         out, grads = {}, {}
@@ -2864,7 +3116,8 @@ def train_card_against_cpu() -> None:
         if problems:
             raise PhaseError(f"train (c) {arch}: " + "; ".join(problems))
         phase("train", case="c", arch=cfg.name, dtype="float32",
-              microbatches=2, remat=True, lr=f"{lr:.3e}",
+              input=cfg.input_mode, microbatches=2, remat=True,
+              lr=f"{lr:.3e}",
               loss_cpu=f"{float(cm['loss']):.7f}",
               loss_card=f"{float(gm['loss']):.7f}",
               loss_rel=f"{loss_rel:.3e}", loss_tol=CARD_LOSS_RTOL,
@@ -2941,28 +3194,35 @@ def run_train() -> None:
 
 def _uncounted_params(cfg) -> int:
     """Parameters the port holds that ``ArchConfig.param_count`` leaves
-    out: the norm scales (two a layer and the final one), the mamba
-    ``conv_b`` and ``dt_bias``."""
-    n = (2 * cfg.num_layers + 1) * cfg.d_model
-    mamba = mixer_layers(cfg).get("mamba", 0)
-    return n + 2 * mamba * cfg.mamba.d_inner(cfg.d_model)
+    out: the norms (two a layer and the final one; a scale each, and a
+    bias with layernorm), the mamba ``conv_b`` and ``dt_bias``, the MLA
+    ``kv_norm`` scales."""
+    per_norm = cfg.d_model * (2 if cfg.norm == "layernorm" else 1)
+    n = (2 * cfg.num_layers + 1) * per_norm
+    layers = mixer_layers(cfg)
+    if cfg.mamba is not None:
+        n += 2 * layers.get("mamba", 0) * cfg.mamba.d_inner(cfg.d_model)
+    if cfg.mla is not None:
+        n += layers.get("mla", 0) * cfg.mla.kv_lora_rank
+    return n
 
 
-def teacher_force_jamba(model) -> None:
-    """The teacher-forced check of the jamba truncation's kernel route
-    against ``blockwise``, in bf16, with the routing teacher-forced too.
-    The MoE router after the mamba layer is discontinuous: a token whose
-    k-th and (k+1)-th router logits are nearly tied may go to other
-    experts on the two routes, and every later row then differs for
-    that reason alone.  So ``blockwise`` runs first and the top-k expert
-    indices of each of its routings are kept; the kernel route's
-    routings take those indices, weighted by its own router logits, and
-    every logit row must reach ``MIN_COSINE``.  The kernel route's own
-    choices are compared with ``blockwise``'s, and each difference is
-    printed with the k-th/(k+1)-th gap in both routes' logits, as a share
-    of the token's router-logit spread.  The mamba layer's output on the
-    kernel route's prefill layer input, kernel against the chunked plain
-    scan, must reach ``MIN_MAMBA_COSINE``."""
+def teacher_force_routed(model, phase_name: str) -> None:
+    """The teacher-forced check of an MoE model's kernel route against
+    ``blockwise``, in bf16, with the routing teacher-forced too (the
+    jamba truncation, deepseek-v2-lite).  An MoE router after a kernel
+    is discontinuous: a token whose k-th and (k+1)-th router logits are
+    nearly tied may go to other experts on the two routes, and every
+    later row then differs for that reason alone.  So ``blockwise`` runs
+    first and the top-k expert indices of each of its routings are kept;
+    the kernel route's routings take those indices, weighted by its own
+    router logits, and every logit row must reach ``MIN_COSINE``.  The
+    kernel route's own choices are compared with ``blockwise``'s, and
+    each difference is printed with the k-th/(k+1)-th gap in both
+    routes' logits, as a share of the token's router-logit spread.  With
+    a mamba layer, its output on the kernel route's prefill layer input,
+    kernel against the chunked plain scan, must reach
+    ``MIN_MAMBA_COSINE``."""
     import torch
     import torch.nn.functional as F
 
@@ -2984,7 +3244,7 @@ def teacher_force_jamba(model) -> None:
             return vals, idx
         i = len(flat) - 1
         if i >= len(routings["blockwise"]):
-            raise PhaseError("teacher_force_jamba: the kernel route routes "
+            raise PhaseError(f"{phase_name}: the kernel route routes "
                              "more often than blockwise")
         pinned = routings["blockwise"][i][1].reshape(idx.shape)
         return torch.gather(logits, -1, pinned), pinned
@@ -3003,7 +3263,7 @@ def teacher_force_jamba(model) -> None:
         moe_module._top_k, lm_module.mamba_apply = saved
     a_calls, b_calls = routings["pallas"], routings["blockwise"]
     if not b_calls or len(a_calls) != len(b_calls):
-        raise PhaseError("teacher_force_jamba: the routes routed "
+        raise PhaseError(f"{phase_name}: the routes routed "
                          f"{len(a_calls)} and {len(b_calls)} times")
     diffs = []
     for i, ((la, ia), (lb, ib)) in enumerate(zip(a_calls, b_calls)):
@@ -3016,12 +3276,17 @@ def teacher_force_jamba(model) -> None:
                 gaps.append(float((top[k - 1] - top[k]) / (top[0] - top[-1])))
             diffs.append((i, tok, *gaps))
     cos, diff, finite = _compare(runs, "blockwise")
-    params, x, kw = mamba_in[0]
-    kw = dict(kw, impl="pallas")
-    y_k = ssm_module.mamba_apply(params, x, **kw)[0]
-    y_p = ssm_module.mamba_apply(params, x, **dict(kw, impl="blockwise"))[0]
-    mamba_cos = float(F.cosine_similarity(y_k.float().flatten(),
-                                          y_p.float().flatten(), dim=0))
+    mamba = {}
+    if mamba_in:
+        params, x, kw = mamba_in[0]
+        kw = dict(kw, impl="pallas")
+        y_k = ssm_module.mamba_apply(params, x, **kw)[0]
+        y_p = ssm_module.mamba_apply(params, x,
+                                     **dict(kw, impl="blockwise"))[0]
+        mamba["mamba_layer_cosine"] = float(F.cosine_similarity(
+            y_k.float().flatten(), y_p.float().flatten(), dim=0))
+    elif "mamba" in mixer_layers(model.cfg):
+        raise PhaseError(f"{phase_name}: no mamba layer input recorded")
     for i, tok, gap_a, gap_b in diffs:
         print(f"  own routing differs (blockwise's taken): routing {i} "
               f"token {tok}, k-th/(k+1)-th gap {gap_a:.3g} (kernel route), "
@@ -3031,17 +3296,17 @@ def teacher_force_jamba(model) -> None:
         problems.append("logits not finite")
     if float(cos.min()) < MIN_COSINE:
         problems.append(f"cosine {cos.tolist()} (min {MIN_COSINE})")
-    if not mamba_cos >= MIN_MAMBA_COSINE:
-        problems.append(f"mamba layer cosine {mamba_cos} (min "
-                        f"{MIN_MAMBA_COSINE})")
+    if not mamba.get("mamba_layer_cosine", 1.0) >= MIN_MAMBA_COSINE:
+        problems.append(f"mamba layer cosine {mamba['mamba_layer_cosine']}"
+                        f" (min {MIN_MAMBA_COSINE})")
     if problems:
-        raise PhaseError("teacher_force_jamba: " + "; ".join(problems))
-    phase("teacher_force_jamba", arch=model.cfg.name, against="blockwise",
+        raise PhaseError(f"{phase_name}: " + "; ".join(problems))
+    phase(phase_name, arch=model.cfg.name, against="blockwise",
           dtype=str(model.embed.dtype)[6:], steps=TEACHER_STEPS + 1,
           routings=len(a_calls), routing="blockwise's",
           own_routing_differences=len(diffs),
           min_cosine=f"{float(cos.min()):.6f}", max_abs_diff=f"{diff:.4f}",
-          mamba_layer_cosine=f"{mamba_cos:.7f}")
+          **{k: f"{v:.7f}" for k, v in mamba.items()})
 
 
 def teacher_force_rwkv(model) -> None:
@@ -3310,13 +3575,15 @@ def _record(name, source, replaces, launches, err, ms, device_ms, plain_ms,
     }
 
 
-def time_attention(launches, errs, hubert_launches) -> list:
+def time_attention(launches, errs, hubert_launches, mla_launches) -> list:
     """Each attention kernel, its plain version and one
     ``scaled_dot_product_attention`` call at the serving path's shapes
     (bf16, H 32, KV 8, head_dim 160).  Returns the JSON records at the
     main path's own shapes (the prompt bucket T = S = 32; B = 4 slots,
     S = max_len 256; hubert's forward: H 16, head_dim 80, T = S =
-    ``HUBERT_T``, bidirectional); flash at T = S = 2048 is printed beside
+    ``HUBERT_T``, bidirectional; deepseek's MLA prefill: H = KV = 16, qk
+    head dim 192, v zero-padded from 128, the bucket T = S = 32); flash
+    at T = S = 2048, and MLA's at T 16 and 2048, are printed beside
     them."""
     import torch
     import torch.nn.functional as F
@@ -3330,19 +3597,26 @@ def time_attention(launches, errs, hubert_launches) -> list:
     out = []
     for T, H, KV, D, causal, reps, calls in (
             (32, 32, 8, 160, True, 300, 50), (2048, 32, 8, 160, True, 20, 10),
-            (HUBERT_T, 16, 16, 80, False, 100, 20)):
+            (HUBERT_T, 16, 16, 80, False, 100, 20),
+            (16, 16, 16, 192, True, 300, 50), (32, 16, 16, 192, True, 300, 50),
+            (2048, 16, 16, 192, True, 20, 10)):
         B = 1
         q = _randn(gen, (B, T, H, D), bf16).transpose(1, 2)
         k = _randn(gen, (B, T, KV, D), bf16).transpose(1, 2)
         v = _randn(gen, (B, T, KV, D), bf16).transpose(1, 2)
+        mla = D == 192
+        if mla:                 # MLA's v, zero past its 128 columns
+            v[..., MLA_V_DIM:] = 0
+        # The library takes MLA's v at its own 128 columns.
+        v_lib = v[..., :MLA_V_DIM].contiguous() if mla else v
         o = fa.flash_attention_cuda(q, k, v, causal=causal)
 
         def kernel():
             return fa.flash_attention_cuda(q, k, v, causal=causal)
 
         def library():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                  enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                q, k, v_lib, is_causal=causal, enable_gqa=H != KV)
 
         ms = _time_ms(kernel, reps)
         device_ms = _device_ms(kernel, calls)
@@ -3350,25 +3624,39 @@ def time_attention(launches, errs, hubert_launches) -> list:
             lambda: fa.flash_attention_plain(q, k, v, causal=causal), reps)
         lib_ms = _time_ms(library, reps)
         lib_device_ms = _device_ms(library, calls)
-        nbytes = _nbytes([q, k, v, o])
         # QK^T and PV over the keys each query sees
         pairs = T * (T + 1) // 2 if causal else T * T
-        ops = 4 * D * H * B * pairs
+        if mla:
+            # The function's own work, not the padding: q at qk dim 192,
+            # k's 128 nope columns a head plus ONE shared 64-wide rope
+            # key, v and o at 128; QK^T at 192 and PV at 128.
+            nope = D - MLA_ROPE_DIM
+            nbytes = B * T * q.element_size() * (
+                H * D + KV * nope + MLA_ROPE_DIM + 2 * H * MLA_V_DIM)
+            ops = 2 * (D + MLA_V_DIM) * H * B * pairs
+        else:
+            nbytes = _nbytes([q, k, v, o])
+            ops = 4 * D * H * B * pairs
+        count = (launches if H == 32 else mla_launches if mla
+                 else hubert_launches)["flash_attention"]
         rec = _record("flash_attention", src,
-                      "src/repro/kernels/flash_attention.py:108",
-                      launches["flash_attention"] if H == 32
-                      else hubert_launches["flash_attention"],
+                      "src/repro/kernels/flash_attention.py:108", count,
                       errs["flash_attention"], ms, device_ms, plain_ms,
                       nbytes, ops, BF16_OPS_PER_S, lib_ms, lib_device_ms)
         phase("timing", kernel="flash_attention", T=T, S=T, H=H, KV=KV,
-              D=D, causal=causal, bytes=nbytes, ops=ops, ms=f"{ms:.6f}",
+              D=D, mla=mla, causal=causal, bytes=nbytes, ops=ops,
+              ms=f"{ms:.6f}",
               device_ms=f"{device_ms:.6f}", plain_ms=f"{plain_ms:.6f}",
               library_ms=f"{lib_ms:.6f}",
               library_device_ms=f"{lib_device_ms:.6f}",
               bound_ms=f"{rec['bound_ms']:.9f}", bound_by=rec["bound_by"])
-        if T == 32:
+        if mla and T == 32:
+            rec["shape"] = (f"deepseek MLA prefill B{B} H{H} T{T} D{D} "
+                            f"(v {MLA_V_DIM} zero-padded) causal bf16")
             out.append(rec)
-        elif H == 16:
+        elif T == 32 and H == 32:
+            out.append(rec)
+        elif H == 16 and not mla:
             rec["shape"] = f"hubert B{B} H{H} T{T} D{D} bidirectional bf16"
             out.append(rec)
 
@@ -3565,12 +3853,17 @@ def main() -> int:
     attn_launches = run_serve()
     rwkv_launches = run_serve_rwkv()
     jamba_launches = run_serve_jamba()
+    mla_launches = run_serve_deepseek()
+    run_vlm()
+    t0 = time.perf_counter()
     hubert_launches = run_hubert()
+    phase("hubert_total", seconds=f"{time.perf_counter() - t0:.3f}")
     run_train()
     lookaheads = torch.tensor([1.0], device="cuda")
     kernels = time_kernels(res.raw["final_queue"], lookaheads, launches,
                            errs)
-    kernels += time_attention(attn_launches, attn_errs, hubert_launches)
+    kernels += time_attention(attn_launches, attn_errs, hubert_launches,
+                              mla_launches)
     kernels += time_rwkv(rwkv_launches, rwkv_errs)
     kernels += time_mamba(jamba_launches, mamba_errs)
 

@@ -5,20 +5,25 @@ port of :mod:`repro.launch.serve`).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch jamba-1.5-large-398b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-lite-16b
 
 The same arguments, request generator and printout as the JAX launcher,
 plus ``--device``: the default is the CUDA card, and the launcher raises
 without one.  The model is ``LM(cfg, attn_impl="pallas")`` — the
 hand-written kernels, the JAX docstrings' choice for the real
 accelerator: ``flash_attention`` and ``decode_attention`` for the
-``gqa`` layers, the ``rwkv6_scan`` and ``mamba_scan`` kernels in the
-prefill of ``rwkv`` and ``mamba`` layers; MoE FFNs run batched expert
-products (with capacity at prefill, dropless at decode) — with random
-weights from ``--seed``.  Full width runs only on the card (stablelm-12b:
-12.1 B parameters, 24.3 GB of bf16 weights; rwkv6-1.6b: 1.58 B,
-3.17 GB); the full 72-layer jamba-1.5-large-398b (398 B parameters)
-fits no single card, and ``chip_smoke.py`` serves its first two layers
-at full width through :func:`serve`.  ``--reduced`` is the small
+``gqa`` layers (M-RoPE ones too), ``flash_attention`` for the prefill of
+``mla`` layers (their absorbed decode is plain torch, as JAX's), the
+``rwkv6_scan`` and ``mamba_scan`` kernels in the prefill of ``rwkv`` and
+``mamba`` layers; MoE FFNs run batched expert products (with capacity
+at prefill, dropless at decode) — with random weights from ``--seed``.
+Decoding takes text tokens, as JAX's engine does.  Full width runs only
+on the card (stablelm-12b: 12.1 B parameters, 24.3 GB of bf16 weights;
+rwkv6-1.6b: 1.58 B, 3.17 GB; deepseek-v2-lite-16b: 15.7 B, 31.4 GB);
+the full 72-layer jamba-1.5-large-398b (398 B parameters) and the
+80-layer qwen2-vl-72b fit no single card, and ``chip_smoke.py`` serves
+their first two layers at full width through :func:`serve`.  ``--reduced`` is the small
 same-family config the CPU tests use.
 """
 

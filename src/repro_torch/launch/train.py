@@ -17,8 +17,10 @@ TrainSupervisor`.  The model is ``LM(cfg)`` with its default
 no backward.  Weights are drawn from seed 0 (the port's generator, so
 they are not JAX's), and a ``--resume`` from a checkpoint written by
 either package's launcher continues on the same data.  minicpm trains
-with the WSD schedule whatever ``--schedule`` says.  ``--reduced`` is
-the small same-family config the CPU tests use.
+with the WSD schedule whatever ``--schedule`` says.  A config with
+``input_mode="embeds"`` (hubert-xlarge, qwen2-vl-72b) trains on the
+data pipeline's frame embeddings.  ``--reduced`` is the small
+same-family config the CPU tests use.
 """
 
 from __future__ import annotations

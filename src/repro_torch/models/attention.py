@@ -1,5 +1,4 @@
-"""GQA attention (PyTorch port of the GQA part of
-:mod:`repro.models.attention`).
+"""GQA and MLA attention (PyTorch port of :mod:`repro.models.attention`).
 
 Three execution paths, selected by ``impl`` as in the JAX package:
 
@@ -15,7 +14,18 @@ Three execution paths, selected by ``impl`` as in the JAX package:
 Decode writes the new token's K/V into a dense cache and attends with
 full-length masking.  Unlike the JAX package, decode updates the cache
 tensors IN PLACE (no copy of the ``[B, S, KV, D]`` cache per layer) and
-returns them.  MLA and M-RoPE are not ported yet.
+returns them.  GQA takes M-RoPE (``m_rope=True``: a ``[3, B, T]``
+position grid, :func:`~repro_torch.models.layers.apply_m_rope`).
+
+MLA (DeepSeek's multi-head latent attention): :func:`mla_apply` is the
+full-sequence form without absorption and returns the compressed cache
+entries ``(c_kv, k_rope)``; :func:`mla_decode_apply` is the
+weight-absorbed decode over the ``kv_lora_rank + rope_dim`` latent cache,
+in plain torch as in the JAX package.  Under ``impl="pallas"`` MLA
+prefill runs ``flash_attention`` at qk head dim ``dn + dr`` (k_rope
+broadcast to every head, v zero-padded to that width and the output
+sliced back), where JAX's ``mla_apply`` runs ``blockwise``: the same
+function, since the kernel's ``1/sqrt(D)`` is JAX's ``1/sqrt(dn + dr)``.
 """
 
 from __future__ import annotations
@@ -23,8 +33,16 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_rope, dense_init, proj
+from repro_torch.models.layers import (
+    DEFAULT_DTYPE,
+    apply_m_rope,
+    apply_rope,
+    dense_init,
+    proj,
+    rmsnorm,
+)
 
 _NEG_INF = -1e30
 
@@ -191,25 +209,30 @@ def _project_qkv(params, x, *, num_heads, num_kv_heads, head_dim):
             v.reshape(B, T, num_kv_heads, head_dim))
 
 
-def _check_rope(m_rope: bool) -> None:
+def _rotate(q, k, positions, *, theta, m_rope, sections):
+    """RoPE (or M-RoPE) on q and k, as the JAX functions apply it."""
     if m_rope:
-        raise NotImplementedError("M-RoPE is not ported to repro_torch yet")
+        return (apply_m_rope(q, positions, theta=theta, sections=sections),
+                apply_m_rope(k, positions, theta=theta, sections=sections))
+    if positions is not None:
+        return (apply_rope(q, positions, theta=theta),
+                apply_rope(k, positions, theta=theta))
+    return q, k
 
 
 def gqa_apply(params, x, *, num_heads: int, num_kv_heads: int,
               head_dim: int, positions, causal: bool = True,
               rope_theta: float = 10000.0, m_rope: bool = False,
-              impl: str = "blockwise", q_block: int = 512,
-              kv_block: int = 1024):
+              m_rope_sections=(16, 24, 24), impl: str = "blockwise",
+              q_block: int = 512, kv_block: int = 1024):
     """Full-sequence (train/prefill) GQA.  Returns (y, (k, v)) so callers
-    can build the KV cache during prefill."""
-    _check_rope(m_rope)
+    can build the KV cache during prefill.  With ``m_rope``,
+    ``positions`` is the ``[3, B, T]`` grid."""
     B, T, _ = x.shape
     q, k, v = _project_qkv(params, x, num_heads=num_heads,
                            num_kv_heads=num_kv_heads, head_dim=head_dim)
-    if positions is not None:
-        q = apply_rope(q, positions, theta=rope_theta)
-        k = apply_rope(k, positions, theta=rope_theta)
+    q, k = _rotate(q, k, positions, theta=rope_theta, m_rope=m_rope,
+                   sections=m_rope_sections)
     G = num_heads // num_kv_heads
     if impl == "reference":
         o = reference_attention(q, k, v, causal=causal)
@@ -230,17 +253,17 @@ def gqa_apply(params, x, *, num_heads: int, num_kv_heads: int,
 def gqa_decode_apply(params, x, cache_k, cache_v, cache_len, *,
                      num_heads: int, num_kv_heads: int, head_dim: int,
                      positions, rope_theta: float = 10000.0,
-                     m_rope: bool = False, impl: str = "blockwise"):
+                     m_rope: bool = False, m_rope_sections=(16, 24, 24),
+                     impl: str = "blockwise"):
     """One-token decode.  x: [B,1,d]; cache_*: [B,S,KV,D]; cache_len:
-    i32[B] length INCLUDING the new token.  Writes the new K/V into the
-    caches in place and returns (y, cache_k, cache_v)."""
-    _check_rope(m_rope)
+    i32[B] length INCLUDING the new token; ``positions`` [B,1] (or
+    ``[3, B, 1]`` with ``m_rope``).  Writes the new K/V into the caches in
+    place and returns (y, cache_k, cache_v)."""
     B = x.shape[0]
     q, k, v = _project_qkv(params, x, num_heads=num_heads,
                            num_kv_heads=num_kv_heads, head_dim=head_dim)
-    if positions is not None:
-        q = apply_rope(q, positions, theta=rope_theta)
-        k = apply_rope(k, positions, theta=rope_theta)
+    q, k = _rotate(q, k, positions, theta=rope_theta, m_rope=m_rope,
+                   sections=m_rope_sections)
     idx = cache_len - 1
     _scatter_token(cache_k, k[:, 0], idx)
     _scatter_token(cache_v, v[:, 0], idx)
@@ -255,8 +278,8 @@ def gqa_decode_apply(params, x, cache_k, cache_v, cache_len, *,
 
 
 def _scatter_token(cache, new, idx):
-    """cache[b, idx[b]] = new[b] in place; cache: [B,S,KV,D]; new:
-    [B,KV,D]; idx: i32[B].
+    """cache[b, idx[b]] = new[b] in place; cache: [B,S,...] (K/V
+    [B,S,KV,D], MLA's latent rows [B,S,R]); new: [B,...]; idx: i32[B].
 
     As JAX's ``.at[].set``: a negative index counts from the end, and a
     row whose index is still outside ``[0, S)`` is dropped.  Serving
@@ -269,6 +292,137 @@ def _scatter_token(cache, new, idx):
     keep = (idx >= 0) & (idx < S)
     safe = torch.clamp(idx, 0, S - 1)
     old = cache[rows, safe]
-    cache[rows, safe] = torch.where(keep[:, None, None],
-                                    new.to(cache.dtype), old)
+    keep = keep.reshape((B,) + (1,) * (cache.ndim - 2))
+    cache[rows, safe] = torch.where(keep, new.to(cache.dtype), old)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_weight_shapes(*, d_model: int, num_heads: int, kv_lora_rank: int,
+                      qk_nope_head_dim: int, qk_rope_head_dim: int,
+                      v_head_dim: int) -> dict:
+    """Name -> (shape, dtype) of the MLA weights (JAX's leaf names, the
+    nested ``kv_norm`` group included), in init order."""
+    H, R = num_heads, kv_lora_rank
+    qd = qk_nope_head_dim + qk_rope_head_dim
+    bf = DEFAULT_DTYPE
+    return {
+        "wq": ((d_model, H * qd), bf),
+        "wdkv": ((d_model, R), bf),
+        "wkr": ((d_model, qk_rope_head_dim), bf),
+        "kv_norm": {"scale": ((R,), torch.float32)},
+        "wuk": ((R, H * qk_nope_head_dim), bf),
+        "wuv": ((R, H * v_head_dim), bf),
+        "wo": ((H * v_head_dim, d_model), bf),
+    }
+
+
+def mla_init(gen: torch.Generator, out, **dims) -> None:
+    """Fill ``out`` (a tree of :func:`mla_weight_shapes`) in place: the
+    six projections fan-in truncated-normal from ``gen``, in JAX's
+    order, and the ``kv_norm`` scale 1."""
+    for name, spec in mla_weight_shapes(**dims).items():
+        if name == "kv_norm":
+            out[name]["scale"].fill_(1.0)
+        else:
+            fan_in, fan_out = spec[0]
+            dense_init(gen, fan_in, fan_out, out=out[name])
+
+
+def _mla_latents(params, x, positions, *, rope_theta):
+    """The compressed cache entries of ``x`` [B,T,d]: c_kv [B,T,R]
+    (rms-normed) and the rotated k_rope [B,T,1,dr]."""
+    c_kv = rmsnorm(params["kv_norm"], proj(x, params["wdkv"],
+                                           out_dtype=x.dtype))
+    k_rope = proj(x, params["wkr"], out_dtype=x.dtype)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, theta=rope_theta)
+    return c_kv, k_rope
+
+
+def mla_apply(params, x, *, num_heads: int, kv_lora_rank: int,
+              qk_nope_head_dim: int, qk_rope_head_dim: int,
+              v_head_dim: int, positions, causal: bool = True,
+              rope_theta: float = 10000.0, impl: str = "blockwise",
+              q_block: int = 512, kv_block: int = 1024):
+    """Full-sequence MLA (naive, un-absorbed form).  Returns (y, (c_kv,
+    k_rope)): the COMPRESSED cache entries, [B,T,R] and [B,T,dr]."""
+    del kv_lora_rank
+    B, T, _ = x.shape
+    H, dn, dr, dv = num_heads, qk_nope_head_dim, qk_rope_head_dim, v_head_dim
+    q = proj(x, params["wq"], out_dtype=x.dtype).reshape(B, T, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    c_kv, k_rope = _mla_latents(params, x, positions, rope_theta=rope_theta)
+    q_rope = apply_rope(q_rope, positions, theta=rope_theta)
+    k_nope = proj(c_kv, params["wuk"], out_dtype=x.dtype).reshape(B, T, H, dn)
+    v = proj(c_kv, params["wuv"], out_dtype=x.dtype).reshape(B, T, H, dv)
+    # One rope head for all H: a copy here (the flash kernel reads a
+    # dense [B,T,H,dn+dr]), JAX's free broadcast.
+    k = torch.cat([k_nope, k_rope.expand(B, T, H, dr)], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    # v is padded with zeros to the qk head dim for the shared attention
+    # routes, then the output is sliced back (JAX's route).
+    v_p = F.pad(v, (0, dn + dr - dv)) if dv < dn + dr else v
+    if impl == "reference":
+        o = reference_attention(qf, k, v_p, causal=causal)
+    elif impl == "blockwise":
+        o = blockwise_attention(qf, k, v_p, causal=causal, q_block=q_block,
+                                kv_block=kv_block)
+    elif impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        o = kops.flash_attention(qf, k, v_p, causal=causal)
+    else:
+        raise ValueError(impl)
+    o = o[..., :dv]
+    y = proj(o.reshape(B, T, H * dv), params["wo"], out_dtype=x.dtype)
+    return y, (c_kv, k_rope[:, :, 0, :])
+
+
+def mla_decode_apply(params, x, cache_ckv, cache_kr, cache_len, *,
+                     num_heads: int, kv_lora_rank: int,
+                     qk_nope_head_dim: int, qk_rope_head_dim: int,
+                     v_head_dim: int, positions,
+                     rope_theta: float = 10000.0):
+    """Weight-absorbed MLA decode on the compressed cache, in place.
+
+    score_nope = (q_nope W_uk^T) · c_kv   — W_uk absorbed into the query
+    out        = (attn · c_kv) W_uv       — W_uv absorbed into the output
+
+    x: [B,1,d]; cache_ckv [B,S,R], cache_kr [B,S,dr]; cache_len i32[B]
+    INCLUDING the new token.  The new rows are written as
+    :func:`_scatter_token` writes K/V (a row past ``S`` is dropped).  As
+    JAX's: ``q_lat`` and the ``W_uv`` product in f32, the latent-cache
+    score and value dots in the cache dtype, then cast to f32.  Returns
+    (y, cache_ckv, cache_kr).
+    """
+    B = x.shape[0]
+    H, dn, dr, dv = num_heads, qk_nope_head_dim, qk_rope_head_dim, v_head_dim
+    R = kv_lora_rank
+    q = proj(x, params["wq"], out_dtype=x.dtype).reshape(B, 1, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, theta=rope_theta)[:, 0]
+    wuk = params["wuk"].reshape(R, H, dn)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(),
+                         wuk.float())                       # [B,H,R]
+    c_new, kr_new = _mla_latents(params, x, positions, rope_theta=rope_theta)
+    idx = cache_len - 1
+    _scatter_token(cache_ckv, c_new[:, 0], idx)
+    _scatter_token(cache_kr, kr_new[:, 0, 0], idx)
+    scale = 1.0 / math.sqrt(dn + dr)
+    s = (_cache_dot("bhr,bsr->bhs", q_lat.to(cache_ckv.dtype),
+                    cache_ckv).float()
+         + _cache_dot("bhd,bsd->bhs", q_rope.to(cache_kr.dtype),
+                      cache_kr).float()) * scale
+    S = cache_ckv.shape[1]
+    valid = torch.arange(S, device=x.device)[None, :] < cache_len[:, None]
+    s = torch.where(valid[:, None], s, _NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_lat = _cache_dot("bhs,bsr->bhr", w.to(cache_ckv.dtype),
+                       cache_ckv).float()                   # [B,H,R]
+    wuv = params["wuv"].reshape(R, H, dv)
+    o = torch.einsum("bhr,rhd->bhd", o_lat, wuv.float())
+    y = proj(o.reshape(B, H * dv).to(x.dtype), params["wo"],
+             out_dtype=x.dtype)
+    return y[:, None, :], cache_ckv, cache_kr

@@ -5,6 +5,8 @@ cache keeps its layout and the serving engine's slot splice ports
 directly:
 
 * GQA:   k/v  [L, B, S, KV, D]
+* MLA:   ckv [L, B, S, R] and kr [L, B, S, dr] (the compressed latents
+  and the rotated rope key, in the activation dtype)
 * Mamba: h [L, B, I, N] f32 (the SSM state) and conv [L, B, K-1, I]
   (the conv's last inputs, in the activation dtype).
 * RWKV6: x_att [L, B, 1, D] (the time-mix's last input token) and
@@ -12,8 +14,7 @@ directly:
   [L, B, 1, D] is added by ``LM.init_cache``.
 
 ``lengths: i32[B]`` (kept beside the stages by ``LM.init_cache``) counts
-valid tokens per sequence, shared across layers.  The MLA cache comes
-with that mixer.
+valid tokens per sequence, shared across layers.
 """
 
 from __future__ import annotations
@@ -27,6 +28,16 @@ def gqa_cache_init(num_layers, batch, max_len, num_kv_heads, head_dim,
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def mla_cache_init(num_layers, batch, max_len, kv_lora_rank, rope_dim,
+                   dtype=torch.bfloat16, device=None):
+    return {
+        "ckv": torch.zeros((num_layers, batch, max_len, kv_lora_rank),
+                           dtype=dtype, device=device),
+        "kr": torch.zeros((num_layers, batch, max_len, rope_dim),
+                          dtype=dtype, device=device),
     }
 
 

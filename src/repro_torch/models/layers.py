@@ -7,9 +7,8 @@ f32, or rounded once to the activation dtype — what ``proj_einsum``
 does with ``PREFER_F32_PROJ=True`` (that §Perf knob is not ported).
 Initializers draw from an explicit ``torch.Generator``.
 
-Not ported yet: ``apply_m_rope`` (ROADMAP A14).  The JAX
-sharding constraints (``gather_head_for_unembed``, ``shard_batch_dim``)
-have no counterpart on one card.
+The JAX sharding constraints (``gather_head_for_unembed``,
+``shard_batch_dim``) have no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -130,6 +129,32 @@ def apply_rope(x, positions, *, theta: float = 10000.0):
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)
     angles = positions.float()[..., None] * inv      # [..., T, d/2]
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_m_rope(x, positions_thw, *, theta: float = 10000.0,
+                 sections=(16, 24, 24)):
+    """Qwen2-VL multimodal RoPE: the head dim's rotation pairs split
+    into (temporal, height, width) sections, each rotated by its own
+    position stream.  x: [..., T, H, D]; ``positions_thw``: [3, ..., T];
+    ``sections`` count *pairs* and sum to D // 2.  Angles in f32, as
+    :func:`apply_rope`."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"m_rope sections {tuple(sections)} must sum to "
+                         f"head_dim // 2 = {d // 2}")
+    inv = rope_freqs(d, theta, x.device)
+    # Each section's pairs by its own stream; no index tensor, so no copy
+    # to the card and no read back from it.
+    ends = [sum(sections[:i + 1]) for i in range(3)]
+    angles = torch.cat(
+        [positions_thw[i].float()[..., None] * inv[end - n:end]
+         for i, (n, end) in enumerate(zip(sections, ends))],
+        dim=-1)                                            # [..., T, d/2]
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

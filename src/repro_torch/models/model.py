@@ -1,17 +1,28 @@
 """LM: config-driven decoder (PyTorch port of :mod:`repro.models.model`).
 
-An ``nn.Module`` for stacks of ``gqa``, ``mamba`` and ``rwkv`` mixers
-with ``mlp``, ``moe`` and ``rwkv_cm`` FFNs: the dense GQA architectures
-(stablelm-12b, llama3-405b, phi4-mini, minicpm-2b), granite-moe
-(``(gqa, moe)``), rwkv6-1.6b (``(rwkv, rwkv_cm)``) and the jamba hybrid
-(``(gqa, mlp)``, ``(mamba, moe)``, ``(mamba, mlp)``, ...).  MLA layers,
-M-RoPE and ``seq_parallel`` raise :class:`NotImplementedError`.  Entry
-points, as in the JAX package:
+An ``nn.Module`` for stacks of ``gqa``, ``mla``, ``mamba`` and ``rwkv``
+mixers with ``mlp``, ``moe`` and ``rwkv_cm`` FFNs: every registered
+architecture of the JAX package — the dense GQA ones (stablelm-12b,
+llama3-405b, phi4-mini, minicpm-2b), granite-moe (``(gqa, moe)``),
+deepseek-v2-lite (``(mla, mlp)`` then ``(mla, moe)``), rwkv6-1.6b
+(``(rwkv, rwkv_cm)``), the jamba hybrid (``(gqa, mlp)``, ``(mamba,
+moe)``, ...), qwen2-vl (GQA with M-RoPE) and hubert-xlarge (a
+bidirectional encoder).  ``seq_parallel`` raises
+:class:`NotImplementedError` (ROADMAP D2).  Entry points, as in the JAX
+package:
 
 * ``forward``      — full-sequence logits and the summed MoE aux loss;
 * ``loss``         — the training loss, ``ce + MOE_AUX_WEIGHT * aux``;
 * ``prefill``      — full sequence + the decode cache;
 * ``decode_step``  — one token against the cache.
+
+``forward``, ``loss`` and ``prefill`` take token ids or ``embeds``
+``[B, T, d_model]`` (the audio and VLM frontends' frame or patch
+embeddings, cast to the embedding's dtype: bf16, JAX's
+``DEFAULT_DTYPE``, unless the model or train state was cast), and
+``positions``: ``[B, T]``, or with M-RoPE the ``[3, B, T]`` (temporal,
+height, width) grid; by default ``0 .. T-1`` in every stream.
+``decode_step`` takes text tokens, at the position ``lengths``.
 
 ``forward``, ``prefill`` and ``decode_step`` build no graph, and the
 module's own parameters take no gradient.  ``loss`` runs with grad
@@ -26,13 +37,16 @@ kernels.
 The JAX ``lax.scan`` over stacked layer params becomes a Python loop
 over ``self.layers``.  The decode cache keeps the JAX layout: a dict of
 stacked ``[L, B, ...]`` leaves per stage plus ``lengths`` — K/V
-``[L, B, S, KV, D]`` for GQA; the SSM state ``h`` ``[L, B, I, N]`` f32
+``[L, B, S, KV, D]`` for GQA; the latents ``ckv`` ``[L, B, S, R]`` and
+the rope keys ``kr`` ``[L, B, S, dr]`` for MLA; the SSM state ``h`` ``[L, B, I, N]`` f32
 and the conv tail ``conv`` ``[L, B, d_conv - 1, I]`` for Mamba;
 ``x_att``/``x_ffn`` ``[L, B, 1, D]`` and the WKV state ``S``
 ``[L, B, H, K, K]`` f32 for RWKV.  ``decode_step`` writes each layer's
 new entries into it in place.  ``attn_impl`` selects the kernels: under
-``"pallas"`` attention runs ``flash_attention`` (full sequence) and
-``decode_attention`` (decode), and the mamba and rwkv time-mixes of
+``"pallas"`` attention runs ``flash_attention`` (full sequence: GQA, and
+MLA at qk head dim ``dn + dr``, which JAX's ``mla_apply`` runs
+``blockwise``) and ``decode_attention`` (GQA decode; MLA's absorbed
+decode is plain torch in both packages), and the mamba and rwkv time-mixes of
 ``forward`` and ``prefill`` run the ``mamba_scan`` and ``rwkv6_scan``
 kernels, which the JAX LM never reaches (its ``ssm.py`` runs
 ``lax.associative_scan`` and ``lax.scan``).  MoE FFNs dispatch with
@@ -62,6 +76,10 @@ from repro_torch.models.attention import (
     gqa_decode_apply,
     gqa_init,
     gqa_weight_shapes,
+    mla_apply,
+    mla_decode_apply,
+    mla_init,
+    mla_weight_shapes,
 )
 from repro_torch.models.layers import (
     DEFAULT_DTYPE,
@@ -96,8 +114,11 @@ from repro_torch.models.ssm import (
 
 ATTN_IMPLS = ("blockwise", "reference", "pallas")
 MOE_AUX_WEIGHT = 0.01
-MIXERS = ("gqa", "mamba", "rwkv")
+MIXERS = ("gqa", "mla", "mamba", "rwkv")
 FFNS = ("mlp", "moe", "rwkv_cm")
+# Cache leaves with a sequence axis (GQA's K/V, MLA's latents), which
+# prefill pads into ``max_len`` rows; the others are recurrent states.
+SEQ_CACHES = ("k", "v", "ckv", "kr")
 
 
 def _params(shapes: dict, dtype, device) -> nn.ParameterDict:
@@ -136,6 +157,16 @@ class ParamTree(nn.Module):
         return name in self._parameters or name in self._modules
 
 
+def _mla_dims(cfg: ArchConfig) -> dict:
+    """The MLA spec's head and rank keywords of the ``mla_*`` functions
+    (``mla_weight_shapes``/``mla_init`` also take ``d_model``)."""
+    m = cfg.mla
+    return dict(num_heads=cfg.num_heads, kv_lora_rank=m.kv_lora_rank,
+                qk_nope_head_dim=m.qk_nope_head_dim,
+                qk_rope_head_dim=m.qk_rope_head_dim,
+                v_head_dim=m.v_head_dim)
+
+
 def _moe_kw(cfg: ArchConfig) -> dict:
     """The MoE spec's keywords of ``moe_weight_shapes``/``moe_init``."""
     mo = cfg.moe
@@ -159,6 +190,9 @@ class Block(nn.Module):
                 d_model=cfg.d_model, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads,
                 head_dim=cfg.resolved_head_dim), DEFAULT_DTYPE, device)
+        elif spec.mixer == "mla":
+            self.mixer = ParamTree(mla_weight_shapes(
+                d_model=cfg.d_model, **_mla_dims(cfg)), device)
         elif spec.mixer == "mamba":
             mm = cfg.mamba
             self.mixer = ParamTree(mamba_weight_shapes(
@@ -188,16 +222,15 @@ class LM(nn.Module):
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         if seq_parallel:
             raise NotImplementedError(
-                "seq_parallel is not ported to repro_torch")
+                "seq_parallel (a sequence-sharded activation constraint "
+                "across a device mesh) is not ported to repro_torch "
+                "(ROADMAP D2)")
         for pattern, _ in cfg.stages():
             for spec in pattern:
                 if spec.mixer not in MIXERS or spec.ffn not in FFNS:
-                    raise NotImplementedError(
-                        f"{cfg.name}: layer ({spec.mixer}, {spec.ffn}) is "
-                        f"not ported to repro_torch (mixers {MIXERS}, "
-                        f"FFNs {FFNS})")
-        if cfg.m_rope:
-            raise NotImplementedError("M-RoPE is not ported to repro_torch")
+                    raise ValueError(
+                        f"{cfg.name}: unknown layer ({spec.mixer}, "
+                        f"{spec.ffn}) (mixers {MIXERS}, FFNs {FFNS})")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.device = resolve_device(device)
@@ -241,6 +274,9 @@ class LM(nn.Module):
                 gqa_init(gen, d_model=cfg.d_model, num_heads=cfg.num_heads,
                          num_kv_heads=cfg.num_kv_heads,
                          head_dim=cfg.resolved_head_dim, out=lp.mixer)
+            elif lp.spec.mixer == "mla":
+                mla_init(gen, lp.mixer, d_model=cfg.d_model,
+                         **_mla_dims(cfg))
             elif lp.spec.mixer == "mamba":
                 mm = cfg.mamba
                 mamba_init(gen, lp.mixer, d_model=cfg.d_model,
@@ -270,10 +306,25 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
     # Full-sequence forward (prefill)
     # ------------------------------------------------------------------
-    def _positions(self, tokens):
-        B, T = tokens.shape
-        return torch.arange(T, dtype=torch.int32,
-                            device=tokens.device)[None, :].expand(B, T)
+    def _positions(self, x, positions):
+        """``positions`` as given, or ``0 .. T-1`` for each of x's B rows
+        (broadcast to the ``[3, B, T]`` grid with M-RoPE)."""
+        if positions is not None:
+            return positions
+        B, T = x.shape[0], x.shape[1]
+        pos = torch.arange(T, dtype=torch.int32,
+                           device=x.device)[None, :].expand(B, T)
+        return pos[None].expand(3, B, T) if self.cfg.m_rope else pos
+
+    def _embed_in(self, table, tokens, embeds):
+        """The input activations: ``embeds`` cast to the embedding's
+        dtype (bf16 unless cast, JAX's ``DEFAULT_DTYPE``), else the
+        tokens' rows of ``table``."""
+        if embeds is not None:
+            return embeds.to(table.dtype)
+        if tokens is None:
+            raise ValueError("give tokens or embeds")
+        return embed_apply(table, tokens)
 
     def _layer_views(self) -> list:
         """Each layer's parameter groups (``mixer_norm``, ``mixer``,
@@ -307,8 +358,8 @@ class LM(nn.Module):
 
     def _layer_full(self, spec, lp, x, positions, aux):
         """One layer over the full sequence -> (x, aux, cache entries:
-        {"k", "v"} for GQA, {"h", "conv"} for Mamba, {"x_att", "S",
-        "x_ffn"} for RWKV)."""
+        {"k", "v"} for GQA, {"ckv", "kr"} for MLA, {"h", "conv"} for
+        Mamba, {"x_att", "S", "x_ffn"} for RWKV)."""
         cfg = self.cfg
         c = {}
         h = self.norm_apply(lp["mixer_norm"], x, eps=cfg.norm_eps)
@@ -317,6 +368,13 @@ class LM(nn.Module):
                 lp["mixer"], h, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads,
                 head_dim=cfg.resolved_head_dim, positions=positions,
+                causal=cfg.causal, rope_theta=cfg.rope_theta,
+                m_rope=cfg.m_rope, m_rope_sections=cfg.m_rope_sections,
+                impl=self.attn_impl, q_block=cfg.attn_q_block,
+                kv_block=cfg.attn_kv_block)
+        elif spec.mixer == "mla":
+            y, (c["ckv"], c["kr"]) = mla_apply(
+                lp["mixer"], h, **_mla_dims(cfg), positions=positions,
                 causal=cfg.causal, rope_theta=cfg.rope_theta,
                 impl=self.attn_impl, q_block=cfg.attn_q_block,
                 kv_block=cfg.attn_kv_block)
@@ -390,39 +448,39 @@ class LM(nn.Module):
         ids = torch.arange(cfg.padded_vocab, device=logits.device)
         return torch.where(ids < cfg.vocab_size, logits, -1e30)
 
-    def _logits(self, tokens, p, *, remat=False):
+    def _logits(self, p, tokens, embeds, positions, *, remat=False):
         cfg = self.cfg
-        x = embed_apply(p["embed"], tokens)
-        x, aux, _ = self._run_layers(x, self._positions(tokens),
+        x = self._embed_in(p["embed"], tokens, embeds)
+        x, aux, _ = self._run_layers(x, self._positions(x, positions),
                                      layers=p["layers"], remat=remat)
         x = self.norm_apply(p["final_norm"], x, eps=cfg.norm_eps)
         return self._mask_pad(unembed_apply(p["head"], x)), aux
 
     @torch.no_grad()
-    def forward(self, tokens, *, remat: bool = False):
-        """tokens: i32[B,T] -> (logits [B,T,V] f32, moe_aux f32: the
-        Switch aux losses of the MoE layers, summed; 0 without any).
-        No graph is built (the serving paths' forward)."""
-        return self._logits(tokens, self._own(), remat=remat)
+    def forward(self, tokens=None, *, embeds=None, positions=None,
+                remat: bool = False):
+        """tokens: i32[B,T] or embeds: [B,T,d_model]; positions: [B,T]
+        or ``[3, B, T]`` with M-RoPE (default ``0 .. T-1``) -> (logits
+        [B,T,V] f32, moe_aux f32: the Switch aux losses of the MoE
+        layers, summed; 0 without any).  No graph is built (the serving
+        paths' forward)."""
+        return self._logits(self._own(), tokens, embeds, positions,
+                            remat=remat)
 
     def loss(self, batch: dict, *, params, remat: bool = False):
-        """batch: {'tokens', 'labels'} -> scalar f32 loss, ``ce +
-        MOE_AUX_WEIGHT * aux``; causal models shift internally (labels
-        may equal tokens), encoders predict labels frame-wise.
+        """batch: {'tokens' | 'embeds', 'labels'} (and optionally
+        'positions') -> scalar f32 loss, ``ce + MOE_AUX_WEIGHT * aux``;
+        causal models shift internally (labels may equal tokens),
+        encoders predict labels frame-wise.
 
         Runs with grad enabled.  ``params``: a JAX-layout tree whose
         leaves the caller differentiates against (:meth:`bind`; the train
-        step's leaves), as JAX's ``loss(params, batch)`` takes them.
-        ``embeds`` and M-RoPE ``positions`` are not ported (ROADMAP
-        A14)."""
-        for name in ("embeds", "positions"):
-            if batch.get(name) is not None:
-                raise NotImplementedError(
-                    f"batch[{name!r}] is not ported to repro_torch "
-                    "(ROADMAP A14)")
+        step's leaves), as JAX's ``loss(params, batch)`` takes them."""
         p = self.bind(params)
         with torch.enable_grad():
-            logits, aux = self._logits(batch["tokens"], p, remat=remat)
+            logits, aux = self._logits(
+                p, batch.get("tokens"), batch.get("embeds"),
+                batch.get("positions"), remat=remat)
             labels = batch["labels"]
             if self.cfg.causal:
                 logits = logits[:, :-1]
@@ -458,7 +516,7 @@ class LM(nn.Module):
     # Decode cache
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """Zeroed caches; K/V, the mamba conv tail and the RWKV
+        """Zeroed caches; K/V, MLA's latents, the mamba conv tail and the RWKV
         token-shift inputs in the activation dtype (the embedding's: bf16,
         as JAX's ``DEFAULT_DTYPE``, unless the model was cast), the
         recurrent states ``h`` and ``S`` in f32."""
@@ -474,6 +532,10 @@ class LM(nn.Module):
                     c.update(kvcache.gqa_cache_init(
                         repeat, batch, max_len, cfg.num_kv_heads,
                         cfg.resolved_head_dim, dtype=act, device=dev))
+                elif spec.mixer == "mla":
+                    c.update(kvcache.mla_cache_init(
+                        repeat, batch, max_len, cfg.mla.kv_lora_rank,
+                        cfg.mla.qk_rope_head_dim, dtype=act, device=dev))
                 elif spec.mixer == "mamba":
                     mm = cfg.mamba
                     c.update(kvcache.mamba_cache_init(
@@ -513,14 +575,17 @@ class LM(nn.Module):
         ``cache['lengths']`` counts tokens BEFORE this step; the new
         token is written at position lengths (0-based) and lengths
         increments.  The cache tensors are updated in place (K/V rows,
-        the mamba states and conv tails, the RWKV token-shift inputs and
+        MLA's latent and rope-key rows, the mamba states and conv tails, the RWKV token-shift inputs and
         WKV states of every slot, idle ones too, as JAX's step computes
         them); the returned cache shares them and carries the new
         ``lengths``.  MoE layers run dropless (``moe_apply_dense``).
         """
         cfg = self.cfg
         lengths = cache["lengths"] + 1            # incl. the new token
+        B = tokens.shape[0]
         pos = (lengths - 1)[:, None]              # [B,1]
+        if cfg.m_rope:
+            pos = pos[None].expand(3, B, 1)
         x = embed_apply(self.embed, tokens)
         for lp, lc in zip(self.layers, self._layer_caches(cache)):
             h = self.norm_apply(lp.mixer_norm, x, eps=cfg.norm_eps)
@@ -529,7 +594,14 @@ class LM(nn.Module):
                     lp.mixer, h, lc["k"], lc["v"], lengths,
                     num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                     head_dim=cfg.resolved_head_dim, positions=pos,
-                    rope_theta=cfg.rope_theta, impl=self.attn_impl)
+                    rope_theta=cfg.rope_theta, m_rope=cfg.m_rope,
+                    m_rope_sections=cfg.m_rope_sections,
+                    impl=self.attn_impl)
+            elif lp.spec.mixer == "mla":
+                y, _, _ = mla_decode_apply(
+                    lp.mixer, h, lc["ckv"], lc["kr"], lengths,
+                    **_mla_dims(cfg), positions=pos,
+                    rope_theta=cfg.rope_theta)
             elif lp.spec.mixer == "mamba":
                 mm = cfg.mamba
                 y, st = mamba_decode_step(
@@ -565,23 +637,25 @@ class LM(nn.Module):
     # Prefill
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, tokens, max_len: int | None = None):
-        """Full-sequence pass that also builds the decode cache.
+    def prefill(self, tokens=None, max_len: int | None = None, *,
+                embeds=None, positions=None):
+        """Full-sequence pass that also builds the decode cache; takes
+        ``tokens`` or ``embeds`` and ``positions`` as :meth:`forward`.
 
         Returns (last-token logits [B,V], cache padded to ``max_len``).
         """
         cfg = self.cfg
-        B, T = tokens.shape
+        x = self._embed_in(self.embed, tokens, embeds)
+        B, T = x.shape[0], x.shape[1]
         max_len = max_len or T
-        x = embed_apply(self.embed, tokens)
-        x, _aux, caches = self._run_layers(x, self._positions(tokens),
+        x, _aux, caches = self._run_layers(x, self._positions(x, positions),
                                            collect_cache=True)
         x = self.norm_apply(self.final_norm, x, eps=cfg.norm_eps)
         logits = self._mask_pad(unembed_apply(self._head(), x[:, -1]))
         full = self.init_cache(B, max_len)
         for tgt, src in zip(self._layer_caches(full), caches):
             for name, val in src.items():
-                if name in ("k", "v"):     # [B,T,...] into [B,max_len,...]
+                if name in SEQ_CACHES:     # [B,T,...] into [B,max_len,...]
                     tgt[name][:, :T] = val
                 else:                      # recurrent state: set whole
                     tgt[name].copy_(val)

@@ -26,7 +26,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.core.tree import (
+    key_leaves,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 from repro_torch.models.model import LM
 from repro_torch.training.compression import (
     apply_error_feedback,
@@ -81,10 +86,19 @@ def make_grad_fn(model: LM, *, num_microbatches: int = 1,
     (in the leaves' dtypes with one), as the JAX step computes them."""
 
     def micro_grads(params, micro):
-        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        names, leaves = zip(*((name, t.detach().requires_grad_())
+                              for name, t in key_leaves(params)))
         loss = model.loss(micro, params=tree_unflatten(params, leaves),
                           remat=remat)
-        grads = torch.autograd.grad(loss, leaves)
+        # Only the embedding table may go unread, and only when the batch
+        # holds ``embeds``; it then takes a zero gradient, as under
+        # jax.grad.  Any other unread leaf is a fault and raises.
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        unused = [n for n, g in zip(names, grads) if g is None]
+        if unused not in ([], ["['embed']"] if "embeds" in micro else []):
+            raise RuntimeError(f"the loss does not read {unused}")
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads)]
         return loss.detach(), tree_unflatten(params, grads)
 
     def grad_fn(params, batch):
@@ -92,7 +106,7 @@ def make_grad_fn(model: LM, *, num_microbatches: int = 1,
             return micro_grads(params, batch)
         micros = _split_microbatches(batch, num_microbatches)
         loss = torch.zeros((), dtype=torch.float32,
-                           device=micros["tokens"].device)
+                           device=micros["labels"].device)
         grads = tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
         for m in range(num_microbatches):

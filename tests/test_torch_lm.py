@@ -393,7 +393,31 @@ def test_lm_defaults_to_the_card_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen2-vl-72b"])
 def test_unported_layers_raise(arch):
-    """MLA and M-RoPE configs are refused, not run wrong (Mamba and MoE
-    layers are ported: ``tests/test_torch_jamba.py``)."""
-    with pytest.raises(NotImplementedError):
-        TLM(tget_config(arch).reduced(), device="cpu")
+    """The one option of the JAX ``LM`` still unported, ``seq_parallel``,
+    is refused on the MLA and M-RoPE configs, naming its ROADMAP label,
+    not run wrong."""
+    with pytest.raises(NotImplementedError, match="ROADMAP D2"):
+        TLM(tget_config(arch).reduced(), seq_parallel=True, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen2-vl-72b"])
+def test_mla_and_m_rope_configs_build_and_run(arch):
+    """MLA (deepseek-v2-lite) and M-RoPE (qwen2-vl) configs build, with
+    JAX's param tree leaf for leaf (path, shape, dtype), and run (their
+    numbers: ``tests/test_torch_mla.py``, ``tests/test_torch_mrope.py``)."""
+    from repro_torch.core.tree import key_leaves
+    model = TLM(tget_config(arch).reduced(), device="cpu").init(0)
+    shapes = jax.eval_shape(JLM(jget_config(arch).reduced()).init,
+                            jax.random.PRNGKey(0))
+    flat, _ = jax.tree_util.tree_flatten_with_path(shapes)
+    got = list(key_leaves(model.stacked_params()))
+    assert [p for p, _ in got] == [jax.tree_util.keystr(p) for p, _ in flat]
+    for (path, t), (_, want) in zip(got, flat):
+        assert tuple(t.shape) == want.shape, path
+        assert str(t.dtype).split(".")[1] == want.dtype.name, path
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    logits, cache = model.prefill(tokens, max_len=12)
+    assert bool(torch.isfinite(logits).all())
+    logits, cache = model.decode_step(cache, tokens[:, :1])
+    assert bool(torch.isfinite(logits).all())
+    assert cache["lengths"].tolist() == [9]

@@ -437,12 +437,14 @@ def test_rwkv_lm_defaults_to_the_card_and_raises_without_it(monkeypatch):
 
 
 def test_mamba_config_still_raises():
-    """Mamba and MoE layers are ported now (``tests/test_torch_jamba.py``):
-    the jamba config builds, and the layer kind still refused is MLA."""
+    """Mamba and MoE layers are ported (``tests/test_torch_jamba.py``), and
+    MLA too (``tests/test_torch_mla.py``): the jamba and deepseek configs
+    build."""
     model = TLM(tget_config("jamba-1.5-large-398b").reduced(), device="cpu")
     assert [lp.spec.mixer for lp in model.layers][:2] == ["gqa", "mamba"]
-    with pytest.raises(NotImplementedError, match="mla"):
-        TLM(tget_config("deepseek-v2-lite-16b").reduced(), device="cpu")
+    model = TLM(tget_config("deepseek-v2-lite-16b").reduced(), device="cpu")
+    assert [(lp.spec.mixer, lp.spec.ffn) for lp in model.layers] == [
+        ("mla", "mlp"), ("mla", "moe"), ("mla", "moe")]
 
 
 def test_f32_copy_runs_in_f32_and_scans_agree(setup):

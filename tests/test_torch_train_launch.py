@@ -108,8 +108,16 @@ def test_data_deterministic_and_restart_safe():
     b3 = make_batch(cfg, 8)
     assert not torch.equal(b1["tokens"], b3["tokens"])
     assert int(b1["tokens"].max()) < 1000
-    with pytest.raises(NotImplementedError, match="A14"):
-        make_batch(DataConfig(8, 4, 2, input_mode="embeds", d_model=4), 0)
+    # an embeds batch: JAX's Zipf labels bit for bit, and its normal draw
+    # within 3 f32 ulps (tests/test_torch_mrope.py counts the elements)
+    cfg = DataConfig(8, 4, 2, input_mode="embeds", d_model=4)
+    got = make_batch(cfg, 0)
+    want = jpipe.make_batch(jpipe.DataConfig(8, 4, 2, input_mode="embeds",
+                                             d_model=4), 0)
+    assert np.array_equal(got["labels"].numpy(), np.asarray(want["labels"]))
+    np.testing.assert_array_max_ulp(got["embeds"].numpy(),
+                                    np.asarray(want["embeds"]), maxulp=3)
+    assert torch.equal(make_batch(cfg, 0)["embeds"], got["embeds"])
 
 
 def test_data_shard_slices_partition_global_batch():

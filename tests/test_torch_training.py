@@ -123,6 +123,19 @@ def _batch(arch: str) -> dict:
     return {"tokens": tokens, "labels": tokens}
 
 
+def _embeds_batch(arch: str) -> dict:
+    """``_batch(arch)`` fed as embeddings at shifted positions: frame
+    embeddings ``[B, T, d_model]`` f32 in place of the tokens, and
+    positions ``3 .. T + 2``."""
+    rng = np.random.default_rng(len(arch) + 100)
+    d = jget_config(arch).reduced().d_model
+    return {"embeds": (rng.standard_normal((B, T, d)) * 0.5).astype(
+                np.float32),
+            "positions": np.broadcast_to(np.arange(3, T + 3, dtype=np.int32),
+                                         (B, T)).copy(),
+            "labels": _batch(arch)["labels"]}
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_params(arch: str):
     """The JAX weights of ``arch`` (drawn in the child only)."""
@@ -154,6 +167,9 @@ def _write_jax_refs(path: str) -> None:
         loss, grads = jax.jit(jax.value_and_grad(jm.loss))(params, batch)
         out.update(_flat(grads, f"grads/{arch}"))
         out[f"loss/{arch}"] = np.asarray(loss)
+        if arch == "stablelm-12b":
+            out[f"loss_embeds/{arch}"] = np.asarray(jax.jit(jm.loss)(
+                params, jax.tree.map(jnp.asarray, _embeds_batch(arch))))
         if arch == ADAMW_ARCH:
             adamw_grads = grads
     for arch, micro in STEP_CASES:
@@ -277,11 +293,15 @@ def test_lm_loss_matches_jax(refs, arch):
 
 
 def test_lm_loss_refuses_embeds_and_positions(refs):
-    s = _setup("stablelm-12b", refs)
-    for name in ("embeds", "positions"):
-        with pytest.raises(NotImplementedError, match="A14"):
-            s["model"].loss(dict(s["batch"], **{name: s["batch"]["tokens"]}),
-                            params=s["params"])
+    """``embeds`` and ``positions`` in the batch, against JAX's loss on
+    the same batch (the embedding table is then not read)."""
+    arch = "stablelm-12b"
+    s = _setup(arch, refs)
+    batch = {k: torch.from_numpy(v) for k, v in _embeds_batch(arch).items()}
+    got = s["model"].loss(batch, params=s["params"])
+    want = float(refs[f"loss_embeds/{arch}"])
+    assert abs(float(got) - want) <= LOSS_TOL, (float(got), want)
+    assert abs(want - float(refs[f"loss/{arch}"])) > 10 * LOSS_TOL
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +369,24 @@ def test_gradients_match_jax(refs, arch):
     for path, leaf in key_leaves(s["params"]):
         assert got[path].dtype == leaf.dtype, path
     _hold_leaves(got, refs, f"grads/{arch}", s["params"], GRAD_RTOL)
+
+
+def test_grad_fn_refuses_an_unread_leaf(refs):
+    """A leaf the loss does not read raises: a layer cut off from the
+    loss must not pass as a zero gradient, on which card and CPU would
+    agree.  Only the embedding table under an ``embeds`` batch takes
+    zeros, as under ``jax.grad``."""
+    arch = "stablelm-12b"
+    s = _setup(arch, refs)
+    grad_fn = make_grad_fn(s["model"], remat=False)
+    embeds = {k: torch.from_numpy(v) for k, v in _embeds_batch(arch).items()}
+    orphan = dict(s["params"], orphan=torch.zeros(3))
+    for batch in (s["batch"], embeds):
+        with pytest.raises(RuntimeError, match="orphan"):
+            grad_fn(orphan, batch)
+    _, grads = grad_fn(s["params"], embeds)
+    assert not bool(grads["embed"].any())
+    assert bool(grads["head"].any())
 
 
 @pytest.mark.parametrize("clip", CLIPS)
