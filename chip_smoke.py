@@ -139,7 +139,7 @@ Phases, each printed on its own line:
    seconds (the heap's build), run seconds, batches/s, events/s, host
    reads a batch, words composed and compile seconds (total, largest).
 5g3. analysis — the static analyzer (``repro_torch.analysis``): (a) its
-   five targets (``ANALYSIS_TARGETS``) analyzed with their example
+   six targets (``ANALYSIS_TARGETS``) analyzed with their example
    states on the card and on the CPU, the two reports equal
    (``to_json``) and clean, with no kernel launched and no engine count
    moved, each with its seconds; (b) ``build(dispatch_mode="fused",
@@ -181,6 +181,25 @@ Phases, each printed on its own line:
    seconds, card seconds, super-steps per second, host syncs a
    super-step (loop and total) beside the single queue's and its
    launches.
+5j. stacked — 5i (a)'s PHOLD at ``SHARDS`` shards run
+   ``STACKED_BATCHES`` super-steps, then stacked
+   (``stack_sharded_queue``): the eight ``tiered3_stacked_*`` helpers,
+   ``stacked_sharded_fault_bits`` (0) and the engine's stacked occupancy
+   and absorb, each bit for bit equal to the tuple-of-shards op on the
+   same CUDA tensors; the stacked fill launches ``front_merge`` once a
+   shard.
+5k. wireless — the paper's §IV.A example
+   (``repro_torch.examples.wireless_des``): the host run (its batch
+   words compiled by Inductor) and the device runs in the two-tier queue
+   (capacity 4096) and the flat queue (64) on the card, each inbox,
+   batch, event and drop count equal to a CPU eager run; its analysis
+   from the card template equal to the CPU one, no launch; then the
+   cross-event check, reported and not gated: whether the message's
+   work (the LCG multiplier) appears in the generated code of the dead
+   word ``[SleepAll, Broadcast, WakeAll]`` and of the live word
+   ``[WakeAll, Broadcast, SleepAll]``, each word's warm ms a call (CUDA
+   events) and their ratio; the compiled words must deliver nothing and
+   the message.
 6. serve — stablelm-12b at full width (40 layers, d_model 5120, 12.1 B
    parameters in bf16) through ``repro_torch.launch.serve`` with its
    defaults: 6 requests, 12 new tokens each, 4 slots, ``max_len`` 256.
@@ -263,6 +282,16 @@ Phases, each printed on its own line:
    compression; (d) ``LM(cfg, attn_impl="pallas").loss`` against
    trainable leaves raises before any launch, directly and through the
    train step.
+6f. roofline — ``repro_torch.launch.graph_cost`` and ``roofline`` at
+   H100 rates: (a) one bf16 and one f32 matrix product on the card,
+   counted as exactly their analytic FLOPs and bytes, with their
+   TFLOP/s; (b) the cells phases serve and train time (stablelm-12b's
+   decode step at 4 slots and ``max_len`` 256, granite's remat step at
+   8 x 1024 tokens in 2 microbatches): FLOPs, bytes, the bound, the
+   measured ms and model-FLOPs share of the bf16 peak; the decode cell
+   must move at least its parameter bytes.  The roofline of every
+   (arch x shape) cell allocates nothing on the card and is left to
+   ``python -m repro_torch.launch.roofline --all``.
 7. timing — each kernel and its plain version at the main path's shapes
    (CUDA events over back-to-back calls: ``ms``), the kernel's device
    time with the host taken out (calls captured in a CUDA graph:
@@ -362,13 +391,14 @@ CAST_VALUES = [3e9, -3e9, float("nan"), 2.5e9, float("inf"), -float("inf"),
                2147483520.0, -2147483648.0, -1.5, 1.5]
 CAST_XLA = [2147483647, -2147483648, 0, 2147483647, 2147483647,
             -2147483648, 2147483520, -2147483648, -1, 1]
-# The analysis phase: the analyzer's five targets, and C3's entity ids
+# The analysis phase: the analyzer's six targets, and C3's entity ids
 # with JAX's results for ``s + 1`` over the leaf [0, 1, 2, 3].
 ANALYSIS_TARGETS = ("repro_torch.examples.phold:make_program",
                     "repro_torch.examples.mmc_network:make_program",
                     "repro_torch.serving.scenarios:make_program",
                     "repro_torch.serving.scenarios:make_open_program",
-                    "repro_torch.poc:make_program")
+                    "repro_torch.poc:make_program",
+                    "repro_torch.examples.wireless_des:make_program")
 C3_CASES = [([2**31 - 1, 1], [0, 2, 2, 3]), ([-1, 1], [0, 2, 2, 4]),
             ([-5, 1], [0, 2, 2, 3]), ([4, 1], [0, 2, 2, 3])]
 MODES_BATCHES = 1024
@@ -385,6 +415,7 @@ STREAM_SHARDS = 2
 # runs and merges, decided by the stacked flags, run within 1,024.
 TIERED_BATCHES = PHOLD_BATCHES
 FUSED_SHARD_TIERS = dict(front_cap=32, stage_cap=64, num_runs=4)
+STACKED_BATCHES = 64       # phase stacked: PHOLD super-steps before the checks
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 
@@ -2479,9 +2510,10 @@ def _build_timed(build):
             sum(p.numel() * p.element_size() for p in model.parameters()))
 
 
-def run_serve() -> dict:
+def run_serve() -> tuple:
     """stablelm-12b with the serve launcher's defaults on the card;
-    returns the attention kernels' launches in that run."""
+    returns the attention kernels' launches in that run and its ms a
+    decode step."""
     from repro_torch.launch import serve
 
     args = serve.parse_args(SERVE_ARGS)
@@ -2498,9 +2530,10 @@ def run_serve() -> dict:
           max_memory_allocated=peak,
           **_serve_fields(engine, stats, params, param_bytes),
           launches=json.dumps(every, separators=(",", ":")))
+    decode_ms = stats.decode_seconds / stats.decode_events * 1e3
     teacher_force(model, "reference")
     return {name: every[name]
-            for name in ("flash_attention", "decode_attention")}
+            for name in ("flash_attention", "decode_attention")}, decode_ms
 
 
 def run_serve_rwkv() -> dict:
@@ -2877,9 +2910,9 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def train_full_width() -> None:
+def train_full_width() -> float:
     """(a) granite-moe-1b-a400m at full width and depth: steps without
-    and with remat from the same state."""
+    and with remat from the same state; returns the remat steps' ms."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2941,6 +2974,8 @@ def train_full_width() -> None:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    steady = remat["seconds"][1:]
+    return sum(steady) / len(steady) * 1e3
 
 
 def train_supervised() -> None:
@@ -3172,16 +3207,17 @@ def train_refusal() -> None:
           message=json.dumps(messages[0]))
 
 
-def run_train() -> None:
+def run_train() -> float:
     """Phase train: (a)-(d) with every kernel's launch count zeroed just
-    before and read just after (JAX's training path runs no kernel)."""
+    before and read just after (JAX's training path runs no kernel);
+    returns (a)'s remat step ms."""
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     reset_launches()
-    train_full_width()
+    remat_ms = train_full_width()
     train_supervised()
     train_card_against_cpu()
     train_refusal()
@@ -3190,6 +3226,7 @@ def run_train() -> None:
         raise PhaseError(f"train: kernels launched {every}")
     phase("train_total", seconds=f"{time.perf_counter() - t_phase:.3f}",
           launches=json.dumps(every, separators=(",", ":")))
+    return remat_ms
 
 
 def _uncounted_params(cfg) -> int:
@@ -3386,6 +3423,300 @@ def teacher_force(model, plain_impl: str, phase_name: str = "teacher_force",
           dtype=str(model.embed.dtype)[6:], steps=TEACHER_STEPS + 1,
           min_cosine=f"{float(cos.min()):.6f}", max_abs_diff=f"{diff:.4f}",
           **extra)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5j: the stacked shard layout
+# ---------------------------------------------------------------------------
+
+def _differing(a, b) -> list:
+    """The fields of two queues (or of two tuples of tensors) that are
+    not bit-identical."""
+    import torch
+
+    names = a._fields if hasattr(a, "_fields") else range(len(a))
+    return [str(n) for n, x, y in zip(names, a, b)
+            if not torch.equal(x, y)]
+
+
+def run_stacked(device_name: str) -> None:
+    """Phase 5j: phase 5i (a)'s PHOLD at ``SHARDS`` shards, run
+    ``STACKED_BATCHES`` super-steps on the card, then stacked; every
+    ``tiered3_stacked_*`` helper, ``stacked_sharded_fault_bits`` and the
+    engine's stacked absorb bit for bit against the tuple-of-shards op
+    on the same CUDA tensors."""
+    import torch
+
+    from repro_torch.core import queue as q
+    from repro_torch.core import validate as V
+    from repro_torch.core.events import ARG_WIDTH
+    from repro_torch.core.sharded import stack_sharded_queue
+    from repro_torch.examples import phold
+
+    t_phase = time.perf_counter()
+    prog = phold.build_program(num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP,
+                               max_batch_len=4, capacity=PHOLD_CAPACITY)
+    eng = prog.build(backend="device", device=device_name,
+                     shards=SHARDS).engine
+    _, sq, _ = eng.run(phold.initial_state(PHOLD_LPS, device_name),
+                       eng.initial_queue(prog.scheduled_events()),
+                       max_batches=STACKED_BATCHES)
+    stq = stack_sharded_queue(sq)
+    shards = sq.shards
+    problems = []
+
+    def check(label, got, want):
+        bad = _differing(got, want)
+        if bad:
+            problems.append(f"{label}: {bad}")
+
+    for name in ("has_pending", "occupancy", "next_time"):
+        check(name, (getattr(q, f"tiered3_stacked_{name}")(stq.q),),
+              (torch.stack([getattr(q, f"tiered3_queue_{name}")(s)
+                            for s in shards]),))
+    keys = [q.tiered3_queue_next_key(s) for s in shards]
+    check("next_key", q.tiered3_stacked_next_key(stq.q),
+          tuple(torch.stack(col) for col in zip(*keys)))
+
+    k = 4
+    q2, *peeked = q.tiered3_stacked_peek_front(stq.q, k)
+    singles = [q.tiered3_queue_peek_front(s, k) for s in shards]
+    for i, one in enumerate(singles):
+        check(f"peek shard {i}", q2._make(x[i] for x in q2), one[0])
+        check(f"peeked shard {i}", [x[i] for x in peeked], one[1:])
+    lengths = torch.minimum(
+        torch.tensor([2, 1, 0, 4], dtype=torch.int32, device=device_name),
+        torch.sum(peeked[1] >= 0, dim=1).to(torch.int32))
+    q3 = q.tiered3_stacked_pop_prefix(q2, lengths, k)
+    popped = [q.tiered3_queue_pop_prefix(one[0], lengths[i], k)
+              for i, one in enumerate(singles)]
+    for i, one in enumerate(popped):
+        check(f"pop shard {i}", q3._make(x[i] for x in q3), one)
+
+    # Four emitted rows near the fronts' heads, each routed to one shard.
+    t0 = float(peeked[0][0, 0])
+    rows = torch.zeros((4, 2 + ARG_WIDTH), device=device_name)
+    rows[:, 0] = t0 + torch.tensor([1.0, 1.5, 2.0, 3.5])
+    rows[:, 2] = torch.arange(4.0)
+    seqs = sq.next_seq + torch.arange(4, dtype=torch.int32,
+                                      device=device_name)
+    insert = (torch.arange(4, device=device_name)[None, :] % SHARDS
+              == torch.arange(SHARDS, device=device_name)[:, None])
+    torch.cuda.synchronize()
+    reset_launches()
+    q4 = q.tiered3_stacked_fill_rows_tagged(q3, rows, seqs, insert)
+    torch.cuda.synchronize()
+    fill_launches = read_launches()["front_merge"]
+    if fill_launches != SHARDS:
+        problems.append(f"stacked fill launched front_merge "
+                        f"{fill_launches} times, not {SHARDS}")
+    for i, one in enumerate(popped):
+        check(f"fill shard {i}", q4._make(x[i] for x in q4),
+              q.tiered3_queue_fill_rows_tagged(one, rows, seqs, insert[i]))
+
+    words = (int(V.stacked_sharded_fault_bits(stq)),
+             int(V.sharded_fault_bits(sq)))
+    if words != (0, 0):
+        problems.append(f"fault words (stacked, tuple) {words}")
+    occ = (int(eng.queue_occupancy(stq)), int(eng.queue_occupancy(sq)))
+    if occ[0] != occ[1]:
+        problems.append(f"occupancy (stacked, tuple) {occ}")
+
+    # Arrivals with seqs older than the queued ones, through the engine.
+    rows_a = rows.clone()
+    rows_a[:, 0] = t0 + torch.tensor([0.5, 0.5, 1.0, 4.0])
+    seqs_a = torch.tensor([1, 3, 5, 7], dtype=torch.int32,
+                          device=device_name)
+    ins_a = torch.ones(4, dtype=torch.bool, device=device_name)
+    got = eng.absorb_rows(stq, rows_a, seqs_a, ins_a)
+    want = eng.absorb_rows(sq, rows_a, seqs_a, ins_a)
+    for i, one in enumerate(want.shards):
+        check(f"absorb shard {i}", got.shard(i), one)
+    check("absorb counters", (got.size, got.next_seq, got.dropped),
+          (want.size, want.next_seq, want.dropped))
+    if problems:
+        raise PhaseError("stacked: " + "; ".join(problems))
+    phase("stacked", shards=SHARDS, lps=PHOLD_LPS, capacity=PHOLD_CAPACITY,
+          batches=STACKED_BATCHES, occupancy=occ[0], fault_word=0,
+          fill_front_merge_launches=fill_launches,
+          helpers_bit_identical=True,
+          seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5k: the §IV.A wireless example
+# ---------------------------------------------------------------------------
+
+def run_wireless(device_name: str) -> None:
+    """Phase 5k: the wireless example's three runs on the card (the host
+    run's words compiled) against one another and a CPU eager run; its
+    analysis from the card template against the CPU's, no launch; then
+    the cross-event check (reported, not gated: whether Inductor drops
+    the dead word's message work), whose compiled words must deliver
+    what their events say."""
+    import torch
+
+    from repro_torch.analysis import analyze
+    from repro_torch.core import queue as q
+    from repro_torch.core.tree import tree_map
+    from repro_torch.examples import wireless_des as w
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    t0 = time.perf_counter()
+    card = w.run_all(device_name)
+    card_s = time.perf_counter() - t0
+    launches = read_launches()
+    cpu = w.run_all("cpu", jit_handlers=False)["host"]
+    problems = []
+    want = (cpu.state["inbox"].tolist(), cpu.batches, cpu.events,
+            cpu.dropped)
+    for name, res in card.items():
+        got = (res.state["inbox"].tolist(), res.batches, res.events,
+               res.dropped)
+        if got != want:
+            problems.append(f"{name}: {got} against the CPU's {want}")
+
+    prog = w.make_program()
+    cpu_state = prog._example_state
+    reset_launches()
+    q.COUNTS.clear()
+    t0 = time.perf_counter()
+    report = analyze(prog, state=tree_map(lambda x: x.to(device_name),
+                                          cpu_state))
+    analysis_s = time.perf_counter() - t0
+    if report.to_json() != analyze(prog, state=cpu_state).to_json():
+        problems.append("the card template's report differs")
+    if not report.ok or report.dead:
+        problems.append(f"analysis not clean: {report.dead}")
+    if any(read_launches().values()) or any(q.COUNTS.values()):
+        problems.append("the analysis launched a kernel or moved a count")
+
+    check = w.cross_event_check(device_name)
+    msg = int(w.message(device_name)[0])
+    if (check["dead_inbox"] != [0] * w.N_RECEIVERS
+            or check["live_inbox"] != [msg] * w.N_RECEIVERS):
+        problems.append(f"compiled words delivered {check['dead_inbox']} "
+                        f"and {check['live_inbox']}, message {msg}")
+    if problems:
+        raise PhaseError("wireless: " + "; ".join(problems))
+    phase("wireless", inbox=json.dumps(want[0]), batches=want[1],
+          events=want[2], dropped=want[3], message=msg,
+          runs="host_compiled,tiered_4096,flat_64", card_s=f"{card_s:.3f}",
+          launches=json.dumps(launches, separators=(",", ":")),
+          analysis_s=f"{analysis_s:.3f}", reports_equal=True,
+          dead_work_in_code=check["dead_work_in_code"],
+          live_work_in_code=check["live_work_in_code"],
+          dead_ms=f"{check['dead_ms']:.6f}",
+          live_ms=f"{check['live_ms']:.6f}",
+          dead_over_live=f"{check['ratio']:.4f}",
+          seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6f: the cost model and roofline
+# ---------------------------------------------------------------------------
+
+def _roofline_cell(arch: str, shape_name: str, shape=None,
+                   num_microbatches=None) -> dict:
+    """One cell's roofline on fake CUDA tensors (a worker process)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import analyze
+    from repro_torch.launch.specs import build_cell
+
+    t0 = time.perf_counter()
+    cell = build_cell(get_config(arch), shape_name, shape=shape,
+                      num_microbatches=num_microbatches)
+    r = analyze(cell)
+    out = r.to_dict()
+    out["bound_seconds"] = r.bound_seconds
+    out["param_bytes"] = (sum(p.numel() * p.element_size()
+                              for p in cell.arg_specs[0].values())
+                          if cell.kind != "train" else None)
+    out["trace_s"] = time.perf_counter() - t0
+    return out
+
+
+def _roofline_mm(dtype_name: str, n: int) -> None:
+    """(a) one ``n``-cube product on the card under the cost mode."""
+    import torch
+
+    from repro_torch.launch.graph_cost import CostMode
+    from repro_torch.launch.roofline import PEAK_FLOPS
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((n, n), generator=gen, device="cuda").to(dtype)
+    b = torch.randn((n, n), generator=gen, device="cuda").to(dtype)
+    mode = CostMode()
+    with mode:
+        a @ b
+    flops, nbytes = 2.0 * n ** 3, 3.0 * n * n * a.element_size()
+    cost = mode.cost
+    if (cost.flops, cost.mem_bytes, cost.flops_by_dtype) != (
+            flops, nbytes, {dtype_name: flops}):
+        raise PhaseError(f"roofline a: {dtype_name} mm counted {cost}, "
+                         f"expected {flops} FLOPs, {nbytes} bytes")
+    ms = _time_ms(lambda: a @ b, reps=20, warmup=3)
+    phase("roofline", case="a", dtype=dtype_name, n=n, flops=cost.flops,
+          bytes=cost.mem_bytes, ms=f"{ms:.6f}",
+          tflops=f"{flops / ms / 1e9:.2f}",
+          peak_tflops=f"{PEAK_FLOPS[dtype_name] / 1e12:.0f}")
+
+
+def run_roofline(serve_ms, train_ms) -> None:
+    """Phase 6f: (a) a bf16 and an f32 product on the card, counted as
+    the analytic FLOPs and bytes; (b) the cells phases ``serve`` and
+    ``train`` time (stablelm-12b's decode step at the launcher's 4 slots
+    and ``max_len`` 256; granite's remat train step, 8 x 1024 tokens in
+    2 microbatches): FLOPs, bytes, bound and the measured share of the
+    bf16 peak; the decode cell's bytes at least its parameters'.  The
+    two cells trace in two processes on fake tensors."""
+    import multiprocessing
+
+    from repro_torch.launch.roofline import PEAK_BF16
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    _roofline_mm("bfloat16", 8192)
+    _roofline_mm("float32", 4096)
+
+    args = serve.parse_args(SERVE_ARGS)
+    timed = {
+        "serve": (args.arch, "serve_decode",
+                  dict(kind="decode", seq_len=serve.MAX_LEN,
+                       global_batch=args.slots), None, serve_ms),
+        "train": (TRAIN, "train_8x1024",
+                  dict(kind="train", seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH), TRAIN_MICRO, train_ms),
+    }
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(timed), mp_context=ctx) as pool:
+        futs_b = {name: pool.submit(_roofline_cell, arch, sname, shape, nm)
+                  for name, (arch, sname, shape, nm, _) in timed.items()}
+        for name, fut in futs_b.items():
+            r, ms = fut.result(), timed[name][4]
+            if name == "serve" and r["bytes_per_device"] < r["param_bytes"]:
+                raise PhaseError(
+                    f"roofline b: the decode cell moves "
+                    f"{r['bytes_per_device']} bytes, fewer than its "
+                    f"{r['param_bytes']} parameter bytes")
+            share = r["model_flops"] / (ms / 1e3 * PEAK_BF16)
+            phase("roofline", case="b", arch=r["arch"], shape=r["shape"],
+                  flops=r["flops_per_device"],
+                  flops_by_dtype=json.dumps(r["flops_by_dtype"],
+                                            separators=(",", ":")),
+                  bytes=r["bytes_per_device"], param_bytes=r["param_bytes"],
+                  model_flops=r["model_flops"],
+                  bound_ms=f"{r['bound_seconds'] * 1e3:.3f}",
+                  dominant=r["dominant"],
+                  measured_ms=f"{ms:.3f}",
+                  mfu_measured=f"{share:.6f}",
+                  mfu_at_bound=f"{r['mfu_at_bound']:.6f}",
+                  trace_s=f"{r['trace_s']:.2f}")
+    phase("roofline_total", seconds=f"{time.perf_counter() - t_phase:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -3820,7 +4151,6 @@ def main() -> int:
     phase("build", seconds=f"{build_s:.2f}", sources=",".join(_build.SOURCES),
           card=json.dumps(card), torch=torch.__version__,
           cuda=torch.version.cuda)
-
     # f32 products in full f32: the plain versions are the yardstick.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3840,6 +4170,7 @@ def main() -> int:
     stream_a = run_stream("cuda")
     run_host("cuda", poc_switch, stream_a)
     run_analysis("cuda", poc_switch, admit)
+    run_wireless("cuda")
     del poc_switch
     t0 = time.perf_counter()
     base, base_counts = run_queue_modes("cuda", res, counts)
@@ -3848,9 +4179,10 @@ def main() -> int:
     run_sharded("cuda", base, base_counts, phold_hot_words(res), admit,
                 stream_a)
     phase("sharded_total", seconds=f"{time.perf_counter() - t0:.3f}")
+    run_stacked("cuda")
     del base, admit, stream_a
     gc.collect()
-    attn_launches = run_serve()
+    attn_launches, serve_ms = run_serve()
     rwkv_launches = run_serve_rwkv()
     jamba_launches = run_serve_jamba()
     mla_launches = run_serve_deepseek()
@@ -3858,7 +4190,8 @@ def main() -> int:
     t0 = time.perf_counter()
     hubert_launches = run_hubert()
     phase("hubert_total", seconds=f"{time.perf_counter() - t0:.3f}")
-    run_train()
+    train_ms = run_train()
+    run_roofline(serve_ms, train_ms)
     lookaheads = torch.tensor([1.0], device="cuda")
     kernels = time_kernels(res.raw["final_queue"], lookaheads, launches,
                            errs)

@@ -335,9 +335,12 @@ class Tiered3DeviceQueue(NamedTuple):
     next_seq: torch.Tensor
     dropped: torch.Tensor
 
+    # Shapes are read from the trailing axes, so a stacked queue (every
+    # field with a leading shard axis, as ``tiered3_stacked_*`` take it)
+    # has the same geometry.
     @property
     def main_phys(self) -> int:
-        return self.m_times.shape[0]
+        return self.m_times.shape[-1]
 
     @property
     def capacity(self) -> int:
@@ -345,15 +348,15 @@ class Tiered3DeviceQueue(NamedTuple):
 
     @property
     def front_cap(self) -> int:
-        return self.f_times.shape[0]
+        return self.f_times.shape[-1]
 
     @property
     def stage_cap(self) -> int:
-        return self.s_times.shape[0]
+        return self.s_times.shape[-1]
 
     @property
     def num_runs(self) -> int:
-        return self.r_times.shape[0]
+        return self.r_times.shape[-2]
 
     @property
     def device(self) -> torch.device:
@@ -506,46 +509,55 @@ def _queue_from_sorted(times, types, args, seq_col, capacity, front_cap,
 # ---------------------------------------------------------------------------
 # Summaries
 # ---------------------------------------------------------------------------
+# Each summary reduces over the trailing (slot) axes only, so it takes a
+# single queue (0-d results) or a stacked one (``[N]`` results) alike:
+# the stacked forms below are these functions, as JAX's are its per-shard
+# ops under ``vmap``.
+
+def _gather_last(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``col[..., idx]`` with one in-range index per leading position
+    (``idx`` has ``col``'s leading shape), without a sync."""
+    return col.gather(-1, idx.long()[..., None])[..., 0]
+
 
 def _run_mins(q: Tiered3DeviceQueue) -> torch.Tensor:
     """Head time of each run's live remainder (``inf`` when consumed)."""
-    S = q.stage_cap
-    head = q.r_times.gather(
-        1, torch.clamp(q.r_off, 0, S - 1).long()[:, None])[:, 0]
+    head = _gather_last(q.r_times, torch.clamp(q.r_off, 0, q.stage_cap - 1))
     return torch.where(q.r_len > q.r_off, head, INF)
 
 
 def tiered3_queue_has_pending(q: Tiered3DeviceQueue) -> torch.Tensor:
     """True while any tier holds a real event (a 0-d bool tensor)."""
     return ((q.front_n > 0) | (q.stage_n > 0) | (q.main_n > 0)
-            | torch.any(q.r_len > q.r_off))
+            | torch.any(q.r_len > q.r_off, dim=-1))
 
 
 def tiered3_queue_occupancy(q: Tiered3DeviceQueue) -> torch.Tensor:
     """Number of real pending events across all four tiers."""
     return q.front_n + q.stage_n + q.main_n + _i32(
-        torch.sum(q.r_len - q.r_off))
+        torch.sum(q.r_len - q.r_off, dim=-1))
 
 
-def _main_head_time(q: Tiered3DeviceQueue) -> torch.Tensor:
-    head = _at(q.m_times, torch.clamp(q.m_head, 0, q.main_phys - 1))
-    return torch.where(q.main_n > 0, head, INF)
+def _main_head(q: Tiered3DeviceQueue, col: torch.Tensor, fill):
+    """``col`` at the main ring's head slot, ``fill`` when main is empty."""
+    head = _gather_last(col, torch.clamp(q.m_head, 0, q.main_phys - 1))
+    return torch.where(q.main_n > 0, head, fill)
 
 
 def tiered3_queue_next_time(q: Tiered3DeviceQueue) -> torch.Tensor:
     """Earliest pending timestamp (``inf`` when empty)."""
     rest = torch.minimum(
-        torch.minimum(torch.min(q.s_times), torch.min(_run_mins(q))),
-        _main_head_time(q))
-    return torch.where(q.front_n > 0, q.f_times[0], rest)
+        torch.minimum(q.s_times.amin(-1), _run_mins(q).amin(-1)),
+        _main_head(q, q.m_times, INF))
+    return torch.where(q.front_n > 0, q.f_times[..., 0], rest)
 
 
 def _tiered3_boundary(q: Tiered3DeviceQueue) -> torch.Tensor:
     """Earliest time outside the front tier: staging, run heads and the
     main ring head (read at the ring offset)."""
     return torch.minimum(
-        torch.minimum(_main_head_time(q), torch.min(q.s_times)),
-        torch.min(_run_mins(q)))
+        torch.minimum(_main_head(q, q.m_times, INF), q.s_times.amin(-1)),
+        _run_mins(q).amin(-1))
 
 
 def _lex_min_pair(t1, s1, t2, s2):
@@ -558,30 +570,28 @@ def _lex_min_pair(t1, s1, t2, s2):
 
 def _tiered3_boundary_key(q: Tiered3DeviceQueue):
     """Lexicographic ``(time, seq)`` form of :func:`_tiered3_boundary`."""
-    s_t = torch.min(q.s_times)
-    s_s = torch.min(torch.where((q.s_times == s_t) & (q.s_types >= 0),
-                                q.s_seqs, I32_MAX))
+    s_t = q.s_times.amin(-1)
+    s_s = torch.where((q.s_times == s_t[..., None]) & (q.s_types >= 0),
+                      q.s_seqs, I32_MAX).amin(-1)
     r_heads_t = _run_mins(q)
     r_heads_s = torch.where(
         q.r_len > q.r_off,
-        q.r_seqs.gather(
-            1, torch.clamp(q.r_off, 0, q.stage_cap - 1).long()[:, None])[:, 0],
+        _gather_last(q.r_seqs, torch.clamp(q.r_off, 0, q.stage_cap - 1)),
         I32_MAX)
-    r_t = torch.min(r_heads_t)
-    r_s = torch.min(torch.where(r_heads_t == r_t, r_heads_s, I32_MAX))
-    m_idx = torch.clamp(q.m_head, 0, q.main_phys - 1)
-    m_t = torch.where(q.main_n > 0, _at(q.m_times, m_idx), INF)
-    m_s = torch.where(q.main_n > 0, _at(q.m_seqs, m_idx), I32_MAX)
+    r_t = r_heads_t.amin(-1)
+    r_s = torch.where(r_heads_t == r_t[..., None], r_heads_s,
+                      I32_MAX).amin(-1)
     t, s = _lex_min_pair(s_t, s_s, r_t, r_s)
-    return _lex_min_pair(t, s, m_t, m_s)
+    return _lex_min_pair(t, s, _main_head(q, q.m_times, INF),
+                         _main_head(q, q.m_seqs, I32_MAX))
 
 
 def tiered3_queue_next_key(q: Tiered3DeviceQueue):
     """Full ``(time, seq)`` key of the earliest pending event —
     ``(inf, I32_MAX)`` when empty."""
     b_t, b_s = _tiered3_boundary_key(q)
-    t = torch.where(q.front_n > 0, q.f_times[0], b_t)
-    s = torch.where(q.front_n > 0, q.f_seqs[0], b_s)
+    t = torch.where(q.front_n > 0, q.f_times[..., 0], b_t)
+    s = torch.where(q.front_n > 0, q.f_seqs[..., 0], b_s)
     return t, s
 
 
@@ -915,7 +925,8 @@ def tiered3_queue_refill_flag(q: Tiered3DeviceQueue, k: int) -> torch.Tensor:
     fewer than ``k`` events and another tier holds some (a 0-d bool
     tensor, the predicate of JAX's refill ``lax.cond``)."""
     return (q.front_n < k) & (
-        (q.stage_n > 0) | (q.main_n > 0) | torch.any(q.r_len > q.r_off))
+        (q.stage_n > 0) | (q.main_n > 0)
+        | torch.any(q.r_len > q.r_off, dim=-1))
 
 
 def tiered3_queue_peek_front(q: Tiered3DeviceQueue, k: int, refill=None):
@@ -1158,6 +1169,109 @@ def tiered3_queue_absorb_rows(q: Tiered3DeviceQueue, rows, seqs,
         q = _tiered_fill_finish(q, chunk, b_t, chunk_seqs, insert_c,
                                 counters, b_seq=b_s)
     return q
+
+
+# ---------------------------------------------------------------------------
+# Stacked-axis variants (the layout of JAX's devices placement)
+# ---------------------------------------------------------------------------
+# A stacked queue is a Tiered3DeviceQueue whose every field carries a
+# leading shard axis of size N (``repro_torch.core.sharded.
+# StackedShardedQueue.q``).  JAX lifts its per-shard ops over that axis
+# with ``vmap``; the port's ops read the host on their rare paths
+# (``COUNTS``), which ``torch.vmap`` cannot lift.  The summaries reduce
+# over the trailing axes only, so they are the per-shard ops themselves;
+# the pop is one batched gather over the stack, the peek reads every
+# shard's refill flag in one host read, and the fill and the absorb run
+# the per-shard op on each shard and restack every field.  Each result
+# is bit-identical to the per-shard op mapped over the shards.
+
+def _stacked_shard(q: Tiered3DeviceQueue, i: int) -> Tiered3DeviceQueue:
+    return q._make(x[i] for x in q)
+
+
+def _restack(parts) -> Tiered3DeviceQueue:
+    """The stacked queue of the per-shard queues ``parts``: every field
+    stacked along a new leading shard axis."""
+    return parts[0]._make(torch.stack(xs) for xs in zip(*parts))
+
+
+# Per-shard pending flags ``bool[N]``, real occupancy ``i32[N]``,
+# earliest timestamp ``f32[N]`` and ``(time, seq)`` key.
+tiered3_stacked_has_pending = tiered3_queue_has_pending
+tiered3_stacked_occupancy = tiered3_queue_occupancy
+tiered3_stacked_next_time = tiered3_queue_next_time
+tiered3_stacked_next_key = tiered3_queue_next_key
+
+
+def tiered3_stacked_peek_front(q: Tiered3DeviceQueue, k: int, refill=None):
+    """:func:`tiered3_queue_peek_front` over the shard axis: returns
+    ``(q', ts[N,k], tys[N,k], args[N,k,W], seqs[N,k])``.  ``refill``, a
+    host list of N bools, is the caller's reading of the shards' refill
+    flags; ``None`` reads all N here in one host read.  Only the flagged
+    shards refill."""
+    if k > q.front_cap:
+        raise ValueError(
+            f"peek width {k} exceeds front tier capacity {q.front_cap}")
+    if refill is None:
+        refill = host_list(tiered3_queue_refill_flag(q, k))
+    if any(refill):
+        w = min(q.front_cap, 4 * k)
+        q = _restack([
+            _refill_front3(_stacked_shard(q, i), w) if r
+            else _stacked_shard(q, i) for i, r in enumerate(refill)])
+    return (q, q.f_times[:, :k], q.f_types[:, :k], q.f_args[:, :k],
+            q.f_seqs[:, :k])
+
+
+def tiered3_stacked_pop_prefix(q: Tiered3DeviceQueue, lengths, k: int
+                               ) -> Tiered3DeviceQueue:
+    """:func:`tiered3_queue_pop_prefix` over the shard axis: shard ``i``
+    pops its first ``lengths[i]`` (<= ``k``) front events, as one gather
+    a column (each shard's slice starts at its clamped length)."""
+    lengths = torch.as_tensor(lengths, dtype=_I32, device=q.device)
+    N, F = q.f_times.shape
+    idx = (torch.clamp(lengths, 0, k)[:, None]
+           + _arange(F, q.device)[None, :]).long()
+
+    def shift(col, fill):
+        pad = torch.full((N, k) + tuple(col.shape[2:]), fill,
+                         dtype=col.dtype, device=col.device)
+        i = idx.reshape((N, F) + (1,) * (col.dim() - 2)).expand(
+            (N, F) + tuple(col.shape[2:]))
+        return torch.cat([col, pad], dim=1).gather(1, i)
+
+    return q._replace(
+        f_times=shift(q.f_times, INF), f_types=shift(q.f_types, -1),
+        f_args=shift(q.f_args, 0.0), f_seqs=shift(q.f_seqs, I32_MAX),
+        front_n=q.front_n - lengths, size=q.size - lengths)
+
+
+def tiered3_stacked_fill_rows_tagged(q: Tiered3DeviceQueue, rows, seqs,
+                                     insert, *, flush=None
+                                     ) -> Tiered3DeviceQueue:
+    """:func:`tiered3_queue_fill_rows_tagged` over the shard axis: the
+    R-row exchange block ``rows``/``seqs`` is shared, the ``insert``
+    mask is per shard (``bool[N, R]``: row r lands in shard i iff
+    ``insert[i, r]``).  ``flush``, a host list of N bools, is the
+    caller's reading of the shards' pre-flush flags; ``None`` reads all
+    N here in one host read.  One ``front_merge`` launch a shard."""
+    if flush is None:
+        flush = host_list(preflush_flag(q, rows.shape[0]))
+    return _restack([
+        tiered3_queue_fill_rows_tagged(_stacked_shard(q, i), rows, seqs,
+                                       insert[i], flush=f)
+        for i, f in enumerate(flush)])
+
+
+def tiered3_stacked_absorb_rows(q: Tiered3DeviceQueue, rows, seqs,
+                                insert) -> Tiered3DeviceQueue:
+    """:func:`tiered3_queue_absorb_rows` over the shard axis (streamed
+    arrivals at segment boundaries): shared ``rows``/``seqs``, a
+    per-shard ``insert`` mask of shape ``(N, rows)``."""
+    return _restack([
+        tiered3_queue_absorb_rows(_stacked_shard(q, i), rows, seqs,
+                                  insert=insert[i])
+        for i in range(q.f_times.shape[0])])
 
 
 class FlatQueue(NamedTuple):

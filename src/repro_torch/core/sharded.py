@@ -41,9 +41,17 @@ entity-parallel types and the conventional routing slot of emitting ones
 (PHOLD's destination LP).  Any routing is correct; results are reduced
 with a floor mod, so no row is lost to an out-of-range shard.
 
-``placement="devices"`` (one shard a device, JAX's ``shard_map``) needs
-more than one GPU and is not ported (ROADMAP D1); neither is
-``overflow="spill"``, which JAX's sharded engine refuses too.
+The stacked layout (:class:`StackedShardedQueue`: every leaf of the
+per-shard queue with a leading shard axis, the global counters scalars)
+is ported as data: :func:`stack_sharded_queue`, the
+``tiered3_stacked_*`` helpers of :mod:`repro_torch.core.queue`,
+:func:`~repro_torch.core.validate.stacked_sharded_fault_bits`, and the
+engine's occupancy, fault word and absorb, which take either layout.
+``placement="devices"`` (one shard a device, JAX's ``shard_map``), the
+only loop that runs on the stacked layout, needs more than one GPU and
+is not ported (ROADMAP D1): :func:`place_stacked_queue` and a run on a
+stacked queue raise.  Neither is ``overflow="spill"``, which JAX's
+sharded engine refuses too.
 """
 
 from __future__ import annotations
@@ -61,9 +69,12 @@ from repro_torch.core.queue import (
     FlatQueue,
     I32_MAX,
     INF,
+    Tiered3DeviceQueue,
     _flat_view,
     _prefix_rank,
+    _restack,
     _small_lex_perm,
+    _stacked_shard,
     _take,
     host_list,
     host_read,
@@ -83,7 +94,17 @@ from repro_torch.core.queue import (
     window_prefix_mask,
 )
 
-__all__ = ["ShardedDeviceEngine", "ShardedQueue", "sharded_queue_to_flat"]
+__all__ = [
+    "ShardedDeviceEngine",
+    "ShardedQueue",
+    "StackedShardedQueue",
+    "place_stacked_queue",
+    "sharded_queue_to_flat",
+    "stack_sharded_queue",
+]
+
+_D1 = ("one shard a device, which needs more than one GPU, is not ported "
+       "to repro_torch (ROADMAP D1)")
 
 
 class ShardedQueue(NamedTuple):
@@ -119,6 +140,48 @@ def sharded_queue_to_flat(sq: ShardedQueue) -> FlatQueue:
                            dropped=int(sq.dropped)))
 
 
+class StackedShardedQueue(NamedTuple):
+    """The sharded pending set in the devices placement's layout: the N
+    per-shard tiered3 queues stacked along a leading shard axis (every
+    field of ``q`` has shape ``(N, ...)``), the global counters of
+    :class:`ShardedQueue` kept as scalars.  ``shards``/``shard(i)``
+    give per-shard views, so every consumer written against
+    :class:`ShardedQueue` (``sharded_queue_to_flat``, the full audit)
+    takes either layout."""
+
+    q: Tiered3DeviceQueue
+    size: torch.Tensor
+    next_seq: torch.Tensor
+    dropped: torch.Tensor
+
+    @property
+    def num_shards(self) -> int:
+        return int(self.q.f_times.shape[0])
+
+    @property
+    def capacity(self) -> int:
+        return self.q.capacity
+
+    @property
+    def shards(self) -> tuple:
+        return tuple(self.shard(i) for i in range(self.num_shards))
+
+    def shard(self, i: int) -> Tiered3DeviceQueue:
+        return _stacked_shard(self.q, i)
+
+
+def stack_sharded_queue(sq: ShardedQueue) -> StackedShardedQueue:
+    """Stack a tuple-of-shards queue along a new leading shard axis."""
+    return StackedShardedQueue(q=_restack(sq.shards), size=sq.size,
+                               next_seq=sq.next_seq, dropped=sq.dropped)
+
+
+def place_stacked_queue(stq: StackedShardedQueue, mesh=None):
+    """JAX places a stacked queue on a ``"shards"`` device mesh, one
+    shard slice a device; that needs more than one GPU."""
+    raise NotImplementedError(f"place_stacked_queue: {_D1}")
+
+
 @dataclasses.dataclass
 class ShardedDeviceEngine(DeviceEngine):
     """Multi-queue device engine, bit-identical to the single tiered3
@@ -150,9 +213,7 @@ class ShardedDeviceEngine(DeviceEngine):
                 f"got {self.placement!r}")
         if self.placement == "devices":
             raise NotImplementedError(
-                "placement='devices' (one shard a device) is not ported "
-                "to repro_torch: it needs more than one GPU (ROADMAP D1); "
-                "use placement='serial'")
+                f"placement='devices': {_D1}; use placement='serial'")
         super().__post_init__()
 
     @classmethod
@@ -250,11 +311,18 @@ class ShardedDeviceEngine(DeviceEngine):
         shard_qs = tuple(
             tiered3_queue_absorb_rows(q, rows, seqs, insert=insert & (dest == i))
             for i, q in enumerate(sq.shards))
-        return ShardedQueue(shards=shard_qs, size=sq.size + n_ins,
-                            next_seq=next_seq, dropped=sq.dropped)
+        out = ShardedQueue(shards=shard_qs, size=sq.size + n_ins,
+                           next_seq=next_seq, dropped=sq.dropped)
+        return (stack_sharded_queue(out)
+                if isinstance(sq, StackedShardedQueue) else out)
 
     # -- the loop -----------------------------------------------------------
     def _super_steps(self, state, sq, stats, max_batches, t_end, fenced):
+        if isinstance(sq, StackedShardedQueue):
+            # JAX runs a stacked queue only under its devices placement.
+            raise NotImplementedError(
+                f"a run on a StackedShardedQueue: {_D1}; run the "
+                "tuple-of-shards ShardedQueue")
         k = self.max_batch_len
         N = self.shards
         T = len(self.registry)

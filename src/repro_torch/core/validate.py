@@ -222,6 +222,11 @@ def sharded_fault_bits(sq) -> torch.Tensor:
     return bits | _bit(total_occ + sq.dropped != sq.size, FAULT_CONSERVATION)
 
 
+# A StackedShardedQueue's ``shards`` are per-shard views, so the tuple
+# layout's fault word reads it as it stands (JAX's name kept).
+stacked_sharded_fault_bits = sharded_fault_bits
+
+
 # ---------------------------------------------------------------------------
 # Full cross-tier audit (host-side, segment boundaries only)
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ The regression corpus of intentionally broken programs
 finding JAX's analyzer gives the same program (severity, pass and
 handler); the exact bounds of PHOLD and the serving ARRIVE as literals;
 the int64 mask rules the port's u32 hashes need; the property test; the
-clean bill of the five analyzer targets and the CLI; static against
+clean bill of the six analyzer targets and the CLI; static against
 profiled hot words; ``build(check=)`` and ``hot_words="static"``; a
 parity test of each target's whole report against JAX's; and a
 soundness-by-execution test: every row the targets' handlers emit on
@@ -43,6 +43,7 @@ from repro_torch.core.codec import DenseCodec
 from repro_torch.core.tree import tree_map
 from repro_torch.examples import mmc_network as tmmc
 from repro_torch.examples import phold as tphold
+from repro_torch.examples import wireless_des as twireless
 from repro_torch.serving import scenarios as tsc
 import repro_torch.poc as tpoc
 
@@ -51,15 +52,16 @@ from test_torch_engine import ROOT
 sys.path.insert(0, str(ROOT / "examples"))
 import mmc_network as jmmc  # noqa: E402  (examples/ is not a package)
 import phold as jphold  # noqa: E402
+import wireless_des as jwireless  # noqa: E402
 
-# (port target, JAX target) of every in-repo analyzer target the port
-# has (``wireless_des`` waits for ROADMAP A18).
+# (port target, JAX target) of every in-repo analyzer target.
 TARGETS = {
     "phold": (tphold.make_program, jphold.make_program),
     "mmc": (tmmc.make_program, jmmc.make_program),
     "admission": (tsc.make_program, jsc.make_program),
     "open_admission": (tsc.make_open_program, jsc.make_open_program),
     "poc": (tpoc.make_program, jpoc.make_program),
+    "wireless": (twireless.make_program, jwireless.make_program),
 }
 
 
@@ -597,6 +599,7 @@ def test_property_verdict_matches_ground_truth(delay, lookahead, data_dep):
     "repro_torch.serving.scenarios:make_program",
     "repro_torch.serving.scenarios:make_open_program",
     "repro_torch.poc:make_program",
+    "repro_torch.examples.wireless_des:make_program",
 ])
 def test_all_scenarios_are_clean(target):
     from repro_torch.analysis.__main__ import _resolve
@@ -672,7 +675,7 @@ def _report_fields(report):
 
 
 # Fields where the port's report may legitimately differ from JAX's
-# (the int64-carried u32 hashes against JAX's u32): none of the five
+# (the int64-carried u32 hashes against JAX's u32): none of the six
 # targets has one, so each report must equal JAX's field for field.
 DIFFERING_FIELDS: dict = {}
 
@@ -738,7 +741,7 @@ def test_emitted_rows_lie_inside_the_bounds(name):
                 assert t_lo <= row[1] <= t_hi, (spec.name, r, row)
                 assert a_lo <= row[2] <= a_hi, (spec.name, r, row)
                 checked += 1
-    assert checked == 0 if name == "poc" else checked >= 64
+    assert checked == 0 if name in ("poc", "wireless") else checked >= 64
 
 
 # ---------------------------------------------------------------------------
