@@ -189,8 +189,10 @@ Phases, each printed on its own line:
    same CUDA tensors; the stacked fill launches ``front_merge`` once a
    shard.
 5k. wireless — the paper's §IV.A example
-   (``repro_torch.examples.wireless_des``): the host run (its batch
-   words compiled by Inductor) and the device runs in the two-tier queue
+   (``repro_torch.examples.wireless_des``): the host run with its batch
+   words compiled by Inductor (in a child process started with the
+   script, one compile thread, so that its compiles overlap the earlier
+   phases) and eager, and the device runs in the two-tier queue
    (capacity 4096) and the flat queue (64) on the card, each inbox,
    batch, event and drop count equal to a CPU eager run; its analysis
    from the card template equal to the CPU one, no launch; then the
@@ -292,6 +294,27 @@ Phases, each printed on its own line:
    must move at least its parameter bytes.  The roofline of every
    (arch x shape) cell allocates nothing on the card and is left to
    ``python -m repro_torch.launch.roofline --all``.
+6g. mesh — the production mesh, the sharding rules and the dry run
+   (``repro_torch.launch.mesh``, ``sharding``, ``dryrun``): (a) an NCCL
+   process group of one rank and a (1, 1) ("data", "model") mesh from
+   ``make_host_mesh``; granite-moe-1b-a400m at full width: one train
+   step (4 x 1024 tokens, 2 microbatches, remat) with its train state
+   and batch placed by the rules as ``DTensor``s, and a prefill of 2 x
+   128 prompts and 4 greedy decode steps on the kernel route with its
+   weights, cache and tokens placed by the rules, each held to the same
+   run without a mesh: bit-identical, or the first differing field
+   printed and the loss and grad norm within 1e-5 relative, each
+   parameter within one bf16 ulp, logits within 1e-3, tokens equal;
+   ``flash_attention`` and ``decode_attention`` launched as often as
+   without the mesh, and more than 0; (b) ``python -m
+   repro_torch.launch.dryrun`` in a child process a cell, started with
+   the script (the fake process group of 256 or 512 ranks needs a
+   process of its own): llama3-405b ``train_4k`` on the multi-pod mesh,
+   deepseek-v2-lite-16b ``decode_32k`` on the pod, jamba-1.5-large-398b
+   ``long_500k`` on the multi-pod mesh (its cache sequence-sharded over
+   every axis), CUDA avatars at full size; each cell's per-device
+   compute, memory and collective seconds, argument and peak-live bytes
+   and trace seconds printed, and collective bytes required.
 7. timing — each kernel and its plain version at the main path's shapes
    (CUDA events over back-to-back calls: ``ms``), the kernel's device
    time with the host taken out (calls captured in a CUDA graph:
@@ -312,8 +335,9 @@ Phases, each printed on its own line:
 Each path (PHOLD, each run of PHOLD fused, PoC, the M/M/c network and
 the admission scenario, the segmented runs, the host runs, the
 analyses and the static fused runs, each served model, qwen2-vl's
-embeds prefill, hubert's forward, the training phase) runs with every
-kernel's launch count set to 0 just before it and read just after.
+embeds prefill, hubert's forward, the training phase, phase mesh's runs
+with and without the mesh) runs with every kernel's launch count set to
+0 just before it and read just after.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``name, power.limit``; the last line is ``{"ok": true, "device": ...}``.
@@ -332,6 +356,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -424,6 +449,17 @@ TRAIN = "granite-moe-1b-a400m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 1024, 2
 TRAIN_STEPS_PLAIN, TRAIN_STEPS_REMAT = 2, 4
 TRAIN_LR = 3e-4
+# Phase mesh: (a) the one-rank mesh's train step and served prompts;
+# tolerances where a field is not bit-identical (params: one bf16 ulp).
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 1024
+MESH_B, MESH_T, MESH_MAX_LEN, MESH_STEPS = 2, 128, 256, 4
+MESH_TRAIN_RTOL = 1e-5
+MESH_LOGIT_ATOL = 1e-3
+# (b) the dry run's cells, full size, each in a child process.
+DRYRUN_CELLS = (("llama3-405b", "train_4k", "multi"),
+                ("deepseek-v2-lite-16b", "decode_32k", "single"),
+                ("jamba-1.5-large-398b", "long_500k", "multi"))
+DRYRUN_TIMEOUT = 900
 TRAIN_REMAT_RTOL = 1e-3    # remat's first step against no remat's; replays
 SUP_LAYERS, SUP_SEQ, SUP_STEPS = 2, 512, 8
 SUP_CKPT_EVERY, SUP_CRASH, SUP_STRAGGLER = 4, 6, 7
@@ -2922,7 +2958,9 @@ def train_full_width() -> float:
 
     cfg = get_config(TRAIN)
     t0 = time.perf_counter()
-    model = LM(cfg)
+    # The weights live in the train state alone, as the launcher's
+    # (ROADMAP A19): the module holds shapes on the meta device.
+    model = LM(cfg, weights=False)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     opt_cfg = AdamWConfig(lr=TRAIN_LR, schedule="cosine",
@@ -3088,8 +3126,8 @@ def train_card_against_cpu() -> None:
 
     for arch in ("granite-moe-1b-a400m", "stablelm-12b", DEEPSEEK, HUBERT):
         cfg = get_config(arch).reduced()
-        cpu = LM(cfg, device="cpu")
-        card = LM(cfg)
+        cpu = LM(cfg, device="cpu", weights=False)
+        card = LM(cfg, weights=False)
         params = tree_map(lambda t: t.float(),
                           init_train_state(cpu, 0)["params"])
         dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
@@ -3547,9 +3585,68 @@ def run_stacked(device_name: str) -> None:
 # Phase 5k: the §IV.A wireless example
 # ---------------------------------------------------------------------------
 
-def run_wireless(device_name: str) -> None:
-    """Phase 5k: the wireless example's three runs on the card (the host
-    run's words compiled) against one another and a CPU eager run; its
+WIRELESS_HOST_TIMEOUT = 900
+
+
+def start_wireless_host(tmp: str) -> dict:
+    """Phase wireless's compiled host run, started with the script: the
+    example on the host scheduler with each batch word compiled by
+    Inductor, on the card, in a child process (:func:`wireless_host_run`),
+    so that its compiles overlap the phases before it (the run took
+    201 s alone on the card's host).  One compile thread, to leave the
+    cores to those phases."""
+    path = os.path.join(tmp, "wireless_host.json")
+    log = open(path + ".log", "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               TORCHINDUCTOR_COMPILE_THREADS="1")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.wireless_host_run(sys.argv[2])")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT), path],
+                            cwd=str(ROOT), env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+    return dict(cell="wireless_host", path=path, proc=proc, log=log,
+                t0=time.perf_counter())
+
+
+def wireless_host_run(path: str) -> None:
+    """The child of :func:`start_wireless_host`: the host run of
+    ``wireless_des.run_all`` on the card with its words compiled
+    (``jit_handlers=True``), its result written to ``path``."""
+    from repro_torch.examples import wireless_des as w
+
+    t0 = time.perf_counter()
+    res = w.build_program().build(
+        backend="host", scheduler="conservative", device="cuda",
+        jit_handlers=True).run(w.initial_state())
+    with open(path, "w") as f:
+        json.dump({"got": [res.state["inbox"].tolist(), int(res.batches),
+                           int(res.events), int(res.dropped)],
+                   "seconds": time.perf_counter() - t0}, f)
+
+
+def wait_child(child: dict, timeout: float, problems: list, name: str):
+    """``child``'s JSON output, or None with the reason in ``problems``
+    (not done within ``timeout`` seconds of its start, or failed)."""
+    left = max(1.0, timeout - (time.perf_counter() - child["t0"]))
+    try:
+        rc = child["proc"].wait(timeout=left)
+    except subprocess.TimeoutExpired:
+        problems.append(f"{name}: not done in {timeout} s")
+        return None
+    child["log"].close()
+    if rc != 0:
+        with open(child["path"] + ".log") as f:
+            tail = f.read()[-2000:]
+        problems.append(f"{name}: exit {rc}: {tail}")
+        return None
+    with open(child["path"]) as f:
+        return json.load(f)
+
+
+def run_wireless(device_name: str, host_child: dict) -> None:
+    """Phase 5k: the wireless example's runs on the card (the host run
+    with its words compiled, in ``host_child``, and eager; the two-tier
+    and flat device queues) against one another and a CPU eager run; its
     analysis from the card template against the CPU's, no launch; then
     the cross-event check (reported, not gated: whether Inductor drops
     the dead word's message work), whose compiled words must deliver
@@ -3564,18 +3661,23 @@ def run_wireless(device_name: str) -> None:
     t_phase = time.perf_counter()
     reset_launches()
     t0 = time.perf_counter()
-    card = w.run_all(device_name)
+    card = w.run_all(device_name, jit_handlers=False)
     card_s = time.perf_counter() - t0
     launches = read_launches()
     cpu = w.run_all("cpu", jit_handlers=False)["host"]
     problems = []
-    want = (cpu.state["inbox"].tolist(), cpu.batches, cpu.events,
-            cpu.dropped)
+    want = [cpu.state["inbox"].tolist(), int(cpu.batches), int(cpu.events),
+            int(cpu.dropped)]
     for name, res in card.items():
-        got = (res.state["inbox"].tolist(), res.batches, res.events,
-               res.dropped)
+        got = [res.state["inbox"].tolist(), int(res.batches),
+               int(res.events), int(res.dropped)]
         if got != want:
             problems.append(f"{name}: {got} against the CPU's {want}")
+    compiled = wait_child(host_child, WIRELESS_HOST_TIMEOUT, problems,
+                          "host_compiled")
+    if compiled is not None and compiled["got"] != want:
+        problems.append(f"host_compiled: {compiled['got']} against the "
+                        f"CPU's {want}")
 
     prog = w.make_program()
     cpu_state = prog._example_state
@@ -3602,7 +3704,9 @@ def run_wireless(device_name: str) -> None:
         raise PhaseError("wireless: " + "; ".join(problems))
     phase("wireless", inbox=json.dumps(want[0]), batches=want[1],
           events=want[2], dropped=want[3], message=msg,
-          runs="host_compiled,tiered_4096,flat_64", card_s=f"{card_s:.3f}",
+          runs="host_compiled,host_eager,tiered_4096,flat_64",
+          card_s=f"{card_s:.3f}",
+          host_compiled_s=f"{compiled['seconds']:.3f}",
           launches=json.dumps(launches, separators=(",", ":")),
           analysis_s=f"{analysis_s:.3f}", reports_equal=True,
           dead_work_in_code=check["dead_work_in_code"],
@@ -3611,6 +3715,241 @@ def run_wireless(device_name: str) -> None:
           live_ms=f"{check['live_ms']:.6f}",
           dead_over_live=f"{check['ratio']:.4f}",
           seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6g: the mesh, the sharding rules and the dry run
+# ---------------------------------------------------------------------------
+
+def start_dryrun_cells(tmp: str) -> list:
+    """Phase mesh (b), started with the script: ``python -m
+    repro_torch.launch.dryrun`` for each of ``DRYRUN_CELLS`` in a child
+    process of its own (the fake process group needs a process without
+    the NCCL group of (a)), CUDA avatars, at full size."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        path = os.path.join(tmp, f"{arch}_{shape}_{mesh}.json")
+        log = open(path + ".log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", path],
+            cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT)
+        out.append(dict(cell=(arch, shape, mesh), path=path, proc=proc,
+                        log=log, t0=time.perf_counter()))
+    return out
+
+
+def stop_children(children: list) -> None:
+    for child in children:
+        if child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
+        child["log"].close()
+
+
+def _mesh_diff(name: str, got, want, rtol: float, atol: float,
+               problems: list, firsts: list) -> None:
+    """Hold ``got`` to ``want``: bit-identical, or within the tolerance
+    with the first differing field named."""
+    import torch
+
+    got = got.full_tensor() if hasattr(got, "full_tensor") else got
+    if torch.equal(got, want):
+        return
+    if not firsts:
+        firsts.append(name)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
+        problems.append(f"{name}: max abs diff {err:.3e}")
+
+
+def mesh_one_rank(device: str = "cuda", backend: str = "nccl",
+                  cfg=None) -> dict:
+    """Phase mesh (a): granite-moe-1b-a400m at full width on a real
+    (1, 1) mesh (``make_host_mesh`` over a process group of one rank):
+    one microbatched, rematerialized train step with the train state and
+    batch placed by the sharding rules, and a prefill and greedy decode
+    with the kernel route and the weights, cache and tokens placed by
+    the rules, each held to the same run without a mesh."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import key_leaves
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import LM
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.train_step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = cfg or get_config(TRAIN)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    problems, firsts, out = [], [], {}
+    try:
+        mesh = make_host_mesh(1, device=device)
+        # --- the train step -------------------------------------------
+        model = LM(cfg, device=device, weights=False)
+        state = init_train_state(model, 0)
+        batch = make_batch(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=MESH_TRAIN_SEQ,
+                                      global_batch=MESH_TRAIN_BATCH), 0,
+                           model.device)
+        step = make_train_step(model, AdamWConfig(lr=TRAIN_LR),
+                               num_microbatches=2, remat=True)
+        reset_launches()
+        new, metrics = step(state, batch)
+        want = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+        want_params = [t for _, t in key_leaves(new["params"])]
+        del new
+        t0 = time.perf_counter()
+        with sh.anchored(mesh):
+            state_d = sh.distribute(state, mesh, sh.state_specs(mesh, state))
+            batch_d = sh.distribute(batch, mesh, sh.batch_specs(mesh, batch))
+            new_d, metrics_d = step(state_d, batch_d)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        got = {k: float(m.full_tensor() if isinstance(m, sh.DTensor)
+                        else m) for k, m in metrics_d.items() if k in want}
+        for k in want:
+            if got[k] != want[k]:
+                if not firsts:
+                    firsts.append(k)
+                if abs(got[k] - want[k]) > MESH_TRAIN_RTOL * abs(want[k]):
+                    problems.append(f"{k} {got[k]} against {want[k]}")
+        for (path, g), w in zip(key_leaves(new_d["params"]), want_params):
+            _mesh_diff(f"params{path}", g, w, 2.0**-7, 1e-6, problems,
+                       firsts)
+        out.update(loss=got["loss"], grad_norm=got["grad_norm"],
+                   train_launches=sum(read_launches().values()))
+        del state, state_d, new_d, want_params, step, model
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        # --- prefill and greedy decode on the kernel route -------------
+        model = LM(cfg, attn_impl="pallas", device=device).init(0)
+        gen = torch.Generator().manual_seed(5)
+        prompts = torch.randint(0, cfg.vocab_size, (MESH_B, MESH_T),
+                                generator=gen, dtype=torch.int32)
+
+        def serve(put):
+            logits, cache = model.prefill(put(prompts.to(device),
+                                              sh.P(("data",), None)),
+                                          max_len=MESH_MAX_LEN)
+            seen = [logits]
+            toks = []
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            for _ in range(MESH_STEPS):
+                full = tok.full_tensor() if isinstance(
+                    tok, sh.DTensor) else tok
+                toks.append(full)
+                logits, cache = model.decode_step(
+                    cache, put(full, sh.P(("data",), None)))
+                seen.append(logits[:, 0])
+                tok = logits[:, 0].argmax(-1)[:, None].to(torch.int32)
+            return seen, toks
+
+        reset_launches()
+        want_logits, want_toks = serve(lambda x, spec: x)
+        plain = read_launches()
+        reset_launches()
+        with sh.anchored(mesh):
+            sh.distribute_lm(model, mesh)
+            got_logits, got_toks = serve(
+                lambda x, spec: sh.distribute(x, mesh, spec))
+        meshed = read_launches()
+        for i, (g, w) in enumerate(zip(got_logits, want_logits)):
+            _mesh_diff(f"logits[{i}]", g, w, 0.0, MESH_LOGIT_ATOL, problems,
+                       firsts)
+        if not all(torch.equal(g, w) for g, w in zip(got_toks, want_toks)):
+            problems.append("greedy tokens differ")
+        for kernel in ("flash_attention", "decode_attention"):
+            if not meshed.get(kernel) or meshed[kernel] != plain.get(kernel):
+                problems.append(f"{kernel}: {meshed.get(kernel)} launches "
+                                f"on the mesh, {plain.get(kernel)} without")
+        others = {k: v for k, v in meshed.items()
+                  if v and k not in ("flash_attention", "decode_attention")}
+        if others:
+            problems.append(f"other kernels launched: {others}")
+        out.update(plain_launches=plain, mesh_launches=meshed,
+                   tokens=[t.flatten().tolist() for t in got_toks])
+        del model
+    finally:
+        dist.destroy_process_group()
+    out["first_differing"] = firsts[0] if firsts else None
+    out["problems"] = problems
+    return out
+
+
+def run_mesh(children: list) -> None:
+    """Phase 6g: (a) the one-rank mesh against the run without one; (b)
+    the three dry-run cells started with the script, their per-device
+    terms."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    a = mesh_one_rank()
+    peak = torch.cuda.max_memory_allocated()
+    if a["problems"]:
+        raise PhaseError("mesh (a): " + "; ".join(a["problems"]))
+    phase("mesh", case="a", arch=TRAIN, mesh="1x1", backend="nccl",
+          train_batch=MESH_TRAIN_BATCH, train_seq=MESH_TRAIN_SEQ,
+          loss=f"{a['loss']:.6f}", grad_norm=f"{a['grad_norm']:.6f}",
+          train_s=f"{a['train_s']:.3f}", train_launches=a["train_launches"],
+          prompts=f"{MESH_B}x{MESH_T}", decode_steps=MESH_STEPS,
+          bit_identical=a["first_differing"] is None,
+          first_differing=json.dumps(a["first_differing"]),
+          tol=f"train:{MESH_TRAIN_RTOL},params:bf16_ulp,"
+              f"logits:{MESH_LOGIT_ATOL}",
+          launches=json.dumps(a["mesh_launches"], separators=(",", ":")),
+          plain_launches=json.dumps(a["plain_launches"],
+                                    separators=(",", ":")),
+          tokens=json.dumps(a["tokens"], separators=(",", ":")),
+          max_memory_allocated=peak)
+    problems = []
+    for child in children:
+        arch, shape, mesh = child["cell"]
+        rows = wait_child(child, DRYRUN_TIMEOUT, problems,
+                          f"{arch} {shape} {mesh}")
+        if rows is None:
+            continue
+        (row,) = rows
+        r = row["roofline"]
+        if row["status"] != "ok":
+            problems.append(f"{arch} {shape} {mesh}: {row['status']}")
+            continue
+        if r["collective_bytes_per_device"] <= 0:
+            problems.append(f"{arch} {shape} {mesh}: no collective bytes")
+        phase("mesh", case="b", arch=arch, shape=shape, mesh=mesh,
+              chips=r["chips"], trace_s=row["trace_seconds"],
+              flops_per_device=r["flops_per_device"],
+              bytes_per_device=r["bytes_per_device"],
+              collective_bytes_per_device=r["collective_bytes_per_device"],
+              collective_by_group=json.dumps(r["collective_by_group"],
+                                             separators=(",", ":")),
+              compute_s=f"{r['compute_seconds']:.6f}",
+              memory_s=f"{r['memory_seconds']:.6f}",
+              collective_s=f"{r['collective_seconds']:.6f}",
+              dominant=r["dominant"], mfu_at_bound=f"{r['mfu_at_bound']:.4f}",
+              argument_gb=f"{r['memory_stats']['argument_bytes'] / 1e9:.3f}",
+              temp_gb=f"{r['memory_stats']['temp_bytes'] / 1e9:.3f}")
+    if problems:
+        raise PhaseError("mesh (b): " + "; ".join(problems))
+    phase("mesh_total", seconds=f"{time.perf_counter() - t_phase:.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -4143,10 +4482,24 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        children = start_dryrun_cells(tmp)
+        host_child = start_wireless_host(tmp)
+        try:
+            return run_phases(card, children, host_child)
+        finally:
+            stop_children(children + [host_child])
+
+
+def run_phases(card: str, children: list, host_child: dict) -> int:
+    """Every phase after the checks of :func:`main`; the dry-run cells
+    of phase mesh (b) run in ``children`` meanwhile, and phase wireless's
+    compiled host run in ``host_child``."""
+    import torch
 
     from repro_torch.kernels import _build
 
-    card = card_line()
     build_s = build_all()
     phase("build", seconds=f"{build_s:.2f}", sources=",".join(_build.SOURCES),
           card=json.dumps(card), torch=torch.__version__,
@@ -4170,7 +4523,7 @@ def main() -> int:
     stream_a = run_stream("cuda")
     run_host("cuda", poc_switch, stream_a)
     run_analysis("cuda", poc_switch, admit)
-    run_wireless("cuda")
+    run_wireless("cuda", host_child)
     del poc_switch
     t0 = time.perf_counter()
     base, base_counts = run_queue_modes("cuda", res, counts)
@@ -4192,6 +4545,7 @@ def main() -> int:
     phase("hubert_total", seconds=f"{time.perf_counter() - t0:.3f}")
     train_ms = run_train()
     run_roofline(serve_ms, train_ms)
+    run_mesh(children)
     lookaheads = torch.tensor([1.0], device="cuda")
     kernels = time_kernels(res.raw["final_queue"], lookaheads, launches,
                            errs)

@@ -1,32 +1,38 @@
-"""Roofline of a cell on the NVIDIA H100 SXM5 80GB (PyTorch port of
+"""Roofline of a cell on NVIDIA H100 SXM5 80GB cards (PyTorch port of
 :mod:`repro.launch.roofline`, which prices XLA's HLO at TPU v5e rates;
 none of those carries over).
 
-Terms, one card, at the datasheet rates ``PERF.md`` uses:
+Terms, per device, at datasheet rates:
 
     compute    = sum over dtypes of product FLOPs / that dtype's peak
                  (989e12 FLOP/s dense bf16/fp16 tensor cores, 67e12 f32)
     memory     = bytes / 3.35e12 B/s (HBM3)
-    collective = 0: one card moves no collective bytes; a link rate and
-                 the term come with the mesh (ROADMAP D3)
+    collective = sum over the collectives' groups of their operand bytes
+                 / the slowest link the group spans: NVLink 4 within an
+                 8-card HGX H100 node (450e9 B/s each way a card), 400
+                 Gb/s NDR InfiniBand across nodes (50e9 B/s a card).
+                 The ranks of a mesh fill the nodes in order, 8 a node.
 
-The FLOPs and bytes come from :mod:`repro_torch.launch.graph_cost` (the
-aten operations of the cell's step, on fake tensors; the eager port's
-traffic), the model FLOPs from the same analytic ``6·N·D`` (train) or
-``2·N·D`` (inference) as JAX's, N the active parameters.  ``mfu`` is the
-model FLOPs over the bound's seconds at the bf16 peak: a whole step's
+The FLOPs, bytes and collective bytes come from
+:mod:`repro_torch.launch.graph_cost` (the aten operations of the cell's
+step on fake tensors, the eager port's traffic; per device on a mesh),
+the model FLOPs from the same analytic ``6·N·D`` (train) or ``2·N·D``
+(inference) as JAX's, N the active parameters.  ``mfu`` is the model
+FLOPs over the bound's seconds at the bf16 peak: a whole step's
 model-FLOPs share at the roofline; with a measured step time in place of
-the bound it is the measured share.  The memory stats are the avatars'
-argument, output and donated bytes; a peak-live estimate is not made
-(ROADMAP).
+the bound it is the measured share.  The memory stats are per device:
+the avatars' argument, output and donated bytes (each rank's shards),
+and ``temp_bytes``, the peak of the bytes the step's own tensors hold
+alive (the counterpart of XLA's ``memory_analysis()`` temp bytes).
 
     python -m repro_torch.launch.roofline --arch stablelm-12b \\
         --shape decode_32k [--device cpu] [--reduced]
     python -m repro_torch.launch.roofline --all
 
 ``--all`` prints one JSON line a cell for every (arch x shape) cell that
-``shape_applicable`` admits but :data:`SWEEP_LEFT_OUT`, each traced in a
-worker process, with its trace seconds.  The avatars hold no memory, but
+``shape_applicable`` admits, one device, each traced in a worker
+process, with its trace seconds (the mesh's cells are
+:mod:`repro_torch.launch.dryrun`'s).  The avatars hold no memory, but
 their device picks the model's route: on CUDA avatars (the default; the
 CUDA build of torch and a card must be present) bf16 products run in
 bf16 with f32 accumulation, as on the card, while ``--device cpu``
@@ -43,22 +49,38 @@ import json
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 PEAK_BF16 = PEAK_FLOPS["bfloat16"]
 HBM_BW = 3.35e12             # bytes/s, one card
-
-# Cells ``--all`` leaves out, by shape or (arch, shape), for their trace
-# time (ROADMAP A22).  A 32k prefill's blockwise attention runs ~62k
-# aten ops a layer, about a minute of fake-tensor dispatch a layer; the
-# train steps of jamba and rwkv6 run their plain scans a token or a chunk
-# at a time (rwkv6's traced in 203 s).
-SWEEP_LEFT_OUT = {"prefill_32k", ("jamba-1.5-large-398b", "train_4k"),
-                  ("rwkv6-1.6b", "train_4k")}
+# Link rates, datasheet, bytes/s each way a card: NVLink 4 within an
+# 8-card HGX H100 node; 400 Gb/s NDR InfiniBand (one port a card) across
+# nodes.
+LINK_BW = {"nvlink": 450e9, "infiniband": 400e9 / 8}
+CARDS_PER_NODE = 8
 
 
 def _tree_bytes(tree) -> int:
+    """Per-device bytes of a tree's tensors (a ``DTensor``'s local
+    shard)."""
     import torch
     from torch.utils._pytree import tree_leaves
 
-    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
-               if torch.is_tensor(x))
+    def local(x):
+        return x.to_local() if hasattr(x, "to_local") else x
+
+    return sum(local(x).numel() * local(x).element_size()
+               for x in tree_leaves(tree) if torch.is_tensor(x))
+
+
+def link_rate(mesh_shape: tuple, mesh_axes: tuple, group: str) -> float:
+    """The slowest link a collective over the mesh axes ``group``
+    (comma-joined) spans: NVLink when its ranks share a node, else
+    InfiniBand.  Ranks fill the mesh in row-major order."""
+    axes = [a for a in group.split(",") if a]
+    strides, n = {}, 1
+    for name, size in reversed(list(zip(mesh_axes, mesh_shape))):
+        strides[name] = n
+        n *= size
+    last = sum(strides[a] * (size - 1)
+               for a, size in zip(mesh_axes, mesh_shape) if a in axes)
+    return LINK_BW["nvlink" if last // CARDS_PER_NODE == 0 else "infiniband"]
 
 
 @dataclasses.dataclass
@@ -75,6 +97,11 @@ class Roofline:
     memory_stats: dict
     # Product FLOPs by operand dtype; None prices all at the bf16 peak.
     flops_by_dtype: dict | None = None
+    # Collective operand bytes by the mesh axes of the group, and the
+    # mesh they price on.
+    collective_by_group: dict = dataclasses.field(default_factory=dict)
+    mesh_shape: tuple = ()
+    mesh_axes: tuple = ()
 
     @property
     def compute_seconds(self) -> float:
@@ -91,11 +118,9 @@ class Roofline:
 
     @property
     def collective_seconds(self) -> float:
-        if self.collective_bytes_per_device:
-            raise NotImplementedError(
-                "collective bytes need a link rate, which comes with the "
-                "mesh (ROADMAP D3)")
-        return 0.0
+        """Each group's operand bytes over the slowest link it spans."""
+        return sum(n / link_rate(self.mesh_shape, self.mesh_axes, g)
+                   for g, n in self.collective_by_group.items())
 
     @property
     def dominant(self) -> str:
@@ -137,6 +162,7 @@ class Roofline:
             "bytes_per_device": self.bytes_per_device,
             "collective_bytes_per_device": self.collective_bytes_per_device,
             "collective_detail": self.collective_detail,
+            "collective_by_group": self.collective_by_group,
             "model_flops": self.model_flops,
             "compute_seconds": self.compute_seconds,
             "memory_seconds": self.memory_seconds,
@@ -177,12 +203,15 @@ def attention_score_hbm_bytes(cfg, kind: str, batch: int,
     return n_attn * passes * causal * elems * 4.0 * 4.0  # 4 touches, fp32
 
 
-def analyze(cell, *, cost=None, model_flops: float | None = None
-            ) -> Roofline:
+def analyze(cell, *, cost=None, model_flops: float | None = None,
+            mesh_name: str | None = None) -> Roofline:
     """The :class:`Roofline` of a :class:`~repro_torch.launch.specs.
-    CellSpec` on one card: ``cost`` (default
-    :func:`~repro_torch.launch.graph_cost.cell_cost`, the full cell
-    extended from cut traces) and the model FLOPs of the cell's tokens."""
+    CellSpec`, per device of its mesh (one card without): ``cost``
+    (default :func:`~repro_torch.launch.graph_cost.cell_cost`, the full
+    cell extended from cut traces) and the model FLOPs of the cell's
+    tokens.  The output bytes count the outputs' avatars at the
+    arguments' placements (a one-device cell's, or the donated state's
+    and cache's own)."""
     from repro_torch.launch.graph_cost import cell_cost
 
     cost = cell_cost(cell) if cost is None else cost
@@ -190,18 +219,27 @@ def analyze(cell, *, cost=None, model_flops: float | None = None
         model_flops = model_flops_for(cell.cfg, cell.kind,
                                       cell.static_info["tokens"],
                                       cell.shape_spec["seq_len"])
+    mesh = cell.mesh
+    chips = mesh.size() if mesh is not None else 1
     mem = {
         "argument_bytes": _tree_bytes(cell.arg_specs),
         "output_bytes": _tree_bytes(cell.out_specs),
         "alias_bytes": _tree_bytes([cell.arg_specs[i]
                                     for i in cell.donate_argnums]),
+        "temp_bytes": cost.peak_bytes,
     }
     return Roofline(
-        arch=cell.arch, shape=cell.shape, mesh="single", chips=1,
-        flops_per_device=cost.flops, bytes_per_device=cost.mem_bytes,
+        arch=cell.arch, shape=cell.shape,
+        mesh=mesh_name or ("single" if mesh is None else
+                           "x".join(map(str, mesh.shape))),
+        chips=chips, flops_per_device=cost.flops,
+        bytes_per_device=cost.mem_bytes,
         collective_bytes_per_device=cost.coll_bytes,
         collective_detail=cost.coll_by_op, model_flops=model_flops,
-        memory_stats=mem, flops_by_dtype=dict(cost.flops_by_dtype))
+        memory_stats=mem, flops_by_dtype=dict(cost.flops_by_dtype),
+        collective_by_group=dict(cost.coll_by_group),
+        mesh_shape=tuple(mesh.shape) if mesh is not None else (),
+        mesh_axes=tuple(mesh.mesh_dim_names) if mesh is not None else ())
 
 
 def _sweep_cell(arch: str, shape: str, device) -> dict:
@@ -218,8 +256,8 @@ def _sweep_cell(arch: str, shape: str, device) -> dict:
 
 
 def sweep(*, device=None):
-    """Yield the roofline of every applicable cell but
-    :data:`SWEEP_LEFT_OUT`, traced in up to 8 processes, in cell order."""
+    """Yield the roofline of every applicable cell, traced in up to 8
+    processes, in cell order."""
     import concurrent.futures
     import multiprocessing
     import os
@@ -228,9 +266,7 @@ def sweep(*, device=None):
     from repro_torch.configs.base import shape_applicable
 
     cells = [(arch, shape) for arch in list_configs() for shape in SHAPES
-             if shape_applicable(get_config(arch), shape)[0]
-             and shape not in SWEEP_LEFT_OUT
-             and (arch, shape) not in SWEEP_LEFT_OUT]
+             if shape_applicable(get_config(arch), shape)[0]]
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=min(8, os.cpu_count() or 1),
             mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -248,8 +284,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch")
     ap.add_argument("--shape", choices=sorted(SHAPES))
     ap.add_argument("--all", action="store_true",
-                    help="every applicable full-size cell but "
-                         "SWEEP_LEFT_OUT, one JSON line a cell")
+                    help="every applicable full-size cell, one JSON "
+                         "line a cell")
     ap.add_argument("--device", default=None,
                     help="the avatars' device (default: the CUDA card)")
     ap.add_argument("--reduced", action="store_true",

@@ -85,7 +85,8 @@ def train(cfg: ArchConfig, args: argparse.Namespace) -> TrainRun:
     printing the JAX launcher's report."""
     # minicpm trains with the WSD schedule by default (its paper's setup)
     schedule = "wsd" if cfg.name.startswith("minicpm") else args.schedule
-    model = LM(cfg, device=args.device)
+    # The weights live in the train state alone (ROADMAP A19).
+    model = LM(cfg, device=args.device, weights=False)
     opt_cfg = AdamWConfig(lr=args.lr, schedule=schedule,
                           total_steps=args.steps)
     data_cfg = DataConfig(

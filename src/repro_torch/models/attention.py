@@ -33,8 +33,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.models import shards
 from repro_torch.models.layers import (
     DEFAULT_DTYPE,
     apply_m_rope,
@@ -144,7 +145,8 @@ def _cache_dot(spec: str, a, b):
     return torch.einsum(spec, a.float(), b.float()).to(a.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len):
+def decode_attention(q, k_cache, v_cache, cache_len, *, offset: int = 0,
+                     reduce=None):
     """Single-token attention against a dense KV cache (the plain path).
 
     q: [B,H,D]; k_cache/v_cache: [B,S,KV,D]; cache_len: i32[B] valid
@@ -155,6 +157,13 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     (``impl="pallas"``) accumulates in f32 throughout, so the two paths
     differ by bf16 roundings and are each compared with their own
     counterpart.
+
+    A cache that holds one block of the positions, from ``offset``, is
+    one rank's shard of a cache whose sequence dim is split:
+    ``reduce(t, op)`` (``op`` ``"max"`` or ``"sum"``) then combines ``t``
+    over the ranks, and the softmax is a partial one (the max, the
+    denominator and the weighted values reduced), as XLA lowers
+    attention over a sharded length.
     """
     B, H, D = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
@@ -162,10 +171,17 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, KV, G, D).to(k_cache.dtype)
     s = _cache_dot("bkgd,bskd->bkgs", qg, k_cache).float() * scale
-    valid = torch.arange(S, device=q.device)[None, :] < cache_len[:, None]
+    pos = offset + torch.arange(S, device=q.device)
+    valid = pos[None, :] < cache_len[:, None]
     s = torch.where(valid[:, None, None], s, _NEG_INF)
-    w = torch.softmax(s, dim=-1)
+    if reduce is None:
+        w = torch.softmax(s, dim=-1)
+    else:
+        p = torch.exp(s - reduce(torch.amax(s, dim=-1, keepdim=True), "max"))
+        w = p / reduce(torch.sum(p, dim=-1, keepdim=True), "sum")
     out = _cache_dot("bkgs,bskd->bkgd", w.to(v_cache.dtype), v_cache)
+    if reduce is not None:     # each rank's bf16 share, summed in f32
+        out = reduce(out.float(), "sum")
     return out.reshape(B, H, D).to(q.dtype)
 
 
@@ -204,9 +220,9 @@ def _project_qkv(params, x, *, num_heads, num_kv_heads, head_dim):
     q = proj(x, params["wq"], out_dtype=x.dtype)
     k = proj(x, params["wk"], out_dtype=x.dtype)
     v = proj(x, params["wv"], out_dtype=x.dtype)
-    return (q.reshape(B, T, num_heads, head_dim),
-            k.reshape(B, T, num_kv_heads, head_dim),
-            v.reshape(B, T, num_kv_heads, head_dim))
+    return (shards.split_last(q, (num_heads, head_dim)),
+            shards.split_last(k, (num_kv_heads, head_dim)),
+            shards.split_last(v, (num_kv_heads, head_dim)))
 
 
 def _rotate(q, k, positions, *, theta, m_rope, sections):
@@ -218,6 +234,39 @@ def _rotate(q, k, positions, *, theta, m_rope, sections):
         return (apply_rope(q, positions, theta=theta),
                 apply_rope(k, positions, theta=theta))
     return q, k
+
+
+def _attend(impl: str, q, k, v, *, causal: bool, q_block: int = 512,
+            kv_block: int = 1024):
+    """The attention core of ``impl`` on q [B,T,H,D] and k/v [B,S,KV,D]
+    (KV dividing H).  On ``DTensor``s it runs on each rank's shards
+    (:func:`repro_torch.models.shards.on_shards`): batch over the DP
+    axes and heads over ``model`` where they divide (k/v expanded to H
+    heads first when KV does not), so a kernel sees plain tensors."""
+    def core(q, k, v):
+        if impl == "reference":
+            return reference_attention(q, k, v, causal=causal)
+        if impl == "blockwise":
+            G = q.shape[2] // k.shape[2]
+            return blockwise_attention(q, expand_kv(k, G), expand_kv(v, G),
+                                       causal=causal, q_block=q_block,
+                                       kv_block=kv_block)
+        if impl == "pallas":
+            from repro_torch.kernels import ops as kops
+            return kops.flash_attention(q, k, v, causal=causal)
+        raise ValueError(impl)
+
+    if not isinstance(q, DTensor):
+        return core(q, k, v)
+    heads = {0: "batch", 2: "model"}
+    qs, ks = shards.split_spec(q, heads), shards.split_spec(k, heads)
+    if qs[2] is not None and ks[2] is None:   # KV does not split as H does
+        G = q.shape[2] // k.shape[2]
+        k, v = expand_kv(k, G), expand_kv(v, G)
+        ks = shards.split_spec(k, heads)
+    if qs[2] is None:                         # whole heads on every rank
+        ks = shards.split_spec(k, {0: "batch"})
+    return shards.on_shards(core, (q, k, v), (qs, ks, ks), qs)
 
 
 def gqa_apply(params, x, *, num_heads: int, num_kv_heads: int,
@@ -233,18 +282,8 @@ def gqa_apply(params, x, *, num_heads: int, num_kv_heads: int,
                            num_kv_heads=num_kv_heads, head_dim=head_dim)
     q, k = _rotate(q, k, positions, theta=rope_theta, m_rope=m_rope,
                    sections=m_rope_sections)
-    G = num_heads // num_kv_heads
-    if impl == "reference":
-        o = reference_attention(q, k, v, causal=causal)
-    elif impl == "blockwise":
-        o = blockwise_attention(q, expand_kv(k, G), expand_kv(v, G),
-                                causal=causal, q_block=q_block,
-                                kv_block=kv_block)
-    elif impl == "pallas":
-        from repro_torch.kernels import ops as kops
-        o = kops.flash_attention(q, k, v, causal=causal)
-    else:
-        raise ValueError(impl)
+    o = _attend(impl, q, k, v, causal=causal, q_block=q_block,
+                kv_block=kv_block)
     y = proj(o.reshape(B, T, num_heads * head_dim), params["wo"],
              out_dtype=x.dtype)
     return y, (k, v)
@@ -268,13 +307,67 @@ def gqa_decode_apply(params, x, cache_k, cache_v, cache_len, *,
     _scatter_token(cache_k, k[:, 0], idx)
     _scatter_token(cache_v, v[:, 0], idx)
     if impl == "pallas":
-        from repro_torch.kernels import ops as kops
-        o = kops.decode_attention(q[:, 0], cache_k, cache_v, cache_len)
+        o = _decode_kernel(q[:, 0], cache_k, cache_v, cache_len)
+    elif isinstance(cache_k, DTensor):
+        o = _decode_shards(q[:, 0], cache_k, cache_v, cache_len)
     else:
         o = decode_attention(q[:, 0], cache_k, cache_v, cache_len)
     y = proj(o.reshape(B, num_heads * head_dim), params["wo"],
              out_dtype=x.dtype)
     return y[:, None, :], cache_k, cache_v
+
+
+def _decode_shards(q, cache_k, cache_v, cache_len):
+    """:func:`decode_attention` on a ``DTensor`` cache, on each rank's
+    shard: q and the lengths take the cache's batch split; a rank whose
+    cache holds a block of the positions scores that block, and the
+    softmax is combined over the sequence axes with
+    ``_c10d_functional.all_reduce``s."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = cache_k.device_mesh
+    groups = [(mesh, mesh.mesh_dim_names.index(a))
+              for a in shards.sharded_over(cache_k, 1)]
+
+    def reduce(t, op):
+        for g in groups:
+            t = funcol.all_reduce(t, op, g)
+        return t
+
+    off = shards.block_offset(cache_k, 1)
+
+    def local(q, k_cache, v_cache, cache_len):
+        return decode_attention(q, k_cache, v_cache, cache_len, offset=off,
+                                reduce=reduce if groups else None)
+
+    cs = shards.spec_of(cache_k)
+    qs = shards.P(cs[0], None, None)
+    return shards.on_shards(local, (q, cache_k, cache_v, cache_len),
+                            (qs, cs, cs, shards.P(cs[0])), qs)
+
+
+def _decode_kernel(q, cache_k, cache_v, cache_len):
+    """The ``decode_attention`` kernel; on ``DTensor``s, on each rank's
+    batch shard.  A cache whose sequence dim is sharded (the decode
+    cells' layout, ``launch.sharding.cache_specs``) would need a
+    partial softmax across ranks, which the kernel does not compute:
+    it raises, naming the placement, rather than run the plain version."""
+    from repro_torch.kernels import ops as kops
+
+    if not isinstance(cache_k, DTensor):
+        return kops.decode_attention(q, cache_k, cache_v, cache_len)
+    over = shards.sharded_over(cache_k, 1)
+    if over:
+        raise NotImplementedError(
+            f"decode_attention on a cache whose sequence dim is sharded "
+            f"over {over} (placements {cache_k.placements}): the kernel "
+            "takes a whole sequence a rank")
+    b = {0: "batch"}
+    cs = shards.split_spec(cache_k, b)
+    return shards.on_shards(
+        kops.decode_attention, (q, cache_k, cache_v, cache_len),
+        (shards.split_spec(q, b), cs, cs, shards.split_spec(cache_len, b)),
+        shards.split_spec(q, b))
 
 
 def _scatter_token(cache, new, idx):
@@ -285,15 +378,41 @@ def _scatter_token(cache, new, idx):
     row whose index is still outside ``[0, S)`` is dropped.  Serving
     reaches that: an idle slot's length keeps growing past ``max_len``.
     The write is masked on the device, with no host read."""
+    if isinstance(cache, DTensor):
+        return _scatter_token_shards(cache, new, idx)
+    S = cache.shape[1]
+    idx = idx.long()
+    _write_rows(cache, new, torch.where(idx < 0, idx + S, idx))
+    return cache
+
+
+def _write_rows(cache, new, idx) -> None:
+    """cache[b, idx[b]] = new[b] where ``0 <= idx[b] < S``, masked on
+    the device."""
     B, S = cache.shape[0], cache.shape[1]
     rows = torch.arange(B, device=cache.device)
-    idx = idx.long()
-    idx = torch.where(idx < 0, idx + S, idx)
     keep = (idx >= 0) & (idx < S)
     safe = torch.clamp(idx, 0, S - 1)
     old = cache[rows, safe]
     keep = keep.reshape((B,) + (1,) * (cache.ndim - 2))
     cache[rows, safe] = torch.where(keep, new.to(cache.dtype), old)
+
+
+def _scatter_token_shards(cache, new, idx):
+    """:func:`_scatter_token` into a ``DTensor`` cache, on each rank's
+    shard in place: ``new`` and ``idx`` take the cache's batch split,
+    and a rank whose sequence shard starts at ``off`` writes the rows
+    whose index falls in ``[off, off + S_local)``."""
+    mesh = cache.device_mesh
+    rows = shards.spec_of(cache)[0]
+    new = new.redistribute(mesh, shards.placements(mesh, shards.P(
+        rows, *(None,) * (new.ndim - 1)))).to_local()
+    idx = idx.redistribute(mesh, shards.placements(
+        mesh, shards.P(rows))).to_local().long()
+    off = shards.block_offset(cache, 1)
+    S = cache.shape[1]
+    _write_rows(cache.to_local(), new, torch.where(idx < 0, idx + S, idx)
+                - off)
     return cache
 
 
@@ -364,17 +483,9 @@ def mla_apply(params, x, *, num_heads: int, kv_lora_rank: int,
     qf = torch.cat([q_nope, q_rope], dim=-1)
     # v is padded with zeros to the qk head dim for the shared attention
     # routes, then the output is sliced back (JAX's route).
-    v_p = F.pad(v, (0, dn + dr - dv)) if dv < dn + dr else v
-    if impl == "reference":
-        o = reference_attention(qf, k, v_p, causal=causal)
-    elif impl == "blockwise":
-        o = blockwise_attention(qf, k, v_p, causal=causal, q_block=q_block,
-                                kv_block=kv_block)
-    elif impl == "pallas":
-        from repro_torch.kernels import ops as kops
-        o = kops.flash_attention(qf, k, v_p, causal=causal)
-    else:
-        raise ValueError(impl)
+    v_p = shards.pad(v, (0, dn + dr - dv)) if dv < dn + dr else v
+    o = _attend(impl, qf, k, v_p, causal=causal, q_block=q_block,
+                kv_block=kv_block)
     o = o[..., :dv]
     y = proj(o.reshape(B, T, H * dv), params["wo"], out_dtype=x.dtype)
     return y, (c_kv, k_rope[:, :, 0, :])

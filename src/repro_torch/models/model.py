@@ -7,9 +7,7 @@ llama3-405b, phi4-mini, minicpm-2b), granite-moe (``(gqa, moe)``),
 deepseek-v2-lite (``(mla, mlp)`` then ``(mla, moe)``), rwkv6-1.6b
 (``(rwkv, rwkv_cm)``), the jamba hybrid (``(gqa, mlp)``, ``(mamba,
 moe)``, ...), qwen2-vl (GQA with M-RoPE) and hubert-xlarge (a
-bidirectional encoder).  ``seq_parallel`` raises
-:class:`NotImplementedError` (ROADMAP D2).  Entry points, as in the JAX
-package:
+bidirectional encoder).  Entry points, as in the JAX package:
 
 * ``forward``      — full-sequence logits and the summed MoE aux loss;
 * ``loss``         — the training loss, ``ce + MOE_AUX_WEIGHT * aux``;
@@ -53,6 +51,17 @@ kernels, which the JAX LM never reaches (its ``ssm.py`` runs
 capacity in ``forward``/``prefill`` and run dropless in ``decode_step``,
 as JAX's do.
 
+On a device mesh (:mod:`repro_torch.launch.mesh`) the weights, caches
+and inputs are ``DTensor``s placed by :mod:`repro_torch.launch.sharding`
+and the calls run inside its ``anchored(mesh)``: the activations take
+JAX's anchors (the batch over the DP axes after the embedding, the
+unembedding table over ``model``, and with ``seq_parallel`` the
+residual's sequence dim over ``model`` after every layer), projections
+run tensor-parallel on each rank's shards, and the attention cores,
+scans, expert FFNs and the embedding lookup run on each rank's shards,
+so the kernels' wrappers see plain tensors.  With no mesh
+``seq_parallel`` is the identity, as JAX's constraint is on one device.
+
 Parameters are created on the model's device without values; ``init``
 fills them from a seeded ``torch.Generator`` layer by layer, so peak
 memory stays at the weights plus one f32 temporary (one expert's
@@ -68,9 +77,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core.engine import resolve_device
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, shards
 from repro_torch.models.attention import (
     gqa_apply,
     gqa_decode_apply,
@@ -213,18 +224,17 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, attn_impl: str = "blockwise",
-                 seq_parallel: bool = False, device=None):
+                 seq_parallel: bool = False, device=None,
+                 weights: bool = True):
         """``device=None`` is the CUDA card, which must be present;
         ``device="cpu"`` runs on the CPU with the kernels' plain
-        versions."""
+        versions.  ``weights=False`` builds the module without weights
+        of its own (its parameters are shapes on the meta device): it
+        then runs only on a bound tree, ``loss(params=)``, as a trainer
+        whose weights live in the train state does."""
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
-        if seq_parallel:
-            raise NotImplementedError(
-                "seq_parallel (a sequence-sharded activation constraint "
-                "across a device mesh) is not ported to repro_torch "
-                "(ROADMAP D2)")
         for pattern, _ in cfg.stages():
             for spec in pattern:
                 if spec.mixer not in MIXERS or spec.ffn not in FFNS:
@@ -233,7 +243,9 @@ class LM(nn.Module):
                         f"{spec.ffn}) (mixers {MIXERS}, FFNs {FFNS})")
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.seq_parallel = seq_parallel
         self.device = resolve_device(device)
+        self.has_weights = weights
         if self.device.type == "cuda":
             # Projections accumulate in f32 and round once, as the JAX
             # package's (preferred_element_type=f32): no bf16 split-K sums.
@@ -241,7 +253,7 @@ class LM(nn.Module):
                 .allow_bf16_reduced_precision_reduction = False
         norm_params, self.norm_apply = make_norm(cfg.norm)
         self.stages = cfg.stages()
-        dev = self.device
+        dev = self.device if weights else torch.device("meta")
         self.embed = nn.Parameter(torch.empty(
             (cfg.padded_vocab, cfg.d_model), dtype=DEFAULT_DTYPE, device=dev),
             requires_grad=False)
@@ -251,6 +263,7 @@ class LM(nn.Module):
                                      requires_grad=False)
         # Layer order: stage, then unit within the stage, then the
         # pattern's layers (the order of the JAX stacked params).
+        self._layer_key = list(_layer_keys(cfg))
         self.layers = nn.ModuleList(
             Block(cfg, spec, norm_params, dev)
             for pattern, repeat in self.stages
@@ -263,6 +276,7 @@ class LM(nn.Module):
     def init(self, seed: int = 0) -> "LM":
         """Fill every weight from ``torch.Generator(device).manual_seed(
         seed)``, one tensor at a time (norm scales 1, biases 0)."""
+        self._require_weights("init")
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         embed_init(gen, cfg.padded_vocab, cfg.d_model, out=self.embed)
@@ -300,6 +314,27 @@ class LM(nn.Module):
                 norm[name].copy_(t)
         return self
 
+    def param_paths(self) -> dict:
+        """Each parameter's name -> its leaf's path in the JAX ``LM.init``
+        tree, in JAX's ``keystr`` spelling (a layer's parameter names its
+        stack, ``['stages'][s]['l{j}'][...]``): the sharding rules match
+        on it."""
+        out = {}
+        for name, _ in self.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "layers":
+                si, _, lj, _ = self._layer_key[int(parts[1])]
+                parts = ["stages", si, lj] + parts[2:]
+            out[name] = "".join(f"[{p!r}]" for p in parts)
+        return out
+
+    def _require_weights(self, what: str) -> None:
+        if not self.has_weights:
+            raise RuntimeError(
+                f"LM.{what} needs the module's own weights, and this LM "
+                "was built with weights=False: pass a train state's tree "
+                "to loss(params=), or build LM(cfg) with its weights")
+
     def _head(self):
         return self.embed if self.cfg.tie_embeddings else self.head
 
@@ -320,11 +355,13 @@ class LM(nn.Module):
         """The input activations: ``embeds`` cast to the embedding's
         dtype (bf16 unless cast, JAX's ``DEFAULT_DTYPE``), else the
         tokens' rows of ``table``."""
+        from repro_torch.launch.sharding import shard_batch_dim
+
         if embeds is not None:
-            return embeds.to(table.dtype)
+            return shard_batch_dim(embeds.to(table.dtype))
         if tokens is None:
             raise ValueError("give tokens or embeds")
-        return embed_apply(table, tokens)
+        return shard_batch_dim(embed_apply(table, tokens))
 
     def _layer_views(self) -> list:
         """Each layer's parameter groups (``mixer_norm``, ``mixer``,
@@ -353,6 +390,7 @@ class LM(nn.Module):
 
     def _own(self) -> dict:
         """:meth:`bind`'s result for the module's own weights."""
+        self._require_weights("forward")
         return {"embed": self.embed, "head": self._head(),
                 "final_norm": self.final_norm, "layers": self._layer_views()}
 
@@ -430,15 +468,25 @@ class LM(nn.Module):
                         for i in unit:
                             x, aux, _ = self._layer_full(
                                 specs[i], layers[i], x, positions, aux)
+                            x = self._seq_anchor(x)
                         return x, aux
 
                     x, aux = checkpoint(body, x, aux, use_reentrant=False)
             return x, aux, caches
         for spec, lp in zip(specs, layers):
             x, aux, c = self._layer_full(spec, lp, x, positions, aux)
+            x = self._seq_anchor(x)
             if collect_cache:
                 caches.append(c)
         return x, aux, caches
+
+    def _seq_anchor(self, x):
+        """``seq_parallel``: the residual's sequence dim over ``model``
+        after every layer (:func:`~repro_torch.launch.sharding.
+        shard_seq_dim`; the identity with no mesh anchored)."""
+        from repro_torch.launch.sharding import shard_seq_dim
+
+        return shard_seq_dim(x) if self.seq_parallel else x
 
     def _mask_pad(self, logits):
         """-1e30 on the vocab-padding tail (padded_vocab > vocab_size)."""
@@ -493,6 +541,7 @@ class LM(nn.Module):
         ``final_norm``, ``head`` (untied models), and ``stages`` with
         each stage's layers stacked on a leading ``[repeat]`` axis;
         copies on the model's device, same dtypes."""
+        self._require_weights("stacked_params")
         tree = {"embed": self.embed.clone(),
                 "final_norm": {k: t.clone()
                                for k, t in self.final_norm.items()},
@@ -519,9 +568,14 @@ class LM(nn.Module):
         """Zeroed caches; K/V, MLA's latents, the mamba conv tail and the RWKV
         token-shift inputs in the activation dtype (the embedding's: bf16,
         as JAX's ``DEFAULT_DTYPE``, unless the model was cast), the
-        recurrent states ``h`` and ``S`` in f32."""
+        recurrent states ``h`` and ``S`` in f32.  With a mesh anchored,
+        ``DTensor``s at the rules' placements, each rank allocating only
+        its shard."""
+        from repro_torch.launch.sharding import anchor_mesh, cache_specs
+
         cfg = self.cfg
-        dev = self.device
+        mesh = anchor_mesh()
+        dev = self.device if mesh is None else torch.device("meta")
         act = self.embed.dtype
         stages = []
         for pattern, repeat in self.stages:
@@ -550,9 +604,14 @@ class LM(nn.Module):
                                              dtype=act, device=dev)
                 unit[f"l{j}"] = c
             stages.append(unit)
-        return {"stages": stages,
-                "lengths": torch.zeros((batch,), dtype=torch.int32,
-                                       device=dev)}
+        cache = {"stages": stages,
+                 "lengths": torch.zeros((batch,), dtype=torch.int32,
+                                        device=dev)}
+        if mesh is None:
+            return cache
+        return shards.zeros(cache, mesh, cache_specs(mesh, cache,
+                                                     batch=batch),
+                            self.device)
 
     def _layer_caches(self, cache):
         """{name: view of the layer's slice} for each layer, in layer
@@ -580,6 +639,7 @@ class LM(nn.Module):
         them); the returned cache shares them and carries the new
         ``lengths``.  MoE layers run dropless (``moe_apply_dense``).
         """
+        self._require_weights("decode_step")
         cfg = self.cfg
         lengths = cache["lengths"] + 1            # incl. the new token
         B = tokens.shape[0]
@@ -644,6 +704,7 @@ class LM(nn.Module):
 
         Returns (last-token logits [B,V], cache padded to ``max_len``).
         """
+        self._require_weights("prefill")
         cfg = self.cfg
         x = self._embed_in(self.embed, tokens, embeds)
         B, T = x.shape[0], x.shape[1]
@@ -655,10 +716,16 @@ class LM(nn.Module):
         full = self.init_cache(B, max_len)
         for tgt, src in zip(self._layer_caches(full), caches):
             for name, val in src.items():
-                if name in SEQ_CACHES:     # [B,T,...] into [B,max_len,...]
-                    tgt[name][:, :T] = val
-                else:                      # recurrent state: set whole
+                if name not in SEQ_CACHES:   # recurrent state: set whole
                     tgt[name].copy_(val)
+                elif isinstance(val, DTensor):
+                    # [B,T,...] padded to max_len rows and copied whole: a
+                    # slice of a sequence-sharded cache is no view of it.
+                    pad = val.new_zeros((B, max_len - T) + val.shape[2:])
+                    tgt[name].copy_(torch.cat([val, pad], dim=1)
+                                    if max_len > T else val)
+                else:                        # [B,T,...] into [B,max_len,...]
+                    tgt[name][:, :T] = val
         full["lengths"].fill_(T)
         return logits, full
 

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import shards as sh
 from repro_torch.models.layers import DEFAULT_DTYPE, dense_init, proj
 
 DECAY_LORA = 64               # rank of the decay LoRA (JAX's default)
@@ -125,7 +126,7 @@ def _conv1d_causal(params, xs, conv_state=None):
     w = params["conv_w"].float()                           # [K,C]
     K = w.shape[0]
     if conv_state is None:
-        pad = F.pad(xs, (0, 0, K - 1, 0))
+        pad = sh.pad(xs, (0, 0, K - 1, 0))
     else:
         pad = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
     L = xs.shape[1]
@@ -151,7 +152,8 @@ def _conv_tail(xs, d_conv: int, conv0=None):
 
 
 def _mamba_chunked_scan(xs, dt, Bc, Cc, A, Dskip, *, chunk: int, h0=None):
-    """The JAX chunked form with a sequential in-chunk recurrence:
+    """The JAX chunked form, an associative scan inside each chunk (JAX's
+    ``lax.associative_scan`` order) and the state carried across chunks:
     xs [B,T,I], dt [B,T,I] f32, Bc/Cc [B,T,N] f32, A [I,N] -> (y [B,T,I]
     f32 including the ``D`` skip, h_T [B,I,N] f32).  Padded tokens carry
     dt = 0: decay 1, input 0, the state untouched."""
@@ -172,13 +174,59 @@ def _mamba_chunked_scan(xs, dt, Bc, Cc, A, Dskip, *, chunk: int, h0=None):
         xc, dtc, bc, cc = xs[:, sl], dt[:, sl], Bc[:, sl], Cc[:, sl]
         a = torch.exp(dtc[..., None] * A)                  # [B,L,I,N]
         u = (dtc * xc)[..., None] * bc[:, :, None, :]
-        hs = []
-        for t in range(chunk):
-            h = a[:, t] * h + u[:, t]
-            hs.append(h)
-        h_t = torch.stack(hs, dim=1)                       # [B,L,I,N]
+        a_sc, u_sc = _associative_scan(a, u)
+        h_t = a_sc * h[:, None] + u_sc                     # [B,L,I,N]
+        h = h_t[:, -1]
         ys.append(torch.einsum("blin,bln->bli", h_t, cc) + Dskip * xc)
     return torch.cat(ys, dim=1)[:, :T], h
+
+
+def _combine(p, q):
+    """The recurrence's combine: ``(a1, u1) . (a2, u2) = (a1·a2,
+    a2·u1 + u2)``, h = a h_prev + u composed."""
+    return p[0] * q[0], q[0] * p[1] + q[1]
+
+
+def _associative_scan(a, u):
+    """The inclusive scan of ``_combine`` along dim 1, in
+    ``lax.associative_scan``'s odd-even order: the pairs combined, their
+    scan taken recursively, and the even positions filled in from it
+    (log2 L levels, O(L) work)."""
+    L = a.shape[1]
+    if L < 2:
+        return a, u
+    odd = _associative_scan(*_combine((a[:, 0:-1:2], u[:, 0:-1:2]),
+                                      (a[:, 1::2], u[:, 1::2])))
+    if L % 2:
+        even = _combine(odd, (a[:, 2::2], u[:, 2::2]))
+    else:
+        even = _combine((odd[0][:, :-1], odd[1][:, :-1]),
+                        (a[:, 2::2], u[:, 2::2]))
+    even = (torch.cat([a[:, :1], even[0]], dim=1),
+            torch.cat([u[:, :1], even[1]], dim=1))
+
+    def interleave(e, o):
+        n = o.shape[1]
+        both = torch.stack([e[:, :n], o], dim=2).flatten(1, 2)
+        return torch.cat([both, e[:, n:]], dim=1) if e.shape[1] > n else both
+
+    return interleave(even[0], odd[0]), interleave(even[1], odd[1])
+
+
+def _mamba_scan_shards(scan, xs, dt, Bc, Cc, A, Dskip):
+    """``scan(xs, dt, Bc, Cc, A, D) -> (y, h)`` on each rank's shards
+    when the inputs are ``DTensor``s: batch over the DP axes, the inner
+    channels over ``model`` (the scan is one recurrence a channel)."""
+    if not isinstance(xs, sh.DTensor):
+        return scan(xs, dt, Bc, Cc, A, Dskip)
+    ch = sh.split_spec(A, {0: "model"})[0]
+    bi = sh.split_spec(xs, {0: "batch"})[0]
+    x_spec = sh.P(bi, None, ch)
+    n_spec = sh.P(bi, None, None)
+    return sh.on_shards(scan, (xs, dt, Bc, Cc, A, Dskip),
+                        (x_spec, x_spec, n_spec, n_spec, sh.P(ch, None),
+                         sh.P(ch)),
+                        (x_spec, sh.P(bi, ch, None)))
 
 
 def mamba_apply(params, x, *, d_state: int = 16, d_conv: int = 4,
@@ -206,15 +254,19 @@ def mamba_apply(params, x, *, d_state: int = 16, d_conv: int = 4,
             raise ValueError("the mamba_scan kernel starts from a zero "
                              "state; h0 is not supported with "
                              "impl='pallas'")
-        xsf = xs.float()
-        y, h_fin = ops.mamba_scan(dt * xsf, dt, Bc, Cc, A, chunk=chunk,
-                                  return_state=True)
-        y = y + params["D"] * xsf
+
+        def scan(xs, dt, Bc, Cc, A, Dskip):
+            xsf = xs.float()
+            y, h_fin = ops.mamba_scan(dt * xsf, dt, Bc, Cc, A, chunk=chunk,
+                                      return_state=True)
+            return y + Dskip * xsf, h_fin
     elif impl in ("blockwise", "reference"):
-        y, h_fin = _mamba_chunked_scan(xs, dt, Bc, Cc, A, params["D"],
+        def scan(xs, dt, Bc, Cc, A, Dskip):
+            return _mamba_chunked_scan(xs, dt, Bc, Cc, A, Dskip,
                                        chunk=chunk, h0=h0)
     else:
         raise ValueError(f"unknown mamba impl {impl!r}")
+    y, h_fin = _mamba_scan_shards(scan, xs, dt, Bc, Cc, A, params["D"])
     y = (y * F.silu(z.float())).to(x.dtype)
     out = proj(y, params["out_proj"], out_dtype=x.dtype)
     if return_state:
@@ -405,6 +457,21 @@ def _group_norm_gate_out(params, y, g, x, *, head_dim: int):
     return proj(y.to(x.dtype), params["wo"], out_dtype=x.dtype)
 
 
+def _rwkv_scan_shards(scan, r, k, v, logw, u, *state):
+    """``scan(r, k, v, logw, u[, S]) -> (y, S)`` on each rank's shards
+    when the streams are ``DTensor``s: batch over the DP axes, whole heads
+    over ``model`` (the recurrence is one a head)."""
+    if not isinstance(r, sh.DTensor):
+        return scan(r, k, v, logw, u, *state)
+    hd = sh.split_spec(u, {0: "model"})[0]
+    bi = sh.split_spec(r, {0: "batch"})[0]
+    x_spec = sh.P(bi, None, hd)
+    s_spec = sh.P(bi, hd, None, None)
+    return sh.on_shards(scan, (r, k, v, logw, u, *state),
+                        (x_spec,) * 4 + (sh.P(hd, None),)
+                        + (s_spec,) * len(state), (x_spec, s_spec))
+
+
 def rwkv6_attn(params, x, *, head_dim: int = 64, chunk: int = 64,
                x_prev=None, s0=None, return_state: bool = False,
                impl: str = "blockwise"):
@@ -424,17 +491,24 @@ def rwkv6_attn(params, x, *, head_dim: int = 64, chunk: int = 64,
             raise ValueError("the rwkv6_scan kernel starts from a zero "
                              "state; s0 is not supported with impl='pallas'")
 
-        def heads(t):   # [B,T,D] -> [B,H,T,K], a view
-            return t.view(B, T, H, head_dim).transpose(1, 2)
+        def scan(r, k, v, logw, u):
+            B, T, D = r.shape
+            H = D // head_dim
 
-        y, s_fin = ops.rwkv6_scan(heads(r), heads(k), heads(v), heads(logw),
-                                  u, chunk=chunk, return_state=True)
-        y = y.transpose(1, 2).reshape(B, T, D)
+            def heads(t):   # [B,T,D] -> [B,H,T,K], a view
+                return t.view(B, T, H, head_dim).transpose(1, 2)
+
+            y, s_fin = ops.rwkv6_scan(heads(r), heads(k), heads(v),
+                                      heads(logw), u, chunk=chunk,
+                                      return_state=True)
+            return y.transpose(1, 2).reshape(B, T, D), s_fin
     elif impl in ("blockwise", "reference"):
-        y, s_fin = _chunked_scan(r, k, v, logw, u, head_dim=head_dim,
+        def scan(r, k, v, logw, u):
+            return _chunked_scan(r, k, v, logw, u, head_dim=head_dim,
                                  chunk=chunk, s0=s0)
     else:
         raise ValueError(f"unknown rwkv6 impl {impl!r}")
+    y, s_fin = _rwkv_scan_shards(scan, r, k, v, logw, u)
     out = _group_norm_gate_out(params, y, g, x, head_dim=head_dim)
     if return_state:
         return out, (x[:, -1:, :], s_fin)
@@ -444,18 +518,22 @@ def rwkv6_attn(params, x, *, head_dim: int = 64, chunk: int = 64,
 def rwkv6_attn_decode(params, x, x_prev, S, *, head_dim: int = 64):
     """Exact single-token recurrence.  x: [B,1,D]; S: [B,H,K,V] f32 ->
     (out [B,1,D], (x, S_new))."""
-    B, _, D = x.shape
-    H = D // head_dim
+    D = x.shape[-1]
     K = head_dim
     r, k, v, g, logw = _rwkv_streams(params, x, x_prev)
-    rh, kh, vh = r.reshape(B, H, K), k.reshape(B, H, K), v.reshape(B, H, K)
-    w = torch.exp(logw.reshape(B, H, K))
-    u = params["bonus_u"].reshape(H, K)
-    kv = torch.einsum("bhk,bhv->bhkv", kh, vh)
-    y = torch.einsum("bhk,bhkv->bhv", rh, S + u[None, :, :, None] * kv)
-    S_new = w[..., None] * S + kv
-    out = _group_norm_gate_out(params, y.reshape(B, 1, D), g, x,
-                               head_dim=head_dim)
+    u = params["bonus_u"].reshape(D // K, K)
+
+    def step(r, k, v, logw, u, S):
+        B, _, D = r.shape
+        H = D // K
+        rh, kh, vh = (t.reshape(B, H, K) for t in (r, k, v))
+        w = torch.exp(logw.reshape(B, H, K))
+        kv = torch.einsum("bhk,bhv->bhkv", kh, vh)
+        y = torch.einsum("bhk,bhkv->bhv", rh, S + u[None, :, :, None] * kv)
+        return y.reshape(B, 1, D), w[..., None] * S + kv
+
+    y, S_new = _rwkv_scan_shards(step, r, k, v, logw, u, S)
+    out = _group_norm_gate_out(params, y, g, x, head_dim=head_dim)
     return out, (x, S_new)
 
 

@@ -26,6 +26,7 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.core.tree import key_leaves, tree_map, tree_unflatten
 
@@ -79,10 +80,15 @@ def schedule_lr(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares, summed leaf
-    by leaf in JAX's flatten order."""
+    by leaf in JAX's flatten order.  A ``DTensor`` leaf's sum is reduced
+    over its shards before it joins the total."""
     total = 0
     for _, leaf in key_leaves(tree):
-        total = total + torch.sum(torch.square(leaf.float()))
+        part = torch.sum(torch.square(leaf.float()))
+        if isinstance(part, DTensor):
+            part = part.redistribute(part.device_mesh,
+                                     [Replicate()] * part.device_mesh.ndim)
+        total = total + part
     return torch.sqrt(total)
 
 

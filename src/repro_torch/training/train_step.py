@@ -107,8 +107,8 @@ def make_grad_fn(model: LM, *, num_microbatches: int = 1,
         micros = _split_microbatches(batch, num_microbatches)
         loss = torch.zeros((), dtype=torch.float32,
                            device=micros["labels"].device)
-        grads = tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
+        grads = tree_map(lambda p: torch.zeros_like(
+            p, dtype=torch.float32), params)
         for m in range(num_microbatches):
             micro_loss, one = micro_grads(
                 params, {k: v[m] for k, v in micros.items()})

@@ -61,3 +61,54 @@ def test_extended_count_equals_full_trace(name, kind, seq_len, batch,
     ext = cell_cost(cell)
     assert (ext.flops, ext.mem_bytes) == (full.flops, full.mem_bytes)
     assert ext.flops_by_dtype == full.flops_by_dtype
+
+
+# (name, arch, kind, batch, microbatches): the extension in length, from
+# traces at three cut lengths to a cell eight length units longer.
+LENGTH_CASES = [
+    ("causal-attention", "stablelm-12b", "prefill", 2, None),
+    ("bidirectional-attention", "hubert-xlarge", "prefill", 2, None),
+    ("mamba", "jamba-1.5-large-398b", "prefill", 2, None),
+    ("rwkv", "rwkv6-1.6b", "train", 2, 2),
+]
+
+
+def _mamba_only(cfg):
+    """jamba's reduced width with (mamba, mlp) layers alone."""
+    from repro_torch.configs.base import LayerSpec
+
+    return dataclasses.replace(cfg, block_pattern=(LayerSpec("mamba", "mlp"),),
+                               first_layer_pattern=None, num_layers=2)
+
+
+@pytest.mark.parametrize("name,arch,kind,batch,microbatches", LENGTH_CASES,
+                         ids=[c[0] for c in LENGTH_CASES])
+def test_length_extension_equals_full_trace(name, arch, kind, batch,
+                                            microbatches):
+    """``cell_cost(extend_t=True)`` (traces at three cut lengths, each
+    term ``a + b·T + c·block_pairs(T)``) against one trace at the cell's
+    length, exactly: the attention's block pairs (causal and
+    bidirectional), the scans' chunks and steps."""
+    from repro_torch.launch.graph_cost import block_pairs, cut_lengths
+
+    cfg = get_config(arch).reduced()
+    if name == "mamba":
+        cfg = _mamba_only(cfg)
+    if name == "causal-attention":     # KV blocks twice the query's, as
+        cfg = dataclasses.replace(     # the configs' 512 and 1024: the
+            cfg, attn_kv_block=2 * cfg.attn_q_block)   # first cut has one
+    rows = batch // (microbatches or 1)
+    ts = cut_lengths(cfg, rows, 10**9)
+    T = ts[-1] + 8 * (ts[1] - ts[0])
+    assert cut_lengths(cfg, rows, T) == ts
+    if "attention" in name:       # the pairs grow faster than the length
+        pairs = [block_pairs(t, cfg.attn_q_block, cfg.attn_kv_block,
+                             cfg.causal) for t in ts + [T]]
+        assert pairs[1] - pairs[0] != pairs[2] - pairs[1]
+    cell = build_cell(cfg, kind, device="cpu",
+                      shape=dict(kind=kind, seq_len=T, global_batch=batch),
+                      num_microbatches=microbatches)
+    full = trace_cost(cell.fn, *cell.arg_specs, fake_mode=cell.fake_mode)
+    ext = cell_cost(cell, extend_t=True)
+    assert (ext.flops, ext.mem_bytes) == (full.flops, full.mem_bytes)
+    assert ext.flops_by_dtype == full.flops_by_dtype

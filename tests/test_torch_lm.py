@@ -147,6 +147,9 @@ def _write_jax_refs(path: str) -> None:
         for name, a in (("h", h), ("y", y), ("k", k), ("v", v)):
             out[f"layer/{li}/{name}"] = f32(a)
 
+    out["forward/seq_parallel"] = f32(jax.jit(
+        JLM(jcfg, seq_parallel=True).forward)(params, jnp.asarray(tokens))[0])
+
     jm = JLM(jcfg)
     step = jax.jit(jm.decode_step)
     cache = dict(shared, lengths=jnp.asarray([MAX_LEN, T], jnp.int32))
@@ -393,11 +396,26 @@ def test_lm_defaults_to_the_card_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen2-vl-72b"])
 def test_unported_layers_raise(arch):
-    """The one option of the JAX ``LM`` still unported, ``seq_parallel``,
-    is refused on the MLA and M-RoPE configs, naming its ROADMAP label,
-    not run wrong."""
-    with pytest.raises(NotImplementedError, match="ROADMAP D2"):
-        TLM(tget_config(arch).reduced(), seq_parallel=True, device="cpu")
+    """``seq_parallel``, the last option of the JAX ``LM`` to be ported
+    (ROADMAP D2), builds on the MLA and M-RoPE configs and, with no mesh
+    registered, is the identity, as JAX's constraint is on one device:
+    the same weights give bit-identical logits with and without it (its
+    numbers on a mesh: ``tests/test_torch_seq_parallel.py``)."""
+    cfg = tget_config(arch).reduced()
+    plain = TLM(cfg, device="cpu").init(0)
+    sp = TLM(cfg, seq_parallel=True, device="cpu")
+    sp.load_state_dict(plain.state_dict())
+    tokens = torch.arange(16, dtype=torch.int32).reshape(1, 16) % 7
+    assert torch.equal(sp.forward(tokens)[0], plain.forward(tokens)[0])
+
+
+def test_seq_parallel_forward_matches_jax(setup, refs):
+    """``LM(seq_parallel=True)`` on one device against JAX's."""
+    m = TLM(setup["tcfg"], seq_parallel=True, device="cpu")
+    m.load_state_dict(setup["state"])
+    logits, _ = m.forward(torch.from_numpy(setup["tokens"]))
+    _check_logits(logits, refs["forward/seq_parallel"], "seq_parallel")
+    _check_logits(logits, refs["forward/blockwise"], "seq_parallel=False")
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "qwen2-vl-72b"])

@@ -150,18 +150,41 @@ def test_roofline_terms_and_dominance():
     assert r32.compute_seconds == pytest.approx(4.0)
     assert r32.dominant == "compute"
     assert r32.bound_seconds == r32.compute_seconds
-    with pytest.raises(NotImplementedError, match="ROADMAP D3"):
-        dataclasses.replace(r, collective_bytes_per_device=1.0
-                            ).collective_seconds
+    # collectives at the slowest link their group spans: a 16-rank
+    # "model" group crosses two 8-card nodes (InfiniBand), an 8-rank one
+    # stays on NVLink; "data" of (16, 16) strides across nodes
+    pod = dataclasses.replace(
+        r, collective_bytes_per_device=8 * 50e9,
+        collective_by_group={"model": 3 * 50e9, "data": 5 * 50e9},
+        mesh_shape=(16, 16), mesh_axes=("data", "model"))
+    assert pod.collective_seconds == pytest.approx(8.0)
+    assert pod.dominant == "collective"
+    node = dataclasses.replace(pod, collective_by_group={"model": 450e9},
+                               mesh_shape=(32, 8))
+    assert node.collective_seconds == pytest.approx(1.0)
 
 
 def test_h100_constants_only():
+    """Every rate is an H100 datasheet rate: SXM5 80GB, 989 TFLOP/s
+    dense bf16 and fp16, 67 TFLOP/s f32, 3.35 TB/s HBM3; NVLink 4, 900
+    GB/s a card in an 8-card HGX H100 node, 450 each way; NDR
+    InfiniBand, 400 Gb/s a port, one a card.  None is one of the TPU
+    rates of JAX's roofline, but for one named coincidence: the
+    InfiniBand rate, 50e9 B/s, equals JAX's ``ICI_BW``."""
     assert PEAK_FLOPS == {"bfloat16": 989e12, "float16": 989e12,
                           "float32": 67e12}
     assert PEAK_BF16 == 989e12 and HBM_BW == 3.35e12
+    assert troof.LINK_BW == {"nvlink": 450e9, "infiniband": 400e9 / 8}
+    assert troof.CARDS_PER_NODE == 8
+    rates = {name: v for name, v in vars(troof).items()
+             if isinstance(v, float)}
+    for table in ("PEAK_FLOPS", "LINK_BW"):
+        rates.update({f"{table}[{k!r}]": v
+                      for k, v in getattr(troof, table).items()})
     tpu = {jroof.PEAK_FLOPS, jroof.HBM_BW, jroof.ICI_BW}
-    assert not tpu & ({v for v in vars(troof).values()
-                       if isinstance(v, float)} | set(PEAK_FLOPS.values()))
+    assert {name for name, v in rates.items() if v in tpu} == {
+        "LINK_BW['infiniband']"}
+    assert troof.LINK_BW["infiniband"] == jroof.ICI_BW
 
 
 def test_model_flops_moe_uses_active_params():

@@ -279,3 +279,32 @@ def test_launcher_needs_the_card_by_default(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--arch", "stablelm-12b", "--reduced", "--steps", "1",
                      "--ckpt-dir", str(tmp_path)])
+
+
+def test_launched_lm_holds_one_form_of_its_weights(tmp_path, monkeypatch):
+    """The launcher's ``LM`` keeps no weights of its own (ROADMAP A19):
+    its parameters are shapes on the meta device, the train state holds
+    the only copy, and reading the module's own weights raises."""
+    built = []
+
+    class Recorded(LM):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+
+    monkeypatch.setattr(ttrain, "LM", Recorded)
+    args = ttrain.parse_args(["--arch", "stablelm-12b", "--steps", "2",
+                              "--batch", "2", "--seq-len", "8", "--device",
+                              "cpu", "--ckpt-dir", str(tmp_path)])
+    cfg = get_config("stablelm-12b").reduced()
+    run = ttrain.train(cfg, args)
+    (model,) = built
+    assert not model.has_weights
+    assert all(p.is_meta for p in model.parameters())
+    assert all(t.device.type == "cpu" for _, t in key_leaves(run.state))
+    with pytest.raises(RuntimeError, match="weights=False"):
+        model.forward(torch.zeros((1, 4), dtype=torch.int32))
+    # the stacked tree is every weight the module would have held
+    full = LM(cfg, device="cpu")
+    assert sum(t.numel() for _, t in key_leaves(run.state["params"])) == \
+        sum(p.numel() for p in full.parameters())
