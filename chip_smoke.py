@@ -188,6 +188,27 @@ Phases, each printed on its own line:
    and absorb, each bit for bit equal to the tuple-of-shards op on the
    same CUDA tensors; the stacked fill launches ``front_merge`` once a
    shard.
+5j2. devices — the sharded engine's ``placement="devices"``, one shard
+   queue a rank over ``torch.distributed``, PHOLD at 5h's size for
+   ``MODES_BATCHES`` super-steps: (a) ``shards=1`` over an NCCL group of
+   one rank in this process, held bit for bit to 5h's tiered3 run
+   (``rows_problems``), beside the serial engine at one shard; (b)
+   ``DEVICES_RANKS`` ranks on the one card over gloo, each a child
+   process (``devices_rank``, the kernels loaded from the build
+   directory), ``validate="cheap"``, rank 0's gathered outcome held to
+   5i (a)'s serial run; (c) ``DEVICES_FUSED_RANKS`` ranks under ``fused``
+   on ``FUSED_SHARD_TIERS``, held to 5i (b)'s serial run, then a run
+   checkpointed every ``MODES_BATCHES // 2`` crashed after its first
+   segment and resumed (the restore through ``place_queue``), held to
+   the uninterrupted run.  (b) and (c)'s ranks start with the phase and
+   set up during (a); each case runs alone on the card.  Every rank
+   launches ``front_merge`` once a super-step and ``window_extract``
+   never, makes 2 collectives a super-step (3 validated) and at least 4
+   host reads, no more than the serial run's; each case prints its
+   backend, ranks and cards, each rank's super-steps/s, seconds, set-up
+   seconds, host reads and collectives a super-step, launches and peak
+   memory, and the ratio to the serial run at as many shards.  NCCL at
+   more than one rank needs as many cards and is not run.
 5k. wireless — the paper's §IV.A example
    (``repro_torch.examples.wireless_des``): the host run with its batch
    words compiled by Inductor (in a child process started with the
@@ -334,7 +355,8 @@ Phases, each printed on its own line:
 
 Each path (PHOLD, each run of PHOLD fused, PoC, the M/M/c network and
 the admission scenario, the segmented runs, the host runs, the
-analyses and the static fused runs, each served model, qwen2-vl's
+analyses and the static fused runs, each rank of phase devices, each
+served model, qwen2-vl's
 embeds prefill, hubert's forward, the training phase, phase mesh's runs
 with and without the mesh) runs with every kernel's launch count set to
 0 just before it and read just after.
@@ -2172,40 +2194,59 @@ def run_analysis(device_name: str, poc_switch, admit) -> None:
 
 def live_rows(queue):
     """The live ``(time, seq, type, args)`` rows of any final queue
-    (tiered3, two-tier, flat, reference or sharded), lex-sorted, with
-    its ``size``, ``next_seq`` and ``dropped``."""
+    (tiered3, two-tier, flat, reference or sharded; a placed one is
+    gathered, a collective), lex-sorted, with its ``size``,
+    ``next_seq`` and ``dropped``."""
     from repro_torch.core import queue as q
     from repro_torch.core.sharded import sharded_queue_to_flat
 
     to_flat = {"Tiered3DeviceQueue": q.tiered3_queue_to_flat,
                "TieredDeviceQueue": q.tiered_queue_to_flat,
                "DeviceQueue": q.device_queue_to_flat,
-               "ShardedQueue": sharded_queue_to_flat}
+               "ShardedQueue": sharded_queue_to_flat,
+               "StackedShardedQueue": sharded_queue_to_flat}
     return to_flat[type(queue).__name__](queue)
+
+
+def result_arrays(res) -> dict:
+    """A run's outcome as host arrays, what :func:`rows_problems`
+    compares: every state leaf, the counters, ``final_time``, the word
+    histogram and the final queue's live rows with its counters (a
+    placed queue is gathered: every rank calls this)."""
+    import numpy as np
+
+    out = {f"state{i}": leaf.cpu().numpy()
+           for i, leaf in enumerate(_state_leaves(res.state))}
+    for name in ("events", "batches", "dropped", "emitted", "pending",
+                 "fault_word"):
+        out[name] = np.asarray(getattr(res, name))
+    out["final_time"] = np.asarray(np.float32(res.final_time))
+    out["word_counts"] = np.asarray(res.word_counts)
+    rows = live_rows(res.raw["final_queue"])
+    out.update({f"queue.{k}": np.asarray(v)
+                for k, v in zip(rows._fields, rows)})
+    return out
+
+
+def arrays_problems(got: dict, want: dict, label: str) -> list:
+    import numpy as np
+
+    if set(got) != set(want):
+        return [f"{label}: fields {sorted(set(got) ^ set(want))}"]
+    return [f"{label}: {k} differs" for k in sorted(want)
+            if not np.array_equal(got[k], want[k])]
 
 
 def rows_problems(res, ref) -> list:
     """What differs between two runs of one model and one window
-    sequence: state, checksum, the counters, the word histogram,
-    ``final_time`` and the final queue's live rows and counters."""
-    import numpy as np
-
-    problems = _outcome_problems(res, ref)
-    for name in ("batches", "emitted", "pending"):
-        if getattr(res, name) != getattr(ref, name):
-            problems.append(f"{name}: {getattr(res, name)} vs "
-                            f"{getattr(ref, name)}")
-    if not np.array_equal(res.word_counts, ref.word_counts):
-        problems.append("word_counts differ")
-    got = live_rows(res.raw["final_queue"])
-    # The yardsticks are compared many times: their rows are read once.
-    want = ref.raw.get("live_rows")
+    sequence (:func:`result_arrays`: state, the counters, the word
+    histogram, ``final_time`` and the final queue's live rows and
+    counters)."""
+    # The yardsticks are compared many times: their outcome is read once.
+    want = ref.raw.get("outcome")
     if want is None:
-        want = ref.raw["live_rows"] = live_rows(ref.raw["final_queue"])
-    for name in got._fields:
-        if not np.array_equal(getattr(got, name), getattr(want, name)):
-            problems.append(f"final queue {name} differs")
-    return problems
+        want = ref.raw["outcome"] = result_arrays(ref)
+    return arrays_problems(result_arrays(res), want, "outcome")
 
 
 def _steps(res, card_s, counts, every, single=None,
@@ -2308,8 +2349,10 @@ def run_queue_modes(device_name: str, phold_res, phold_counts):
 
 
 def run_sharded(device_name: str, base, base_counts, hot, admit,
-                stream_a) -> None:
-    """Phase 5i (a)-(d)."""
+                stream_a) -> dict:
+    """Phase 5i (a)-(d); returns (a)'s and (b)'s outcomes
+    (:func:`result_arrays`), super-steps/s and counts, the yardsticks of
+    phase devices."""
     from repro_torch.serving import scenarios
 
     # (a) PHOLD at SHARDS shards, validated, against 5h's tiered3 run.
@@ -2330,6 +2373,7 @@ def run_sharded(device_name: str, base, base_counts, hot, admit,
           **_steps(res, card_s, counts, every, (base, base_counts),
                    setup_s),
           bit_identical_to_tiered3=True)
+    serial = {"a": (result_arrays(res), res.batches / card_s, counts)}
     del res
 
     # (b) FUSED_SHARDS shards under fused.
@@ -2357,6 +2401,7 @@ def run_sharded(device_name: str, base, base_counts, hot, admit,
           **_steps(res, card_s, counts, every, (base, base_counts),
                    setup_s),
           bit_identical_to_tiered3=True)
+    serial["b"] = (result_arrays(res), res.batches / card_s, counts)
     del res
 
     # (c) the closed admission scenario at SHARDS shards.
@@ -2400,6 +2445,7 @@ def run_sharded(device_name: str, base, base_counts, hot, admit,
           **_steps(res, card_s, counts, every, (single, single_counts),
                    setup_s),
           bit_identical_to_single=True)
+    return serial
 
 
 # ---------------------------------------------------------------------------
@@ -3582,6 +3628,321 @@ def run_stacked(device_name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5j2: the sharded engine's placement="devices"
+# ---------------------------------------------------------------------------
+
+DEVICES_RANKS = 4          # case (b): four ranks on the one card over gloo
+DEVICES_FUSED_RANKS = 2    # case (c): two ranks under fused, checkpointed
+DEVICES_TIMEOUT = 300      # seconds a case's ranks may take, start-up too
+
+
+def _devices_collectives(counts, batches, validate: bool) -> list:
+    """Collectives a run of ``batches`` super-steps makes, and what they
+    must be: 2 a super-step (3 validated), plus the first guard gather,
+    the result's occupancy gather and, validated, the entry audit's."""
+    want = (3 if validate else 2) * batches + (3 if validate else 2)
+    got = counts.get("collectives", 0)
+    return [] if got == want else [
+        f"{got} collectives in {batches} super-steps, expected {want}"]
+
+
+def _rank_fields(records: list, serial_steps_per_s: float) -> dict:
+    """The per-rank numbers of a case's line, rank by rank."""
+    def each(fn):
+        return json.dumps([fn(r) for r in records], separators=(",", ":"))
+
+    b = records[0]["batches"]
+    return dict(
+        card_s=each(lambda r: round(r["card_s"], 3)),
+        setup_s=each(lambda r: round(r["setup_s"], 3)),
+        steps_per_s=each(lambda r: round(b / r["card_s"], 1)),
+        ratio_to_serial=each(
+            lambda r: round(b / r["card_s"] / serial_steps_per_s, 4)),
+        loop_syncs_per_step=each(
+            lambda r: round(r["counts"].get("loop_syncs", 0) / b, 4)),
+        host_syncs_per_step=each(
+            lambda r: round(r["counts"]["host_syncs"] / b, 4)),
+        collectives_per_step=each(
+            lambda r: round(r["counts"].get("collectives", 0) / b, 4)),
+        launches=each(lambda r: r["launches"]),
+        peak_mb=each(lambda r: r["peak_mb"]))
+
+
+def devices_rank(rank: str, world: str, port: str, case: str, out: str,
+                 hot: str) -> None:
+    """A rank of phase devices (b) or (c), in a child process: PHOLD at
+    the smoke's sharded size, one shard queue this rank, over a gloo
+    group of ``world`` ranks on the one card; the kernels are loaded from
+    the build directory.  Writes its numbers to ``out``; rank 0 also the
+    gathered outcome.  (c) then crashes a checkpointed run after its
+    first segment and resumes it through ``place_queue``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.examples import phold
+    from repro_torch.testing.faults import SimulatedCrash
+
+    rank, world = int(rank), int(world)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=DEVICES_TIMEOUT))
+    try:
+        kw = (dict(validate="cheap") if case == "b" else
+              dict(dispatch_mode="fused", hot_words=json.loads(hot),
+                   **FUSED_SHARD_TIERS))
+        t0 = time.perf_counter()
+        sim = phold.build_program(
+            num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+            capacity=PHOLD_CAPACITY).build(
+                backend="device", shards=world, placement="devices", **kw)
+        setup_s = time.perf_counter() - t0
+        state = phold.initial_state(PHOLD_LPS, "cuda")
+        # Set up while the parent runs the cases before this one; run
+        # when it says so, so that no two cases share the card.
+        go = os.path.join(out, f"{case}.go")
+        while not os.path.exists(go):
+            if time.perf_counter() - t0 > DEVICES_TIMEOUT:
+                raise RuntimeError(f"no {go} in {DEVICES_TIMEOUT} s")
+            time.sleep(0.05)
+        torch.cuda.reset_peak_memory_stats()
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        res, card_s, every, counts = drive(sim, state,
+                                           max_batches=MODES_BATCHES)
+        record = dict(rank=rank, device=str(sim.engine.device),
+                      batches=res.batches, card_s=card_s, setup_s=setup_s,
+                      launches=every, counts=counts,
+                      fault_word=res.fault_word,
+                      peak_mb=round(torch.cuda.max_memory_allocated() / 2**20
+                                    - base_mb, 1))
+        got = result_arrays(res)
+        if case == "c":
+            ckpt = os.path.join(out, "ckpt_c")
+            every_seg = MODES_BATCHES // 2
+
+            def crash(seg, *_):
+                if seg == 1:
+                    raise SimulatedCrash("injected crash after segment 1")
+
+            try:
+                sim.run(state, max_batches=MODES_BATCHES,
+                        checkpoint_every=every_seg, checkpoint_dir=ckpt,
+                        _segment_hook=crash)
+            except SimulatedCrash:
+                pass
+            else:
+                raise RuntimeError("the injected crash never fired")
+            resumed, r_s, r_every, r_counts = drive(
+                sim, state, max_batches=MODES_BATCHES,
+                checkpoint_every=every_seg, checkpoint_dir=ckpt,
+                resume_from="latest")
+            record.update(resumed_s=r_s, resumed_launches=r_every,
+                          resumed_counts=r_counts,
+                          resumed_problems=arrays_problems(
+                              result_arrays(resumed), got, "resumed"))
+        if rank == 0:
+            np.savez(os.path.join(out, f"{case}.npz"), **got)
+        with open(os.path.join(out, f"{case}_rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_devices_ranks(case: str, world: int, out: str, hot) -> dict:
+    """``world`` ranks of :func:`devices_rank`, each a child process,
+    started now: they set up, then wait for :func:`finish_devices_ranks`."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    # One intra-op thread a rank: the ranks share the host's cores.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.devices_rank(*sys.argv[2:])")
+    logs = [open(os.path.join(out, f"{case}_rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), str(r), str(world),
+         str(port), case, out, json.dumps(hot)], cwd=str(ROOT), env=env,
+        stdout=log, stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
+    return dict(case=case, world=world, out=out, procs=procs, logs=logs)
+
+
+def stop_devices_ranks(ranks: dict) -> None:
+    for p, log in zip(ranks["procs"], ranks["logs"]):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def finish_devices_ranks(ranks: dict) -> tuple:
+    """Let the ranks run, wait for them; returns each rank's record and
+    rank 0's outcome."""
+    import numpy as np
+
+    case, world, out = ranks["case"], ranks["world"], ranks["out"]
+    with open(os.path.join(out, f"{case}.go"), "w"):
+        pass
+    t0 = time.perf_counter()
+    try:
+        for p in ranks["procs"]:
+            p.wait(timeout=max(1.0, DEVICES_TIMEOUT
+                               - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        raise PhaseError(f"devices {case}: ranks not done in "
+                         f"{DEVICES_TIMEOUT} s") from None
+    finally:
+        stop_devices_ranks(ranks)
+    for r, p in enumerate(ranks["procs"]):
+        if p.returncode != 0:
+            with open(os.path.join(out, f"{case}_rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            raise PhaseError(f"devices {case}: rank {r} exit "
+                             f"{p.returncode}: {tail}")
+    records = []
+    for r in range(world):
+        with open(os.path.join(out, f"{case}_rank{r}.json")) as f:
+            records.append(json.load(f))
+    with np.load(os.path.join(out, f"{case}.npz")) as npz:
+        got = {k: npz[k] for k in npz.files}
+    return records, got
+
+
+def _rank_problems(records: list, want_front: int, serial_loop: int,
+                   validate: bool) -> list:
+    """Per rank: ``front_merge`` once a super-step, ``window_extract``
+    never, fault word 0, at least 4 host reads a super-step and no more
+    than the serial run's (which reads every shard's flags and rare
+    paths), and the collectives of :func:`_devices_collectives`."""
+    problems = []
+    for r in records:
+        b = r["batches"]
+        label = f"rank {r['rank']}"
+        problems += _launch_want(r["launches"], {"front_merge": want_front},
+                                 label)
+        if r["fault_word"] != 0:
+            problems.append(f"{label}: fault word {r['fault_word']}")
+        loop = r["counts"].get("loop_syncs", 0)
+        if not 4 * b <= loop <= serial_loop:
+            problems.append(f"{label}: {loop} loop reads in {b} super-steps"
+                            f" (serial: {serial_loop})")
+        problems += [f"{label}: {p}" for p in
+                     _devices_collectives(r["counts"], b, validate)]
+    return problems
+
+
+def devices_one_rank(base, base_counts) -> dict:
+    """Phase devices (a): ``shards=1, placement="devices"`` in this
+    process over an NCCL group of one rank, beside the serial engine at
+    one shard, each held to phase queue_modes' tiered3 run."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    serial, _, serial_s, _, serial_counts = run_phold_built(
+        "cuda", MODES_BATCHES, shards=1)
+    problems = rows_problems(serial, base)
+    del serial
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        # NCCL builds its communicator at the first collective: here,
+        # outside the timed run.
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+        res, setup_s, card_s, every, counts = run_phold_built(
+            "cuda", MODES_BATCHES, shards=1, placement="devices")
+        problems += rows_problems(res, base) + _launch_want(
+            every, {"front_merge": res.batches}, "devices a")
+        problems += _devices_collectives(counts, res.batches, False)
+        if not res.raw["final_queue"].placed:
+            problems.append("the final queue is not placed")
+        loop = counts.get("loop_syncs", 0)
+        if not 4 * res.batches <= loop <= serial_counts["loop_syncs"]:
+            problems.append(f"{loop} loop reads in {res.batches} "
+                            "super-steps")
+        fields = _steps(res, card_s, counts, every, (base, base_counts),
+                        setup_s)
+    finally:
+        dist.destroy_process_group()
+    if problems:
+        raise PhaseError("devices a: " + "; ".join(problems))
+    return dict(fields, collectives_per_step=(
+        f"{counts['collectives'] / res.batches:.4f}"),
+        ratio_to_serial=f"{serial_s / card_s:.4f}",
+        serial_steps_per_s=f"{res.batches / serial_s:.1f}")
+
+
+def devices_case(ranks: dict, want: dict, serial_steps: float,
+                 serial_counts: dict, validate: bool) -> None:
+    """Phase devices (b) or (c): run the started ranks, hold rank 0's
+    outcome to the serial run's, check and print each rank's numbers."""
+    case, world = ranks["case"], ranks["world"]
+    records, got = finish_devices_ranks(ranks)
+    b = records[0]["batches"]
+    problems = arrays_problems(got, want, "outcome")
+    problems += _rank_problems(records, b, serial_counts["loop_syncs"],
+                               validate)
+    if case == "c":
+        for r in records:
+            problems += [f"rank {r['rank']}: {p}"
+                         for p in r["resumed_problems"]]
+            problems += _launch_want(
+                r["resumed_launches"], {"front_merge": b - MODES_BATCHES // 2},
+                f"rank {r['rank']} resumed")
+    if problems:
+        raise PhaseError(f"devices {case}: " + "; ".join(problems))
+    extra = (dict(validate="cheap") if case == "b" else dict(
+        dispatch_mode="fused",
+        tiers=json.dumps(FUSED_SHARD_TIERS, separators=(",", ":")),
+        checkpoint_every=MODES_BATCHES // 2, resumed_after=1,
+        resumed_s=json.dumps([round(r["resumed_s"], 3) for r in records])))
+    phase("devices", case=case, backend="gloo", ranks=world, cards=1,
+          devices=json.dumps(sorted({r["device"] for r in records})),
+          batches=b, **extra, **_rank_fields(records, serial_steps),
+          serial_steps_per_s=f"{serial_steps:.1f}",
+          bit_identical_to_serial=True,
+          nccl_multi_rank="not run: NCCL at N > 1 needs N cards")
+
+
+def run_devices(base, base_counts, serial, hot) -> None:
+    """Phase 5j2: (a) one rank over NCCL, in this process; (b) four ranks
+    on the one card over gloo, validated, held to phase sharded (a)'s
+    serial run; (c) two ranks under fused on small tiers, a checkpoint
+    resumed through ``place_queue``, held to phase sharded (b)'s."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_devices_") as out:
+        # (b) and (c)'s ranks start now and set up during (a).
+        started = [start_devices_ranks(case, world, out, hot)
+                   for case, world in (("b", DEVICES_RANKS),
+                                       ("c", DEVICES_FUSED_RANKS))]
+        try:
+            a = devices_one_rank(base, base_counts)
+            phase("devices", case="a", backend="nccl", ranks=1, cards=1,
+                  lps=PHOLD_LPS, capacity_per_shard=PHOLD_CAPACITY, **a,
+                  bit_identical_to_tiered3=True)
+            for ranks, (want, serial_steps, serial_counts), validate in zip(
+                    started, (serial["a"], serial["b"]), (True, False)):
+                devices_case(ranks, want, serial_steps, serial_counts,
+                             validate)
+        finally:
+            for ranks in started:
+                stop_devices_ranks(ranks)
+    phase("devices_total", seconds=f"{time.perf_counter() - t_phase:.3f}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 5k: the §IV.A wireless example
 # ---------------------------------------------------------------------------
 
@@ -4529,10 +4890,11 @@ def run_phases(card: str, children: list, host_child: dict) -> int:
     base, base_counts = run_queue_modes("cuda", res, counts)
     phase("queue_modes_total", seconds=f"{time.perf_counter() - t0:.3f}")
     t0 = time.perf_counter()
-    run_sharded("cuda", base, base_counts, phold_hot_words(res), admit,
-                stream_a)
+    serial = run_sharded("cuda", base, base_counts, phold_hot_words(res),
+                         admit, stream_a)
     phase("sharded_total", seconds=f"{time.perf_counter() - t0:.3f}")
     run_stacked("cuda")
+    run_devices(base, base_counts, serial, phold_hot_words(res))
     del base, admit, stream_a
     gc.collect()
     attn_launches, serve_ms = run_serve()

@@ -16,7 +16,7 @@ on the PyTorch port.
 to run the same program on the CPU.  The port has :mod:`repro.api`'s
 device backend: every queue mode (``queue_mode="tiered3"|"tiered"|
 "flat"|"reference"``), the sharded engine (``shards=N``, ``shard_fn=``,
-``placement="serial"``), the three dispatch modes (``switch``,
+``placement="serial"|"devices"``), the three dispatch modes (``switch``,
 ``masked``, and ``fused`` with ``hot_words``), the entity-parallel run
 path (``@prog.entity_handler``), the invariant auditor
 (``validate="cheap"|"full"``), the overflow policies
@@ -28,8 +28,9 @@ the host backend, ``build(backend="host", scheduler="conservative"|
 each batch word with ``torch.compile`` unless ``jit_handlers=False``.
 The static analyzer is :func:`analyze` (``build(check="warn"|
 "error")``, ``hot_words="static"``, ``python -m repro_torch.analysis
-module:callable``); ``placement="devices"`` (more than one GPU) is not
-ported yet.
+module:callable``).  ``build(shards=N, placement="devices")`` runs one
+shard queue a rank over ``torch.distributed`` (a default process group
+of N ranks: gloo on the CPU, NCCL on N cards).
 
 Open-system runs stream arrivals from a host-side source:
 ``sim.run(state0, arrivals=PoissonSource(...))`` (see

@@ -19,6 +19,14 @@ as JAX's carry holds them: the engine's host counters (``batches``,
 ``events``) are such ints.  bf16 tensors are stored as their raw uint16
 bits with logical dtype ``bfloat16``.
 
+A ``DTensor`` leaf (the sharded engine's placed queue) is saved whole:
+every rank of its mesh calls ``save``/``save_async`` with the same tree,
+each placed leaf is gathered (a collective), rank 0 writes, and every
+rank waits for the write at a barrier (in ``save``, or in the next
+``wait``), so no rank restores before the files exist.  A restore into
+such a template gives whole plain tensors, which the engine's
+``place_queue`` re-places.
+
 ``save_async`` takes the host copy on the caller's thread (for a CUDA
 tensor that waits for the device), so the snapshot is consistent even
 when the caller then updates the tensors in place; only the file write
@@ -39,6 +47,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.tree import key_leaves, tree_unflatten
 
@@ -54,8 +63,26 @@ def _leaf_paths(tree) -> list[tuple[str, Any]]:
     return out
 
 
+def _placed(leaf) -> bool:
+    return hasattr(leaf, "device_mesh")  # a DTensor
+
+
+def _whole(leaf) -> torch.Tensor:
+    """A placed leaf's whole tensor on this rank (a collective)."""
+    from torch.distributed.tensor import Shard
+
+    if tuple(leaf.placements) == (Shard(0),):
+        from repro_torch.core.queue import all_gather_rows
+
+        return all_gather_rows(leaf.to_local(),
+                               leaf.device_mesh.get_group())
+    return leaf.full_tensor()
+
+
 def _to_host(leaf):
     """A host numpy copy of one leaf, and its logical dtype name."""
+    if _placed(leaf):
+        leaf = _whole(leaf)
     if torch.is_tensor(leaf):
         # A copy even for a CPU tensor: the caller may update it in place
         # while the writer thread runs.
@@ -96,25 +123,39 @@ class CheckpointManager:
         self.keep_last = keep_last
         self._thread: Optional[threading.Thread] = None
         self._exc: Optional[BaseException] = None
+        # The process group of a collective save not yet waited for.
+        self._group = None
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree) -> str:
-        return self._write(step, self._host_leaves(tree))
+        host, group = self._host_leaves(tree)
+        path = os.path.join(self.directory, f"step_{step:010d}")
+        if group is None or dist.get_rank(group) == 0:
+            path = self._write(step, host)
+        if group is not None:
+            dist.barrier(group)
+        return path
 
     def save_async(self, step: int, tree) -> None:
         self.wait()  # raises here if the previous async write failed
         # The host copy happens NOW (a consistent snapshot); the disk
         # writes happen on the thread.
-        host = self._host_leaves(tree)
-        self._thread = threading.Thread(
-            target=self._write_guarded, args=(step, host), daemon=True)
-        self._thread.start()
+        host, group = self._host_leaves(tree)
+        self._group = group
+        if group is None or dist.get_rank(group) == 0:
+            self._thread = threading.Thread(
+                target=self._write_guarded, args=(step, host), daemon=True)
+            self._thread.start()
 
     @staticmethod
-    def _host_leaves(tree) -> list:
-        return [(fname, *_to_host(leaf))
-                for fname, leaf in _leaf_paths(tree)]
+    def _host_leaves(tree) -> tuple:
+        """Every leaf's host copy, and the process group of the tree's
+        placed leaves (``None`` when it has none)."""
+        leaves = _leaf_paths(tree)
+        group = next((leaf.device_mesh.get_group() for _, leaf in leaves
+                      if _placed(leaf)), None)
+        return [(fname, *_to_host(leaf)) for fname, leaf in leaves], group
 
     def _write_guarded(self, step: int, host) -> None:
         try:
@@ -126,6 +167,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        group, self._group = self._group, None
+        if group is not None:
+            dist.barrier(group)
         if self._exc is not None:
             exc, self._exc = self._exc, None
             raise exc

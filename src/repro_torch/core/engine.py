@@ -120,6 +120,7 @@ from repro_torch.core.queue import (
     tiered_queue_has_pending,
     tiered_queue_next_time,
     tiered_queue_occupancy,
+    to_local,
 )
 from repro_torch.core.scheduler import (
     ConservativeScheduler,
@@ -414,9 +415,19 @@ class DeviceEngine:
         rows[:, 2:] = args[spill]
         return q, rows, spill
 
+    def place_queue(self, queue):
+        """Re-place a restored queue's leaves for this engine: the
+        single-queue engines' as they are; the sharded engine's
+        ``placement="devices"`` places them on its mesh."""
+        return queue
+
     def queue_occupancy(self, queue) -> torch.Tensor:
         """Real pending events (``size`` also counts ghosts)."""
         return _QUEUE_OPS[self.queue_mode][3](queue)
+
+    def queue_next_time(self, queue) -> torch.Tensor:
+        """The earliest pending timestamp (``inf`` when empty)."""
+        return _QUEUE_OPS[self.queue_mode][1](queue)
 
     def absorb_rows(self, queue, rows, seqs, insert=None):
         """Absorb externally keyed rows (stream arrivals, reabsorbed
@@ -642,11 +653,11 @@ class DeviceEngine:
         # The reads the super-steps made (the guard's last read included),
         # apart from those of the segment boundaries around them.
         COUNTS["loop_syncs"] += COUNTS["host_syncs"] - syncs0
-        stats["dropped"] = queue.dropped
+        # A placed queue's counter is replicated: this rank's copy.
+        dropped = stats["dropped"] = to_local(queue.dropped)
         if error or validate_on:
             dropped, word = host_list(torch.stack([
-                queue.dropped,
-                stats["fault_word"] if validate_on else queue.dropped]))
+                dropped, stats["fault_word"] if validate_on else dropped]))
             if error and dropped > 0:
                 raise EngineFaultError(
                     FAULT_OVERFLOW, stats["batches"],

@@ -40,10 +40,13 @@ the run, block by block, under the same fence.  A closed run without
 these knobs is one engine call.
 
 ``build(queue_mode=...)`` takes every queue mode of the JAX device
-backend, and ``build(shards=N)`` the sharded engine with
-``placement="serial"``; a sharded run is segmented as a single-queue
-one is (checkpoints, streamed arrivals), except ``overflow="spill"``,
-which JAX's sharded engine refuses too.
+backend, and ``build(shards=N)`` the sharded engine, with
+``placement="serial"`` (every shard in this process) or
+``placement="devices"`` (one process a shard over ``torch.distributed``:
+every rank of a default process group of N ranks builds and runs the
+same program); a sharded run is segmented as a single-queue one is
+(checkpoints, streamed arrivals), except ``overflow="spill"``, which
+JAX's sharded engine refuses too.
 
 ``build(backend="host", scheduler=, composer=)`` is the paper's own
 runtime: a Python event loop over a heap (:mod:`repro_torch.core.
@@ -56,8 +59,7 @@ emitter's time on the host.
 ``build(check="warn"|"error")`` runs the static analyzer
 (:mod:`repro_torch.analysis`) over the model before a single event
 executes, and ``hot_words="static"`` takes the fused hot set from its
-reachable compositions.  Not ported yet: ``placement="devices"``, which
-needs more than one GPU.
+reachable compositions.
 """
 
 from __future__ import annotations
@@ -505,11 +507,14 @@ class SimProgram:
         (``"tiered3"``, ``"tiered"``, ``"flat"``, ``"reference"``);
         ``shards=N`` (with an optional ``shard_fn``) runs N tiered3
         queues under :class:`repro_torch.core.sharded.ShardedDeviceEngine`,
-        bit-identical to one queue.  ``hot_words`` (``dispatch_mode=
-        "fused"`` only) is a sequence of words, each a sequence of type
-        names or ids, or ``"static"``: the first 32 compositions the
-        static analyzer finds reachable, in dense-code order (needs
-        :meth:`example_state`).
+        bit-identical to one queue; ``placement="devices"`` runs one
+        shard a rank and needs a default process group of N ranks
+        (``torch.distributed.init_process_group``: gloo on the CPU,
+        NCCL on N cards), else raises :class:`ValueError`.
+        ``hot_words`` (``dispatch_mode="fused"`` only) is a sequence of
+        words, each a sequence of type names or ids, or ``"static"``:
+        the first 32 compositions the static analyzer finds reachable,
+        in dense-code order (needs :meth:`example_state`).
 
         ``backend="host"``: ``scheduler`` (``"conservative"``,
         ``"speculative"``, ``"unbatched"``) and ``composer`` (``"lazy"``,
@@ -529,8 +534,7 @@ class SimProgram:
         run's own initial state before dispatching anything.
 
         A knob of the other backend raises :class:`ValueError`, as in
-        JAX; what the port does not have yet (``placement="devices"``)
-        raises :class:`NotImplementedError`.
+        JAX.
         """
         self.freeze()
         if check not in _CHECK_MODES:
@@ -806,11 +810,7 @@ class CompiledSim:
     def _queue_next_time(self, queue) -> float:
         """Earliest pending time (a host float), single or sharded: one
         host read either way."""
-        from repro_torch.core.queue import tiered3_queue_next_time
-
-        shards = getattr(queue, "shards", (queue,))
-        return float(host_read(torch.min(torch.stack(
-            [tiered3_queue_next_time(q) for q in shards]))))
+        return float(host_read(self.engine.queue_next_time(queue)))
 
     @staticmethod
     def _save_checkpoint(manager, step, state, queue, stats,
@@ -877,6 +877,9 @@ class CompiledSim:
                 "stats": eng.initial_run_stats(),
             }, step)
             state, queue = restored["state"], restored["queue"]
+            # Restored leaves are whole; a placed engine (sharded
+            # placement="devices") re-places them, each rank its shard.
+            queue = eng.place_queue(queue)
             stats = restored["stats"]
             pool_rows = np.asarray(
                 manager.restore_leaf("pool_rows", at_step), np.float32)

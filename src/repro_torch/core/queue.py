@@ -132,6 +132,27 @@ def host_list(t: torch.Tensor) -> list:
     return t.tolist()
 
 
+def to_local(x: torch.Tensor) -> torch.Tensor:
+    """This rank's tensor of a ``DTensor`` (its shard's slice, or its
+    copy of a replicated value); a plain tensor as it is."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` of ``group``, concatenated along dim 0 in rank
+    order (one counted collective, ``COUNTS["collectives"]``): the
+    list form of ``all_gather``, which NCCL and gloo both take for CUDA
+    tensors.  Every rank of ``group`` must call it with a tensor of the
+    same shape and dtype."""
+    import torch.distributed as dist
+
+    COUNTS["collectives"] += 1
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts)
+
+
 # ---------------------------------------------------------------------------
 # Small helpers shared with the kernels' plain versions
 # ---------------------------------------------------------------------------

@@ -47,11 +47,38 @@ is ported as data: :func:`stack_sharded_queue`, the
 ``tiered3_stacked_*`` helpers of :mod:`repro_torch.core.queue`,
 :func:`~repro_torch.core.validate.stacked_sharded_fault_bits`, and the
 engine's occupancy, fault word and absorb, which take either layout.
-``placement="devices"`` (one shard a device, JAX's ``shard_map``), the
-only loop that runs on the stacked layout, needs more than one GPU and
-is not ported (ROADMAP D1): :func:`place_stacked_queue` and a run on a
-stacked queue raise.  Neither is ``overflow="spill"``, which JAX's
-sharded engine refuses too.
+``overflow="spill"`` is refused, as JAX's sharded engine refuses it.
+
+``placement="devices"`` (JAX's ``shard_map`` over a 1-D ``"shards"``
+mesh, DESIGN.md §12) runs one process a shard over
+``torch.distributed``: the caller starts ``shards`` ranks in one default
+process group (NCCL on several cards, gloo on the CPU or for several
+ranks on one card) and every rank builds the same engine and runs the
+same program.  :func:`place_stacked_queue` places the stacked queue as
+``DTensor`` leaves, ``Shard(0)`` on the mesh, so each rank holds its own
+shard's slice only, and the global counters ``Replicate()``.  Each rank
+runs the serial super-step on its own squeezed :class:`~repro_torch.
+core.queue.Tiered3DeviceQueue`:
+
+* its own peek (its own refill flag read), then ONE ``all_gather`` of
+  the k-row head slabs (``ts``, ``tys``, ``args`` and ``seqs`` packed
+  into one int32 slab, so the gather is bit-exact), shard-major, which
+  reproduces the serial path's concatenation;
+* the merge, the window, the dispatch, the global seq and ghost rule
+  and the stats REPLICATED: every rank computes them from the same
+  gathered slabs, so they agree bit for bit without another collective;
+* its own pop of ``take & (src == my)`` and its own fill of
+  ``insert & (dest == my)`` (its own pre-flush flag read);
+* ONE more ``all_gather`` of the guard summaries (pending, next time,
+  and under the admission fence the head key), from which every rank
+  decides the next guard alike: a rank that left the loop alone would
+  deadlock the others.  Under ``validate``, one more gather of the
+  fault words and occupancies.
+
+So a common super-step reads the host four times a rank, as the serial
+path does, and makes two collectives (three validated), counted in
+``COUNTS["collectives"]``.  A failed collective is not caught.  The
+state is replicated: every rank holds the whole model state.
 """
 
 from __future__ import annotations
@@ -76,6 +103,7 @@ from repro_torch.core.queue import (
     _small_lex_perm,
     _stacked_shard,
     _take,
+    all_gather_rows,
     host_list,
     host_read,
     i32_sat,
@@ -91,6 +119,8 @@ from repro_torch.core.queue import (
     tiered3_queue_pop_prefix,
     tiered3_queue_refill_flag,
     tiered3_queue_to_flat,
+    tiered3_stacked_absorb_rows,
+    to_local,
     window_prefix_mask,
 )
 
@@ -102,9 +132,6 @@ __all__ = [
     "sharded_queue_to_flat",
     "stack_sharded_queue",
 ]
-
-_D1 = ("one shard a device, which needs more than one GPU, is not ported "
-       "to repro_torch (ROADMAP D1)")
 
 
 class ShardedQueue(NamedTuple):
@@ -127,10 +154,14 @@ class ShardedQueue(NamedTuple):
         return self.shards[0].capacity
 
 
-def sharded_queue_to_flat(sq: ShardedQueue) -> FlatQueue:
+def sharded_queue_to_flat(sq) -> FlatQueue:
     """Canonical flat view of a sharded queue, on the host: every
     shard's live events sorted by the global ``(time, seq)`` key, with
-    the GLOBAL counters, comparable with a single queue's view."""
+    the GLOBAL counters, comparable with a single queue's view.  A
+    placed queue is gathered first (:meth:`StackedShardedQueue.gathered`),
+    a collective: every rank of its mesh calls this."""
+    if isinstance(sq, StackedShardedQueue):
+        sq = sq.gathered()
     parts = []
     for q in sq.shards:
         flat = tiered3_queue_to_flat(q)
@@ -147,12 +178,21 @@ class StackedShardedQueue(NamedTuple):
     :class:`ShardedQueue` kept as scalars.  ``shards``/``shard(i)``
     give per-shard views, so every consumer written against
     :class:`ShardedQueue` (``sharded_queue_to_flat``, the full audit)
-    takes either layout."""
+    takes either layout.
+
+    Placed (:func:`place_stacked_queue`), the leaves are ``DTensor``s:
+    each rank holds its own shard's slice of ``q`` and a copy of each
+    counter.  Then :meth:`gathered`, ``shards`` and ``shard(i)`` gather
+    every rank's slice, a collective that every rank must call."""
 
     q: Tiered3DeviceQueue
     size: torch.Tensor
     next_seq: torch.Tensor
     dropped: torch.Tensor
+
+    @property
+    def placed(self) -> bool:
+        return hasattr(self.q.f_times, "device_mesh")
 
     @property
     def num_shards(self) -> int:
@@ -164,10 +204,25 @@ class StackedShardedQueue(NamedTuple):
 
     @property
     def shards(self) -> tuple:
-        return tuple(self.shard(i) for i in range(self.num_shards))
+        q = self.gathered().q
+        return tuple(_stacked_shard(q, i) for i in range(self.num_shards))
 
     def shard(self, i: int) -> Tiered3DeviceQueue:
-        return _stacked_shard(self.q, i)
+        return _stacked_shard(self.gathered().q, i)
+
+    def gathered(self) -> "StackedShardedQueue":
+        """The whole stacked queue on this rank, as plain tensors: every
+        leaf of a placed queue gathered from the ranks (one collective a
+        leaf, every rank must call it), the counters this rank's copies;
+        an unplaced queue as it is."""
+        if not self.placed:
+            return self
+        group = self.q.f_times.device_mesh.get_group("shards")
+        return StackedShardedQueue(
+            q=self.q._make(all_gather_rows(x.to_local(), group)
+                           for x in self.q),
+            size=to_local(self.size), next_seq=to_local(self.next_seq),
+            dropped=to_local(self.dropped))
 
 
 def stack_sharded_queue(sq: ShardedQueue) -> StackedShardedQueue:
@@ -176,10 +231,49 @@ def stack_sharded_queue(sq: ShardedQueue) -> StackedShardedQueue:
                                next_seq=sq.next_seq, dropped=sq.dropped)
 
 
-def place_stacked_queue(stq: StackedShardedQueue, mesh=None):
-    """JAX places a stacked queue on a ``"shards"`` device mesh, one
-    shard slice a device; that needs more than one GPU."""
-    raise NotImplementedError(f"place_stacked_queue: {_D1}")
+def _place_local(q: Tiered3DeviceQueue, size, next_seq, dropped,
+                 mesh) -> StackedShardedQueue:
+    """The placed queue of which this rank holds the squeezed shard
+    ``q`` and the global counters' values: no communication."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def rep(c):
+        return DTensor.from_local(to_local(c), mesh, [Replicate()],
+                                  run_check=False)
+
+    return StackedShardedQueue(
+        q=q._make(DTensor.from_local(x[None], mesh, [Shard(0)],
+                                     run_check=False) for x in q),
+        size=rep(size), next_seq=rep(next_seq), dropped=rep(dropped))
+
+
+def place_stacked_queue(stq: StackedShardedQueue,
+                        mesh) -> StackedShardedQueue:
+    """Place a stacked queue on the ``"shards"`` mesh: every leaf of
+    ``q`` a ``DTensor`` sharded along the shard axis (``Shard(0)``, JAX's
+    ``P("shards")``), so each rank keeps its own shard's slice only, on
+    the device of ``stq``'s leaves; the global counters replicated
+    (``Replicate()``, JAX's ``P()``).  Every rank calls it with the same
+    whole queue.  Also the re-placement hook after a checkpoint restore,
+    whose leaves are whole; a placed queue is returned as it is."""
+    if stq.placed:
+        return stq
+    if stq.num_shards != mesh.size():
+        raise ValueError(f"a stacked queue of {stq.num_shards} shards on a "
+                         f"mesh of {mesh.size()} ranks")
+    my = mesh.get_local_rank("shards")
+    # clone: the other shards' slices are freed with the whole leaves
+    return _place_local(stq.q._make(x[my].clone() for x in stq.q),
+                        stq.size, stq.next_seq, stq.dropped, mesh)
+
+
+class _Counters(NamedTuple):
+    """The global counters on a rank, as plain tensors (the loop's view
+    of a placed queue's replicated counters)."""
+
+    size: torch.Tensor
+    next_seq: torch.Tensor
+    dropped: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -188,7 +282,13 @@ class ShardedDeviceEngine(DeviceEngine):
     queue.  Preferred entry point: ``SimProgram.build(backend="device",
     shards=N)``.  Every :class:`DeviceEngine` knob applies per shard
     (each shard is a full ``capacity`` tiered3 queue of the same
-    geometry); ``queue_mode`` stays ``"tiered3"``."""
+    geometry); ``queue_mode`` stays ``"tiered3"``.
+
+    ``placement="devices"`` needs a default process group of exactly
+    ``shards`` ranks (:func:`repro_torch.launch.mesh.make_shard_mesh`);
+    every rank builds the engine and calls each of its methods alike.
+    ``device=None`` is then the rank's card
+    (:func:`~repro_torch.launch.mesh.shard_device`)."""
 
     shards: int = 2
     shard_fn: Callable | None = None
@@ -211,9 +311,14 @@ class ShardedDeviceEngine(DeviceEngine):
             raise ValueError(
                 f"placement must be 'serial' or 'devices', "
                 f"got {self.placement!r}")
+        self._mesh = None
         if self.placement == "devices":
-            raise NotImplementedError(
-                f"placement='devices': {_D1}; use placement='serial'")
+            from repro_torch.launch.mesh import make_shard_mesh, shard_device
+
+            self._mesh = make_shard_mesh(self.shards, device=self.device)
+            self.device = shard_device(self.device)
+            self._rank = self._mesh.get_local_rank("shards")
+            self._group = self._mesh.get_group("shards")
         super().__post_init__()
 
     @classmethod
@@ -253,11 +358,13 @@ class ShardedDeviceEngine(DeviceEngine):
         return torch.remainder(dest, self.shards).to(torch.int32)
 
     # -- queue construction -------------------------------------------------
-    def initial_queue(self, events) -> ShardedQueue:
+    def initial_queue(self, events):
         """Partition the seed under the GLOBAL seq and overflow rules:
         event ``i`` keeps seq ``i`` and is a ghost iff ``i >=
         capacity``; THEN the survivors are routed, so the seed equals
-        the single queue's whatever the partition."""
+        the single queue's whatever the partition.  Under
+        ``placement="devices"`` each rank builds its own shard only and
+        returns the placed :class:`StackedShardedQueue`."""
         events = list(events)
         n = len(events)
         C = self.capacity
@@ -271,61 +378,160 @@ class ShardedDeviceEngine(DeviceEngine):
                 args[i] = np.asarray(e[2], np.float32)
         dest = self._shard_of(torch.from_numpy(types),
                               torch.from_numpy(args)).numpy()
-        shard_qs = []
-        for s in range(self.shards):
+
+        def shard_queue(s):
             mine = np.flatnonzero(dest == s).astype(np.int32)
-            shard_qs.append(tiered3_queue_from_columns(
+            return tiered3_queue_from_columns(
                 times[mine], types[mine], args[mine], mine, C,
                 front_cap=self.front_cap, stage_cap=self.stage_cap,
-                num_runs=self.num_runs, device=self.device))
+                num_runs=self.num_runs, device=self.device)
 
         def scalar(v):
             return torch.tensor(v, dtype=torch.int32, device=self.device)
 
-        return ShardedQueue(shards=tuple(shard_qs), size=scalar(n),
-                            next_seq=scalar(n), dropped=scalar(n - m))
+        if self._mesh is not None:
+            return _place_local(shard_queue(self._rank), scalar(n),
+                                scalar(n), scalar(n - m), self._mesh)
+        return ShardedQueue(
+            shards=tuple(shard_queue(s) for s in range(self.shards)),
+            size=scalar(n), next_seq=scalar(n), dropped=scalar(n - m))
+
+    def place_queue(self, queue):
+        """Re-place a queue on this engine's mesh (a restored
+        checkpoint's leaves are whole, on the rank's device); any other
+        queue as it is."""
+        if self._mesh is not None and isinstance(queue, StackedShardedQueue):
+            return place_stacked_queue(queue, self._mesh)
+        return queue
 
     # -- run accounting -----------------------------------------------------
+    def _shard_summary(self, queue, fn) -> torch.Tensor:
+        """``fn`` of every shard's queue, stacked in shard order: a
+        placed queue's from one gather of each rank's own."""
+        if isinstance(queue, StackedShardedQueue):
+            vals = fn(queue.q._make(to_local(x) for x in queue.q))
+            if queue.placed:
+                vals = all_gather_rows(vals, self._group)
+            return vals
+        return torch.stack([fn(q) for q in queue.shards])
+
     def queue_occupancy(self, queue) -> torch.Tensor:
-        """Real pending events summed across the shards."""
-        occ = [tiered3_queue_occupancy(q) for q in queue.shards]
-        return torch.sum(torch.stack(occ)).to(torch.int32)
+        """Real pending events summed across the shards (a placed
+        queue's from one gather: every rank calls it)."""
+        return torch.sum(self._shard_summary(
+            queue, tiered3_queue_occupancy)).to(torch.int32)
+
+    def queue_next_time(self, queue) -> torch.Tensor:
+        """The earliest pending timestamp across the shards (a placed
+        queue's from one gather)."""
+        return torch.min(self._shard_summary(queue, tiered3_queue_next_time))
 
     def _cheap_fault_bits(self, queue) -> torch.Tensor:
+        if isinstance(queue, StackedShardedQueue):
+            return _validate.stacked_sharded_fault_bits(queue)
         return _validate.sharded_fault_bits(queue)
 
     def absorb_rows(self, sq, rows, seqs, insert=None):
         """Absorb stream-arrival rows where ``insert`` is set: route them
         like an exchange, absorb each shard's under the full lex key,
         and advance the GLOBAL counters (``size`` by the inserted
-        count, ``dropped`` untouched).  The caller guarantees the rows
-        fit globally."""
+        count, ``dropped`` untouched).  On a placed queue each rank
+        absorbs the rows routed to it into its own shard.  The caller
+        guarantees the rows fit globally."""
         rows = rows.to(torch.float32)
         seqs = seqs.to(torch.int32)
         valid = rows[:, 1] >= 0
         insert = valid if insert is None else insert & valid
         dest = self._shard_of(i32_sat(rows[:, 1]), rows[:, 2:])
-        n_ins = torch.sum(insert).to(torch.int32)
-        next_seq = torch.maximum(
-            sq.next_seq, torch.max(torch.where(insert, seqs + 1, 0)))
-        shard_qs = tuple(
-            tiered3_queue_absorb_rows(q, rows, seqs, insert=insert & (dest == i))
-            for i, q in enumerate(sq.shards))
-        out = ShardedQueue(shards=shard_qs, size=sq.size + n_ins,
-                           next_seq=next_seq, dropped=sq.dropped)
-        return (stack_sharded_queue(out)
-                if isinstance(sq, StackedShardedQueue) else out)
+        size = to_local(sq.size) + torch.sum(insert).to(torch.int32)
+        next_seq = torch.maximum(to_local(sq.next_seq),
+                                 torch.max(torch.where(insert, seqs + 1, 0)))
+        dropped = to_local(sq.dropped)
+        if not isinstance(sq, StackedShardedQueue):
+            return ShardedQueue(
+                shards=tuple(tiered3_queue_absorb_rows(
+                    q, rows, seqs, insert=insert & (dest == i))
+                    for i, q in enumerate(sq.shards)),
+                size=size, next_seq=next_seq, dropped=dropped)
+        if sq.placed:
+            q = tiered3_queue_absorb_rows(
+                _squeeze(sq.q), rows, seqs,
+                insert=insert & (dest == self._rank))
+            return _place_local(q, size, next_seq, dropped, self._mesh)
+        shard_ids = torch.arange(sq.num_shards, dtype=torch.int32,
+                                 device=dest.device)
+        return StackedShardedQueue(
+            q=tiered3_stacked_absorb_rows(
+                sq.q, rows, seqs,
+                insert[None, :] & (dest[None, :] == shard_ids[:, None])),
+            size=size, next_seq=next_seq, dropped=dropped)
 
-    # -- the loop -----------------------------------------------------------
+    # -- the loops ----------------------------------------------------------
+    def _merged_step(self, state, heads, csrc, g, stats, t_end, fenced):
+        """The global part of a super-step, alike under both placements:
+        the merge of the shards' ``N·k`` heads (``heads``: times, types,
+        args and seqs, shard-major; ``csrc`` their shards) and the exact
+        global window (one host read), the dispatch, and the global seq
+        and overflow accounting against the counters ``g``.  Returns
+        ``(state, emits, ts, n, code, popped, routed, seq_r, g')``:
+        ``popped`` the shard of each taken candidate (else -1), ``routed``
+        the destination of each inserted row (else -1), ``g'`` the
+        counters after the super-step."""
+        k = self.max_batch_len
+        T = len(self.registry)
+        cts, ctys, cargs, cseqs = heads
+        # 2. merge the N·k heads; the exact global window.
+        order = _small_lex_perm(cts, cseqs)[:k]
+        ts_c, tys_c, args_c, src_c = (cts[order], ctys[order],
+                                      cargs[order], csrc[order])
+        valid = tys_c >= 0
+        if fenced:
+            # Candidates at or past the fence form a suffix of the merged
+            # order: the take rule sees the queue end early.
+            seqs_c = cseqs[order]
+            valid = valid & ((ts_c < stats["bound_t"]) | (
+                (ts_c == stats["bound_t"]) & (seqs_c < stats["bound_seq"])))
+        la = _take(self._lookaheads, torch.clamp(tys_c, 0, T - 1))
+        wins = torch.where(valid, ts_c + la, INF)
+        take = window_prefix_mask(ts_c, wins, valid, t_end)
+        length = torch.sum(take).to(torch.int32)
+        ts = torch.where(take, ts_c, 0.0)
+        tys = torch.where(take, tys_c, 0)
+        args = torch.where(take[:, None], args_c, 0.0)
+        window = host_list(torch.cat([tys, length.reshape(1)]))
+        n = window[-1]
+        code = self.codec.encode(window[:n]) if n else 0
+
+        # 4. dispatch: the parent's path.
+        state, emits = self._dispatch_window(state, ts, args, window[:k], n,
+                                             code)
+
+        # 5. global seq and overflow accounting (the insert-time size is
+        # post-extract, as in the single queue), then the routing.
+        ty_r = i32_sat(emits[:, 1])
+        valid_r = ty_r >= 0
+        vrank = _prefix_rank(valid_r)
+        num_valid = torch.sum(valid_r).to(torch.int32)
+        size_mid = g.size - length
+        insert = valid_r & (size_mid + vrank < self.capacity)
+        num_insert = torch.sum(insert).to(torch.int32)
+        dest = self._shard_of(ty_r, emits[:, 2:])
+        return (state, emits, ts, n, code, torch.where(take, src_c, -1),
+                torch.where(insert, dest, -1), g.next_seq + vrank,
+                _Counters(size_mid + num_valid, g.next_seq + num_valid,
+                          g.dropped + (num_valid - num_insert)))
+
     def _super_steps(self, state, sq, stats, max_batches, t_end, fenced):
+        if self._mesh is not None:
+            return self._super_steps_devices(state, sq, stats, max_batches,
+                                             t_end, fenced)
         if isinstance(sq, StackedShardedQueue):
             # JAX runs a stacked queue only under its devices placement.
-            raise NotImplementedError(
-                f"a run on a StackedShardedQueue: {_D1}; run the "
-                "tuple-of-shards ShardedQueue")
+            raise ValueError(
+                "a StackedShardedQueue runs under placement='devices'; "
+                "run the tuple-of-shards ShardedQueue on this engine")
         k = self.max_batch_len
         N = self.shards
-        T = len(self.registry)
         validate_on = self.validate != "off"
         csrc = torch.repeat_interleave(
             torch.arange(N, dtype=torch.int32, device=self.device), k)
@@ -352,66 +558,110 @@ class ShardedDeviceEngine(DeviceEngine):
             peeked = [tiered3_queue_peek_front(q, k, refill=r)
                       for q, r in zip(qs, refill)]
             qs = [p[0] for p in peeked]
-            cts, ctys, cargs, cseqs = (torch.cat([p[j] for p in peeked])
-                                       for j in range(1, 5))
-
-            # 2. merge the N·k heads; the exact global window.
-            order = _small_lex_perm(cts, cseqs)[:k]
-            ts_c, tys_c, args_c, src_c = (cts[order], ctys[order],
-                                          cargs[order], csrc[order])
-            valid = tys_c >= 0
-            if fenced:
-                # Candidates at or past the fence form a suffix of the
-                # merged order: the take rule sees the queue end early.
-                seqs_c = cseqs[order]
-                valid = valid & ((ts_c < stats["bound_t"]) | (
-                    (ts_c == stats["bound_t"])
-                    & (seqs_c < stats["bound_seq"])))
-            la = _take(self._lookaheads, torch.clamp(tys_c, 0, T - 1))
-            wins = torch.where(valid, ts_c + la, INF)
-            take = window_prefix_mask(ts_c, wins, valid, t_end)
-            length = torch.sum(take).to(torch.int32)
-            ts = torch.where(take, ts_c, 0.0)
-            tys = torch.where(take, tys_c, 0)
-            args = torch.where(take[:, None], args_c, 0.0)
-            window = host_list(torch.cat([tys, length.reshape(1)]))
-            n = window[-1]
-            code = self.codec.encode(window[:n]) if n else 0
+            heads = tuple(torch.cat([p[j] for p in peeked])
+                          for j in range(1, 5))
+            prev_time = stats["time"]
+            (state, emits, ts, n, code, popped, routed, seq_r,
+             g) = self._merged_step(state, heads, csrc, sq, stats, t_end,
+                                    fenced)
 
             # 3. pop each shard's taken prefix.
             qs = [tiered3_queue_pop_prefix(
-                      q, torch.sum(take & (src_c == i)).to(torch.int32), k)
+                      q, torch.sum(popped == i).to(torch.int32), k)
                   for i, q in enumerate(qs)]
-
-            # 4. dispatch: the parent's path.
-            state, emits = self._dispatch_window(state, ts, args, window[:k],
-                                                 n, code)
-
-            # 5. global seq and overflow accounting (the insert-time size
-            # is post-extract, as in the single queue).
-            ty_r = i32_sat(emits[:, 1])
-            valid_r = ty_r >= 0
-            vrank = _prefix_rank(valid_r)
-            num_valid = torch.sum(valid_r).to(torch.int32)
-            size_mid = sq.size - length
-            insert = valid_r & (size_mid + vrank < self.capacity)
-            num_insert = torch.sum(insert).to(torch.int32)
-            seq_r = sq.next_seq + vrank
 
             # 6. exchange: every shard's pre-flush decision in one read,
             # then each shard inserts the rows routed to it.
-            dest = self._shard_of(ty_r, emits[:, 2:])
             flush = host_list(torch.stack(
                 [preflush_flag(q, emits.shape[0]) for q in qs]))
             qs = [tiered3_queue_fill_rows_tagged(
-                      q, emits, seq_r, insert & (dest == i), flush=f)
+                      q, emits, seq_r, routed == i, flush=f)
                   for i, (q, f) in enumerate(zip(qs, flush))]
-            prev_time = stats["time"]
-            sq = ShardedQueue(
-                shards=tuple(qs), size=size_mid + num_valid,
-                next_seq=sq.next_seq + num_valid,
-                dropped=sq.dropped + (num_valid - num_insert))
+            sq = ShardedQueue(tuple(qs), *g)
             self._account(stats, ts, emits, n, code, prev_time,
                           self._cheap_fault_bits(sq) if validate_on
                           else None)
         return state, sq
+
+    # -- the loop, placement="devices" --------------------------------------
+    def _gather_guards(self, q, fenced) -> dict:
+        """The replicated guard values from ONE gather of every rank's
+        summary (pending, next time, under the fence the head key),
+        packed bit for bit into int32."""
+        cols = [tiered3_queue_has_pending(q).to(torch.int32),
+                tiered3_queue_next_time(q).reshape(1).view(torch.int32)[0]]
+        if fenced:
+            kt, ks = tiered3_queue_next_key(q)
+            cols += [kt.reshape(1).view(torch.int32)[0], ks.to(torch.int32)]
+        rows = all_gather_rows(torch.stack(cols)[None], self._group)
+        out = {"pending": torch.any(rows[:, 0] != 0),
+               "next_t": torch.min(rows[:, 1].contiguous().view(
+                   torch.float32))}
+        if fenced:
+            kt = rows[:, 2].contiguous().view(torch.float32)
+            nk_t = torch.min(kt)
+            out["key"] = (nk_t, torch.min(torch.where(kt == nk_t, rows[:, 3],
+                                                      I32_MAX)))
+        return out
+
+    def _gather_heads(self, ts, tys, args, seqs):
+        """Every rank's k-row head slab in shard-major order (the serial
+        path's concatenation) from ONE gather of an int32 slab
+        ``[ts | tys | seqs | args]``, bit for bit."""
+        slab = torch.cat([ts.view(torch.int32)[:, None], tys[:, None],
+                          seqs[:, None], args.view(torch.int32)], dim=1)
+        rows = all_gather_rows(slab, self._group)
+        return (rows[:, 0].contiguous().view(torch.float32), rows[:, 1],
+                rows[:, 3:].contiguous().view(torch.float32),
+                rows[:, 2].contiguous())
+
+    def _super_steps_devices(self, state, stq, stats, max_batches, t_end,
+                             fenced):
+        """The serial super-step, each rank on its own shard (module
+        docstring): the peek, pop and fill on the rank's squeezed queue,
+        everything global replicated from two gathers a super-step.
+        Every rank leaves the loop on the same replicated guard."""
+        k = self.max_batch_len
+        my = self._rank
+        validate_on = self.validate != "off"
+        stq = self.place_queue(stq)
+        q = _squeeze(stq.q)
+        g = _Counters(to_local(stq.size), to_local(stq.next_seq),
+                      to_local(stq.dropped))
+        csrc = torch.repeat_interleave(
+            torch.arange(self.shards, dtype=torch.int32, device=self.device),
+            k)
+        aux = self._gather_guards(q, fenced)
+        while stats["batches"] < max_batches:
+            ok = aux["pending"] & (aux["next_t"] <= t_end)
+            if not host_read(self._guard(ok, g, stats, fenced,
+                                         aux.get("key"))):
+                break
+
+            # 1. my peek, then every rank's head slab.
+            q, *heads = tiered3_queue_peek_front(
+                q, k, refill=host_read(tiered3_queue_refill_flag(q, k)))
+            prev_time = stats["time"]
+            (state, emits, ts, n, code, popped, routed, seq_r,
+             g) = self._merged_step(state, self._gather_heads(*heads), csrc,
+                                    g, stats, t_end, fenced)
+
+            # 3. pop my taken prefix; 6. fill the rows routed to me, after
+            # my pre-flush read.
+            q = tiered3_queue_pop_prefix(
+                q, torch.sum(popped == my).to(torch.int32), k)
+            q = tiered3_queue_fill_rows_tagged(
+                q, emits, seq_r, routed == my,
+                flush=host_read(preflush_flag(q, emits.shape[0])))
+            self._account(stats, ts, emits, n, code, prev_time,
+                          _validate.rank_fault_bits([q], g.size, g.dropped,
+                                                    self._group)
+                          if validate_on else None)
+            aux = self._gather_guards(q, fenced)
+        return state, _place_local(q, *g, self._mesh)
+
+
+def _squeeze(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
+    """This rank's shard of a placed stacked queue, leading extent
+    squeezed: a plain per-shard queue."""
+    return q._make(x.to_local()[0] for x in q)

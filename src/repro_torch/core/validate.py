@@ -47,7 +47,9 @@ __all__ = [
     "full_audit",
     "flat_fault_bits",
     "raise_on_findings",
+    "rank_fault_bits",
     "sharded_fault_bits",
+    "stacked_sharded_fault_bits",
     "tiered3_fault_bits",
     "tiered_fault_bits",
 ]
@@ -208,23 +210,49 @@ def flat_fault_bits(q, *, sorted_layout: bool) -> torch.Tensor:
             | _bit(n_occ + q.dropped != q.size, FAULT_CONSERVATION))
 
 
+def rank_fault_bits(shards, size, dropped, group=None) -> torch.Tensor:
+    """The sharded fault word from the per-shard queues ``shards`` held
+    here: each shard's word under the local discipline and its
+    occupancy, then, with a process ``group``, ONE gather of every
+    rank's (a collective), ORed, and the global law ``sum of
+    occupancies + dropped == size`` over the replicated counters.  Every
+    rank of ``group`` computes the same word (JAX's fold, ``shard_map``
+    path, ``:815-832``)."""
+    from repro_torch.core.queue import all_gather_rows, tiered3_queue_occupancy
+
+    rows = torch.stack([torch.stack([tiered3_fault_bits(q, local=True),
+                                     tiered3_queue_occupancy(q)])
+                        for q in shards])
+    if group is not None:
+        rows = all_gather_rows(rows, group)
+    bits = rows[0, 0]
+    for word in rows[1:, 0]:
+        bits = bits | word
+    total_occ = torch.sum(rows[:, 1]).to(torch.int32)
+    return bits | _bit(total_occ + dropped != size, FAULT_CONSERVATION)
+
+
+def stacked_sharded_fault_bits(sq) -> torch.Tensor:
+    """Cheap fault word for a :class:`~repro_torch.core.sharded.
+    StackedShardedQueue`: the same audit as :func:`sharded_fault_bits`,
+    folded per rank (:func:`rank_fault_bits`).  A placed queue's rank
+    holds one shard and gathers the others' words, a collective that
+    every rank calls; an unplaced one holds them all."""
+    from repro_torch.core.queue import _stacked_shard, to_local
+
+    q = sq.q._make(to_local(x) for x in sq.q)
+    group = (sq.q.f_times.device_mesh.get_group("shards") if sq.placed
+             else None)
+    return rank_fault_bits(
+        [_stacked_shard(q, i) for i in range(q.f_times.shape[0])],
+        to_local(sq.size), to_local(sq.dropped), group)
+
+
 def sharded_fault_bits(sq) -> torch.Tensor:
     """Cheap fault word for a sharded queue: each shard under the local
     discipline (``size`` == its real occupancy), plus the global law
     ``sum of occupancies + dropped == size``."""
-    from repro_torch.core.queue import tiered3_queue_occupancy
-
-    bits = tiered3_fault_bits(sq.shards[0], local=True)
-    total_occ = tiered3_queue_occupancy(sq.shards[0])
-    for q in sq.shards[1:]:
-        bits = bits | tiered3_fault_bits(q, local=True)
-        total_occ = total_occ + tiered3_queue_occupancy(q)
-    return bits | _bit(total_occ + sq.dropped != sq.size, FAULT_CONSERVATION)
-
-
-# A StackedShardedQueue's ``shards`` are per-shard views, so the tuple
-# layout's fault word reads it as it stands (JAX's name kept).
-stacked_sharded_fault_bits = sharded_fault_bits
+    return rank_fault_bits(sq.shards, sq.size, sq.dropped)
 
 
 # ---------------------------------------------------------------------------
@@ -309,12 +337,15 @@ def _audit_tiered3(a: dict, num_runs: int, F: int, S: int, findings, *,
 def full_audit(queue, *, local: bool = False) -> list[tuple[int, str]]:
     """O(capacity) audit of a pending set on the host; returns findings
     as ``(fault_bit, message)``.  Takes a tiered3 queue, a sharded queue
-    (each shard under the local discipline, then the global law), or a
-    two-tier or flat queue (JAX's reduced checks).  Call at segment
-    boundaries only."""
+    (each shard under the local discipline, then the global law; a
+    placed one is gathered, a collective), or a two-tier or flat queue
+    (JAX's reduced checks).  Call at segment boundaries only."""
     from repro_torch.core.queue import queue_to_arrays
 
     findings: list[tuple[int, str]] = []
+    if hasattr(queue, "gathered"):
+        # A placed stacked queue: every rank gathers the whole of it.
+        queue = queue.gathered()
     if hasattr(queue, "shards"):
         total_occ = 0
         for i, q in enumerate(queue.shards):

@@ -8,6 +8,10 @@ Multi-pod:  (2, 16, 16) = 512 ranks, axes ("pod", "data", "model") —
 the "pod" axis carries ONLY data parallelism (the gradient all-reduce
 across pods); parameters, FSDP shards and TP stay within a pod.
 
+The sharded device engine's ``placement="devices"``: a 1-D ``"shards"``
+mesh, one rank a shard queue (:func:`make_shard_mesh`,
+:func:`shard_device`).
+
 A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` over the
 default process group, which the caller initializes: the ``"fake"``
 backend of 256 or 512 ranks for the dry run
@@ -19,6 +23,7 @@ touches no process group.
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 import torch.distributed as dist
@@ -75,13 +80,48 @@ def make_host_mesh(model_axis: int = 1, *, device=None) -> DeviceMesh:
                             mesh_dim_names=("data", "model"))
 
 
-def make_shard_mesh(shards: int):
+def make_shard_mesh(shards: int, *, device=None) -> DeviceMesh:
     """The 1-D ``"shards"`` mesh of the sharded device engine's
-    ``placement="devices"`` path: one card a shard queue."""
-    raise NotImplementedError(
-        f"placement='devices' (shards={shards}: one shard queue a card, "
-        "the head slabs exchanged by an all_gather each super-step) is "
-        "not ported to repro_torch (ROADMAP D1)")
+    ``placement="devices"`` path over the default process group: one
+    rank a shard queue (JAX's ``make_shard_mesh``, one device a shard).
+
+    The caller's process group picks the backend (NCCL on several cards,
+    gloo on the CPU or for several ranks on one card); the engine never
+    does.  Raises with the hardware-free recipe when no group of exactly
+    ``shards`` ranks exists: a process cannot grow its group from here,
+    as a JAX process cannot grow its device count after the first
+    device query."""
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != shards:
+        found = (f"has {have} rank(s)" if have
+                 else "is not initialized")
+        raise ValueError(
+            f"placement='devices' with shards={shards} runs one process a "
+            f"shard over the default process group, which {found}. For a "
+            f"hardware-free run, start {shards} processes on the CPU, each "
+            "calling torch.distributed.init_process_group('gloo', "
+            "init_method='tcp://localhost:<port>', rank=r, "
+            f"world_size={shards}) and building with device='cpu'; on "
+            f"{shards} cards, launch with torchrun --nproc-per-node="
+            f"{shards} (NCCL); or use placement='serial'.")
+    return init_device_mesh(_device_type(device), (shards,),
+                            mesh_dim_names=("shards",))
+
+
+def shard_device(device=None) -> torch.device:
+    """A rank's device on the ``"shards"`` mesh: ``device`` when it
+    names one (``"cpu"``, ``"cuda:1"``), else the card
+    ``cuda:(LOCAL_RANK % device_count)`` (the rank when ``LOCAL_RANK``
+    is unset), so ranks beyond the host's cards share them."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "engine on the CPU")
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return torch.device("cuda", local % torch.cuda.device_count())
 
 
 def dp_size(mesh) -> int:

@@ -201,8 +201,10 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     dict(shards=2, placement="devices", dispatch_mode="masked"),
 ])
 def test_unported_modes_raise(kw):
+    """``placement="devices"`` (ported, ROADMAP D1) in a process without
+    a group of ``shards`` ranks: the process-group recipe."""
     prog = tphold.build_program(num_lps=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="init_process_group"):
         prog.build(device="cpu", **kw)
 
 

@@ -15,9 +15,10 @@ its 2- and 4-shard runs are held in two cases; everywhere else the
 port's sharded run is held to the port's single queue, which
 ``test_torch_engine.py`` holds to JAX.  A common super-step reads the
 host four times at every shard count.  The last test walks the parity
-matrix (``tests/_parity.py``): every ``device/*`` entry builds in the
-port but ``device/fused-static`` and ``placement="devices"``, which
-raise :class:`NotImplementedError`.
+matrix (``tests/_parity.py``): every ``device/*`` entry builds and runs
+in the port; ``placement="devices"`` refuses in one process with the
+process-group recipe (``tests/test_torch_devices.py`` runs it on four
+gloo ranks).
 """
 
 import pathlib
@@ -31,6 +32,16 @@ import jax.numpy as jnp
 
 import _parity
 import test_sharded_engine as jshard
+from _torch_churn import (
+    EMIT_W,
+    assert_flat_equal,
+    assert_stats_equal,
+    churn_registry,
+    engine,
+    flat_of,
+    run_engine,
+    state0,
+)
 from repro.core import validate as JV
 from repro.core.queue import tiered3_queue_to_flat as j_to_flat
 from repro.core.sharded import ShardedQueue as JShardedQueue
@@ -39,103 +50,14 @@ from repro_torch.api import Config, EngineFaultError
 from repro_torch.core import queue as tq
 from repro_torch.core import validate as V
 from repro_torch.core.engine import DeviceEngine
-from repro_torch.core.events import ARG_WIDTH, EventRegistry, emits_events
-from repro_torch.core.sharded import (
-    ShardedDeviceEngine,
-    ShardedQueue,
-    sharded_queue_to_flat,
-)
+from repro_torch.core.events import EventRegistry, emits_events
+from repro_torch.core.sharded import ShardedDeviceEngine, sharded_queue_to_flat
 from repro_torch.examples import phold as tphold
 from repro_torch.serving import scenarios as tsc
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "examples"))
 import phold as jphold  # noqa: E402  (examples/ is not a package)
-
-EMIT_W = 2 + ARG_WIDTH
-M32 = 0xFFFFFFFF
-
-
-def _mix(t, src):
-    """``test_sharded_engine._mix`` in int64 with a u32 mask."""
-    t2 = (t * 2.0).to(torch.int64)
-    h = (t2 * 2654435761 + src.to(torch.int64) * 40503 + 12345) & M32
-    h = h ^ (h >> 13)
-    h = (h * 0x5BD1E995) & M32
-    return h ^ (h >> 15)
-
-
-def churn_registry(num_entities: int, t_stop: float):
-    """The JAX suite's order-sensitive churn: each event folds its hash
-    into a checksum and re-emits one row, near-head or far-future by the
-    hash, to a hash-chosen entity."""
-    reg = EventRegistry()
-
-    @emits_events
-    def churn(state, t, arg):
-        src = arg[0].to(torch.int32)
-        h = _mix(t, src)
-        near = (h % 3) != 0
-        delay = torch.where(near, 0.5 + 0.5 * ((h >> 3) % 4).float(),
-                            1e5 + ((h >> 3) % 8).float())
-        dst = (h >> 7) % num_entities
-        emit = torch.zeros((1, EMIT_W), dtype=torch.float32)
-        emit[0, 0] = t + delay
-        emit[0, 1] = torch.where(t < t_stop, 0.0, -1.0)
-        emit[0, 2] = dst.float()
-        return {"count": state["count"] + 1,
-                "checksum": (state["checksum"] * 31 + h) & M32}, emit
-
-    reg.register("CHURN", churn, lookahead=0.5)
-    return reg.freeze()
-
-
-def state0():
-    return {"count": torch.tensor(0, dtype=torch.int32),
-            "checksum": torch.tensor(1, dtype=torch.int64)}
-
-
-def engine(shards, *, capacity=48, max_len=4, num_entities=12,
-           t_stop=64.0, front_cap=6, stage_cap=5, num_runs=2,
-           validate="off", **kw):
-    """The JAX suite's geometry; ``shards=0`` is the single queue."""
-    reg = churn_registry(num_entities, t_stop)
-    common = dict(max_batch_len=max_len, capacity=capacity, max_emit=1,
-                  front_cap=front_cap, stage_cap=stage_cap,
-                  num_runs=num_runs, validate=validate, device="cpu", **kw)
-    if shards == 0:
-        return DeviceEngine(reg, queue_mode="tiered3", **common)
-    return ShardedDeviceEngine(reg, shards=shards, **common)
-
-
-def flat_of(q):
-    return (sharded_queue_to_flat(q) if isinstance(q, ShardedQueue)
-            else tq.tiered3_queue_to_flat(q))
-
-
-def assert_flat_equal(fa, fb, msg=""):
-    for field in ("times", "types", "args", "seqs"):
-        np.testing.assert_array_equal(np.asarray(getattr(fa, field)),
-                                      np.asarray(getattr(fb, field)),
-                                      err_msg=f"{msg}: {field}")
-    for field in ("size", "next_seq", "dropped"):
-        assert int(getattr(fa, field)) == int(getattr(fb, field)), \
-            (msg, field)
-
-
-def assert_stats_equal(sa, sb, msg=""):
-    for k in ("batches", "events", "dropped", "emitted"):
-        assert int(sa[k]) == int(sb[k]), (msg, k)
-    assert float(sa["time"]) == float(sb["time"]), msg
-    np.testing.assert_array_equal(np.asarray(sa["word_counts"]),
-                                  np.asarray(sb["word_counts"]), msg)
-
-
-def run_engine(eng, events, max_batches=48):
-    s, q, st = eng.run(state0(), eng.initial_queue(events),
-                       max_batches=max_batches)
-    return s, q, st
-
 
 # ---------------------------------------------------------------------------
 # The near-full churn
@@ -303,7 +225,8 @@ def test_custom_shard_fn_and_validation():
         ShardedDeviceEngine(reg, shards=2, overflow="spill", device="cpu")
     with pytest.raises(ValueError, match="placement"):
         ShardedDeviceEngine(reg, shards=2, placement="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP D1"):
+    # Without a process group of 2 ranks: the hardware-free recipe.
+    with pytest.raises(ValueError, match="init_process_group.*gloo"):
         ShardedDeviceEngine(reg, shards=2, placement="devices",
                             device="cpu")
 
@@ -324,7 +247,7 @@ def test_build_knob_validation():
         prog().build(device="cpu", shard_fn=lambda tys, args: tys)
     with pytest.raises(ValueError, match="placement"):
         prog().build(device="cpu", placement="devices")
-    with pytest.raises(NotImplementedError, match="D1"):
+    with pytest.raises(ValueError, match="nproc-per-node=4"):
         prog().build(device="cpu", shards=4, placement="devices")
     sim = prog().build(device="cpu", shards=2)
     assert isinstance(sim.engine, ShardedDeviceEngine)
@@ -454,8 +377,9 @@ def test_parity_matrix_builds_every_device_entry():
     the port and runs, the host entries with ``device="cpu",
     jit_handlers=False`` and ``device/fused-static`` with the state
     declared as the example state (as ``_parity.run_all`` does), except
-    ``placement="devices"`` (ROADMAP D1), which raises
-    :class:`NotImplementedError`."""
+    ``placement="devices"``, which in one process refuses with the
+    process-group recipe (:class:`ValueError`); under four ranks
+    ``tests/test_torch_devices.py`` builds and runs those entries."""
     entries = dict(_parity.ALL_BACKENDS)
     entries.update(_parity.STREAM_BACKENDS)
     entries["device/tiered3-4shard-devices"] = dict(
@@ -466,7 +390,7 @@ def test_parity_matrix_builds_every_device_entry():
         if not label.startswith("device/"):
             kw = dict(kw, jit_handlers=False)
         elif kw.get("placement") == "devices":
-            with pytest.raises(NotImplementedError, match="ROADMAP D1"):
+            with pytest.raises(ValueError, match="init_process_group"):
                 prog.build(device="cpu", **kw)
             refused.append(label)
             continue

@@ -41,7 +41,7 @@ from repro_torch.examples import phold as tphold
 from repro_torch.serving import scenarios as tsc
 from repro_torch.testing.faults import SimulatedCrash
 
-from test_torch_sharded import assert_flat_equal
+from _torch_churn import assert_flat_equal
 from test_torch_stream import (
     N_REQ,
     _assert_same_outcome,

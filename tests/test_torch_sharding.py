@@ -212,7 +212,9 @@ def _flat_placements(tree, places) -> list:
 
 
 def test_mesh_helpers_on_a_fake_group():
-    """Axis names and sizes as JAX's; the shard mesh is D1's."""
+    """Axis names and sizes as JAX's; the sharded engine's 1-D
+    ``"shards"`` mesh (ROADMAP D1) needs a group of as many ranks as
+    shards, else names the process-group recipe."""
     with fake_process_group(512):
         mesh = make_production_mesh(multi_pod=True, device="cpu")
         assert mesh.mesh_dim_names == ("pod", "data", "model")
@@ -223,7 +225,13 @@ def test_mesh_helpers_on_a_fake_group():
         mesh = make_production_mesh(device="cpu")
         assert dp_axes(mesh) == ("data",)
         assert (dp_size(mesh), tp_size(mesh)) == (16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP D1"):
+    with fake_process_group(4):
+        mesh = make_shard_mesh(4, device="cpu")
+        assert mesh.mesh_dim_names == ("shards",)
+        assert tuple(mesh.shape) == (4,)
+        with pytest.raises(ValueError, match="has 4 rank"):
+            make_shard_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match="nproc-per-node=4"):
         make_shard_mesh(4)
     assert not torch.distributed.is_initialized()
 

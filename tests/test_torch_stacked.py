@@ -38,7 +38,7 @@ from repro_torch.core.sharded import (
     place_stacked_queue,
     stack_sharded_queue,
 )
-from test_torch_sharded import EMIT_W, assert_flat_equal, engine, state0
+from _torch_churn import EMIT_W, assert_flat_equal, engine, state0
 
 SHARDS = 3
 K = 4
@@ -264,15 +264,34 @@ def test_sharded_exports_match_jax():
 
 
 def test_stacked_placement_and_run_name_d1():
+    """A stacked queue runs under ``placement="devices"`` only (ROADMAP
+    D1): the serial engine refuses it and still runs the tuple layout of
+    the same pending set; ``place_stacked_queue`` needs a ``"shards"``
+    mesh of as many ranks as the queue has shards, and a one-rank gloo
+    group has too few for 3 shards (``tests/test_torch_devices.py``
+    places and runs the layout on four ranks)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_shard_mesh
+
     sq = _port_sharded(0)
     stq = stack_sharded_queue(sq)
-    with pytest.raises(NotImplementedError, match="ROADMAP D1"):
-        place_stacked_queue(stq)
-    with pytest.raises(NotImplementedError, match="ROADMAP D1"):
-        place_stacked_queue(stq, mesh=None)
     eng = engine(SHARDS)
-    with pytest.raises(NotImplementedError, match="ROADMAP D1"):
+    with pytest.raises(ValueError, match="placement='devices'"):
         eng.run(state0(), stq, max_batches=4)
-    # The tuple layout still runs from the same pending set.
     _, _, stats = eng.run(state0(), sq, max_batches=4)
     assert stats["batches"] == 4
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="has 1 rank"):
+            make_shard_mesh(SHARDS, device="cpu")
+        with pytest.raises(ValueError, match="3 shards on a mesh of 1"):
+            place_stacked_queue(stq, make_shard_mesh(1, device="cpu"))
+    finally:
+        dist.destroy_process_group()
