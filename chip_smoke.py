@@ -8,7 +8,10 @@ Phases, each printed on its own line:
 1. build — compile the CUDA sources of ``src/repro_torch/csrc`` for
    ``sm_90a``, one ``nvcc`` per source, all started together; print the
    build time, the compiler's register and shared-memory report and the
-   card (``nvidia-smi`` name and power limit).
+   card (``nvidia-smi`` name and power limit).  The engine's phases wait
+   for ``queue_front.cu`` and ``graph_cond.cu`` only; the other sources
+   finish building while phases 2 (``kernels``), 4 and 4b run, and
+   phases 3-3c come after 4b.
 2. kernels — each queue kernel against its plain PyTorch version on the
    same CUDA inputs, bit for bit (``torch.equal`` on every output), over
    random fronts, time ties, all-tie fronts, partial and empty fronts,
@@ -92,6 +95,25 @@ Phases, each printed on its own line:
    card seconds (the initial queue's build included), super-steps per
    second, host syncs per super-step and the windows that took the run
    path, a hot slot and the fallback.
+5c2. captured — the device engine's captured loop
+   (``build(loop="captured")``: one super-step captured as a CUDA graph
+   with conditional nodes, replayed ``chunk`` steps a host read): (a)
+   phase 4's PHOLD (917,504 LPs, 4,096 super-steps, ``switch``) held bit
+   for bit to phase 4's card run, its rare-path counts equal, each queue
+   kernel launched once a super-step (counted from the graph's bodies),
+   one loop read a chunk; steps/s at chunks of 32, 64
+   and 128 (1,024 steps each), capture seconds and peak memory beside
+   phase 4's numbers; (b) the same PHOLD under ``masked`` and under
+   ``fused`` (phase 4b's hot set) for 1,024 steps, each held to the
+   eager card run of the same configuration; (c) phase 5's PoC and
+   phase 5b's M/M/c runs (both sizes) in the three modes, each held to
+   that phase's card run with equal ``run_path`` and fused counts; (d)
+   a cheap-validation fault (a hop emitting at -inf) and
+   ``overflow="error"``'s storm stop at the same super-step with the
+   same fault word as the eager loop.  Last in the script, after every
+   timed phase (``captured_profile``): (a)'s graph replayed for 64 steps
+   under ``torch.profiler``, which must count each queue kernel 64
+   times, as the launch counts do.
 5d. overflow — (a) the overflow storm of ``repro_torch.testing.faults``
    on the card: ``overflow="error"`` raises ``FAULT_OVERFLOW`` and
    ``overflow="spill"`` matches the oversized queue with nothing dropped
@@ -1396,6 +1418,8 @@ def run_modes(label: str, build, state, device_name: str, top_w: int,
             raise PhaseError(f"{label} {mode}: " + "; ".join(problems))
         runs[mode] = res
         res.raw["counts"] = counts
+        res.raw["hot_words"] = hot
+        res.raw["card_s"] = fields["card_s"]
         if mode == "switch":
             switch_sim = sim
         extra = {} if hot is None else dict(hot_words=json.dumps(hot))
@@ -1428,14 +1452,16 @@ def run_poc(device_name: str):
             iters, config=Config(max_batch_len=4)).build(
                 backend="device", **kw),
         poc.initial_state, device_name, 4, check=check, events=evs)
-    return runs["switch"]
+    return runs
 
 
 # ---------------------------------------------------------------------------
 # Phase 5b: the M/M/c network, the example's size and full size
 # ---------------------------------------------------------------------------
 
-def run_mmc(device_name: str) -> None:
+def run_mmc(device_name: str) -> dict:
+    """The two sizes under the three modes; returns the card runs by
+    station count and mode."""
     import torch
 
     from repro_torch.examples import mmc_network as mmc
@@ -1452,6 +1478,7 @@ def run_mmc(device_name: str) -> None:
             problems.append("arrived != served + qlen + busy")
         return problems
 
+    out = {}
     for stations, t_open, cap, batches in (
             (4, 30.0, 512, None),
             (MMC_STATIONS, MMC_T_OPEN, MMC_CAPACITY, MMC_BATCHES)):
@@ -1475,6 +1502,8 @@ def run_mmc(device_name: str) -> None:
               served=int(res.state["served"].sum()),
               samples=int(res.state["samples"].sum()),
               final_time=res.final_time)
+        out[stations] = runs
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1505,6 +1534,293 @@ def run_serving_admission(device_name: str):
     phase("serving_admission_state", slots=ADMIT_SLOTS,
           requests=ADMIT_REQUESTS, **st)
     return runs["switch"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c2: the captured loop (one super-step a CUDA graph, replayed)
+# ---------------------------------------------------------------------------
+
+# The engine counts a captured run must share with its eager run.
+CAPTURED_COUNTS = ("flush", "refill_kway", "refill_main_only", "to_run",
+                   "merge_compact", "merge_append", "head_merge",
+                   "suffix_append", "rotate", "run_path", "fused_hot",
+                   "fused_fallback")
+CAPTURED_PROFILE_STEPS = 64
+CAPTURED_CHUNKS = (32, 64, 128)      # (a)'s chunk sizes, 1,024 steps each
+
+
+def _count_problems(counts, want, label) -> list:
+    got = {k: counts.get(k, 0) for k in CAPTURED_COUNTS}
+    exp = {k: want.get(k, 0) for k in CAPTURED_COUNTS}
+    return [] if got == exp else [f"{label}: counts {got}, eager {exp}"]
+
+
+def _captured_run(label, build, state, ref, ref_counts, **run_kw):
+    """Drive a captured build on the card and hold it to an eager card
+    run of the same configuration: every field ``parity_problems``
+    checks, the engine's counts, launches equal to super-steps and one
+    loop read a chunk.  Returns ``(sim, result, counts, card seconds)``."""
+    sim = build()
+    res, card_s, launches, counts = drive(sim, state(), **run_kw)
+    problems = (parity_problems(res, ref)
+                + launch_problems(launches, res.batches)
+                + _count_problems(counts, ref_counts, label))
+    chunks = max(1, math.ceil(res.batches / sim.engine.chunk))
+    if counts.get("loop_syncs") != chunks:
+        problems.append(f"{counts.get('loop_syncs')} loop reads, "
+                        f"{chunks} chunks")
+    if problems:
+        raise PhaseError(f"captured {label}: " + "; ".join(problems))
+    return sim, res, counts, card_s
+
+
+def _profiled_kernels(fn) -> dict:
+    """``fn()`` under ``torch.profiler``: device kernels by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            out[ev.name] = out.get(ev.name, 0) + 1
+    return out
+
+
+def poison_program(t_poison: float):
+    """Eight hops that reschedule themselves one time unit on, until the
+    first at or past ``t_poison`` emits at -inf: the front then holds a
+    non-finite time, which the cheap fault word names."""
+    import torch
+
+    from repro_torch.api import ARG_WIDTH, Config, SimProgram
+
+    prog = SimProgram("poison", config=Config(max_batch_len=4, capacity=64,
+                                              max_emit=1))
+
+    @prog.handler("HOP", lookahead=1.0, emits=True)
+    def hop(state, t, arg):
+        e = torch.zeros((1, 2 + ARG_WIDTH), dtype=torch.float32,
+                        device=t.device)
+        e[0, 0] = torch.where(t >= t_poison, -math.inf, 1.0)
+        e[0, 2] = arg[0]
+        return state + 1, e
+
+    for i in range(8):
+        prog.schedule(0.5 * i, "HOP", arg=[float(i)])
+    return prog
+
+
+def run_captured(device_name: str, phold_res, phold_counts, phold_loop_s,
+                 poc_runs, mmc_runs) -> None:
+    """Phase captured: ``build(loop="captured")`` held to the eager
+    loop's card runs (see the module docstring, 5c2)."""
+    import torch
+
+    from repro_torch.api import Config, EngineFaultError
+    from repro_torch.examples import mmc_network as mmc
+    from repro_torch.examples import phold, poc
+    from repro_torch.kernels import queue_front as qf
+    from repro_torch.testing.faults import storm_program
+
+    t_phase = time.perf_counter()
+
+    def phold_build(**kw):
+        return lambda: phold.build_program(
+            num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+            capacity=PHOLD_CAPACITY).build(
+                backend="device", device=device_name, loop="captured", **kw)
+
+    def phold_state():
+        return phold.initial_state(PHOLD_LPS, device_name)
+
+    # (a) phase phold's configuration, captured.
+    torch.cuda.reset_peak_memory_stats()
+    sim = phold_build(dispatch_mode="switch")()
+    loop_s = time_engine(sim)
+    res, card_s, launches, counts = drive(sim, phold_state(),
+                                          max_batches=PHOLD_BATCHES)
+    loop_s = loop_s()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    capture_s = sim.engine.capture_seconds
+    problems = (parity_problems(res, phold_res)
+                + launch_problems(launches, res.batches)
+                + _count_problems(counts, phold_counts, "phold"))
+    if res.batches != PHOLD_BATCHES:
+        problems.append(f"ran {res.batches} of {PHOLD_BATCHES} super-steps")
+    chunks = math.ceil(res.batches / sim.engine.chunk)
+    if counts["loop_syncs"] != chunks:
+        problems.append(f"{counts['loop_syncs']} loop reads, {chunks} "
+                        "chunks")
+    if problems:
+        raise PhaseError("captured phold: " + "; ".join(problems))
+    chunk_rates = {}
+    # One initial queue for the three runs: the captured loop copies its
+    # input into the graph's own buffers and leaves it as it was.
+    queue0 = sim.engine.initial_queue(sim.program.scheduled_events())
+    for k in CAPTURED_CHUNKS:
+        sim.engine.chunk = k
+        entry = (phold_state(), queue0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = sim.engine.run(*entry, max_batches=MODES_BATCHES)
+        torch.cuda.synchronize()
+        chunk_rates[k] = MODES_BATCHES / (time.perf_counter() - t0)
+        if r[2]["batches"] != MODES_BATCHES:
+            raise PhaseError(f"captured phold chunk {k}: "
+                             f"{r[2]['batches']} super-steps")
+    sim.engine.chunk = 64
+    del queue0
+    phase("captured", case="a_phold", lps=PHOLD_LPS,
+          capacity=PHOLD_CAPACITY, batches=res.batches, events=res.events,
+          checksum=int(res.state["checksum"]),
+          loop_syncs_per_step=f"{counts['loop_syncs'] / res.batches:.6f}",
+          host_syncs_per_step=f"{counts['host_syncs'] / res.batches:.6f}",
+          eager_host_syncs_per_step=(
+              f"{phold_counts['host_syncs'] / phold_res.batches:.4f}"),
+          card_s=f"{card_s:.3f}", loop_s=f"{loop_s:.3f}",
+          capture_s=f"{capture_s:.3f}",
+          card_steps_per_s=f"{res.batches / card_s:.1f}",
+          replay_steps_per_s=f"{res.batches / (loop_s - capture_s):.1f}",
+          eager_loop_steps_per_s=f"{phold_res.batches / phold_loop_s:.1f}",
+          chunk_steps_per_s=json.dumps(
+              {k: round(v, 1) for k, v in chunk_rates.items()}),
+          peak_mb=f"{peak_mb:.1f}",
+          launches=json.dumps(launches, separators=(",", ":")),
+          bit_identical_to_phold=True)
+
+    # (b) masked and fused at 1,024 steps, each held to its eager run.
+    hot = phold_hot_words(phold_res)
+    for mode, kw in (("masked", {}), ("fused", dict(hot_words=hot))):
+        eager = phold.build_program(
+            num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+            capacity=PHOLD_CAPACITY).build(
+                backend="device", device=device_name, dispatch_mode=mode,
+                **kw)
+        ref, ref_s, _, ref_counts = drive(eager, phold_state(),
+                                          max_batches=MODES_BATCHES)
+        del eager
+        csim, cres, ccounts, c_s = _captured_run(
+            f"phold {mode}", phold_build(dispatch_mode=mode, **kw),
+            phold_state, ref, ref_counts, max_batches=MODES_BATCHES)
+        phase("captured", case=f"b_phold_{mode}", batches=cres.batches,
+              card_s=f"{c_s:.3f}", eager_card_s=f"{ref_s:.3f}",
+              capture_s=f"{csim.engine.capture_seconds:.3f}",
+              card_steps_per_s=f"{cres.batches / c_s:.1f}",
+              eager_card_steps_per_s=f"{ref.batches / ref_s:.1f}",
+              fused_hot=ccounts.get("fused_hot", 0),
+              fused_fallback=ccounts.get("fused_fallback", 0),
+              bit_identical_to_eager=True)
+        del csim, ref, cres
+
+    # (c) PoC and the M/M/c network, held to phases poc's and mmc's runs.
+    evs = poc.schedule_poc_events(256, 0.3, seed=0)
+    for mode, ref in poc_runs.items():
+        kw = dict(dispatch_mode=mode)
+        if ref.raw["hot_words"] is not None:
+            kw["hot_words"] = ref.raw["hot_words"]
+        csim, cres, ccounts, c_s = _captured_run(
+            f"poc {mode}", lambda: poc.build_program(
+                16, config=Config(max_batch_len=4)).build(
+                    backend="device", device=device_name, loop="captured",
+                    **kw),
+            lambda: poc.initial_state(device_name), ref, ref.raw["counts"],
+            events=evs)
+        phase("captured", case=f"c_poc_{mode}", batches=cres.batches,
+              card_s=f"{c_s:.3f}",
+              capture_s=f"{csim.engine.capture_seconds:.3f}",
+              fused_hot=ccounts.get("fused_hot", 0),
+              fused_fallback=ccounts.get("fused_fallback", 0),
+              bit_identical_to_eager=True)
+    sizes = {4: (30.0, 512, None, {}),
+             MMC_STATIONS: (MMC_T_OPEN, MMC_CAPACITY, MMC_BATCH_LEN,
+                            dict(max_batches=MMC_BATCHES))}
+    for stations, runs in mmc_runs.items():
+        t_open, cap, mbl, run_kw = sizes[stations]
+        for mode, ref in runs.items():
+            kw = dict(dispatch_mode=mode)
+            if ref.raw["hot_words"] is not None:
+                kw["hot_words"] = ref.raw["hot_words"]
+            csim, cres, ccounts, c_s = _captured_run(
+                f"mmc {stations} {mode}", lambda: mmc.build_program(
+                    num_stations=stations, t_open=t_open,
+                    max_batch_len=mbl, capacity=cap).build(
+                        backend="device", device=device_name,
+                        loop="captured", **kw),
+                lambda: mmc.initial_state(stations, device_name), ref,
+                ref.raw["counts"], **run_kw)
+            if not ccounts.get("run_path"):
+                raise PhaseError(f"captured mmc {stations} {mode}: no "
+                                 "window took the run path")
+            phase("captured", case=f"c_mmc_{stations}_{mode}",
+                  batches=cres.batches, card_s=f"{c_s:.3f}",
+                  capture_s=f"{csim.engine.capture_seconds:.3f}",
+                  card_steps_per_s=f"{cres.batches / c_s:.1f}",
+                  eager_card_steps_per_s=(
+                      f"{ref.batches / float(ref.raw['card_s']):.1f}"),
+                  run_path=ccounts.get("run_path", 0),
+                  fused_hot=ccounts.get("fused_hot", 0),
+                  bit_identical_to_eager=True)
+            del csim, cres
+
+    # (d) a cheap-validation fault and an overflow stop, eager and captured.
+    for case, make, kw in (
+            ("cheap_fault", lambda: poison_program(9.0),
+             dict(validate="cheap")),
+            ("overflow_error", lambda: storm_program(16),
+             dict(overflow="error"))):
+        raised = {}
+        for loop in ("eager", "captured"):
+            try:
+                make().build(backend="device", device=device_name,
+                             loop=loop, **kw).run(
+                    torch.zeros((), dtype=torch.int32, device=device_name))
+            except EngineFaultError as err:
+                raised[loop] = (err.fault_word, err.fault_step)
+        if len(raised) != 2 or raised["eager"] != raised["captured"]:
+            raise PhaseError(f"captured {case}: {raised}")
+        phase("captured", case=f"d_{case}", fault_word=raised["eager"][0],
+              fault_step=raised["eager"][1], same_as_eager=True)
+    phase("captured_total", seconds=f"{time.perf_counter() - t_phase:.3f}")
+    return sim
+
+
+def profile_captured(sim) -> None:
+    """Phase captured (a)'s graph replayed for 64 steps under
+    ``torch.profiler``: each queue kernel must run once a step, as the
+    launch counts say, and (a)'s five runs must have shared one capture.
+    It runs after every timed phase: once CUPTI has traced a process, a
+    big graph's launches there stay slow (M/M/c's 120-word ``switch``
+    graph: about 20 ms a replay after a profile, 0.55 ms without)."""
+    from repro_torch.examples import phold
+    from repro_torch.kernels import queue_front as qf
+
+    reset_launches()
+    seen = _profiled_kernels(lambda: sim.run(
+        phold.initial_state(PHOLD_LPS, "cuda"),
+        max_batches=CAPTURED_PROFILE_STEPS))
+    launches = read_launches()
+    by_kernel = {name: sum(n for k, n in seen.items() if name in k)
+                 for name in qf.LAUNCHES}
+    setters = sum(n for k, n in seen.items() if k.startswith("set_")
+                  and ("if" in k or "switch" in k))
+    want = dict.fromkeys(qf.LAUNCHES, CAPTURED_PROFILE_STEPS)
+    if by_kernel != want or {k: launches[k] for k in want} != want:
+        raise PhaseError(f"captured_profile: profiler saw {by_kernel}, "
+                         f"LAUNCHES {launches}, want {want} over "
+                         f"{CAPTURED_PROFILE_STEPS} steps")
+    if sim.engine.captures != 1:
+        raise PhaseError(f"captured_profile: {sim.engine.captures} "
+                         "captures for one signature, want 1")
+    phase("captured_profile", steps=CAPTURED_PROFILE_STEPS,
+          captures=sim.engine.captures,
+          profiler_kernels=json.dumps(by_kernel, separators=(",", ":")),
+          launches=json.dumps({k: launches[k] for k in want},
+                              separators=(",", ":")),
+          cond_setters=setters)
 
 
 # ---------------------------------------------------------------------------
@@ -4814,21 +5130,56 @@ def time_mamba(launches, errs) -> list:
     return out
 
 
+# The sources the engine's phases need; the others (``attention.cu``
+# alone takes about a minute) finish building while those phases run.
+ENGINE_SOURCES = ("queue_front", "graph_cond")
+
+
+class Builds:
+    """Every CUDA source compiled at once, one ``nvcc`` each, in threads:
+    :meth:`wait` blocks until the named sources are built."""
+
+    def __init__(self):
+        from repro_torch.kernels import _build
+
+        self.t0 = time.perf_counter()
+        self.pool = concurrent.futures.ThreadPoolExecutor(
+            len(_build.SOURCES))
+        self.futures = {name: self.pool.submit(self._build, name)
+                        for name in _build.SOURCES}
+        self.reported: set = set()
+
+    def _build(self, name: str) -> float:
+        from repro_torch.kernels import _build
+
+        _build.build(name)
+        return time.perf_counter() - self.t0
+
+    def wait(self, names) -> float:
+        """Seconds from the start until the last of ``names`` was built;
+        prints their ptxas reports."""
+        from repro_torch.kernels import _build
+
+        seconds = max(self.futures[name].result() for name in names)
+        for name in names:
+            if name in self.reported:
+                continue
+            self.reported.add(name)
+            for line in _build.BUILD_LOG.get(name, "").splitlines():
+                if ("registers" in line or "Compiling entry" in line
+                        or "spill" in line or "smem" in line):
+                    print(f"  ptxas[{name}]: {line.strip()}")
+        return seconds
+
+
 def build_all() -> float:
     """Compile every CUDA source at once (one nvcc each); returns the
     wall seconds and prints each source's ptxas report."""
     from repro_torch.kernels import _build
 
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as pool:
-        for fut in [pool.submit(_build.build, n) for n in _build.SOURCES]:
-            fut.result()
-    seconds = time.perf_counter() - t0
-    for name in _build.SOURCES:
-        for line in _build.BUILD_LOG.get(name, "").splitlines():
-            if ("registers" in line or "Compiling entry" in line
-                    or "spill" in line or "smem" in line):
-                print(f"  ptxas[{name}]: {line.strip()}")
+    builds = Builds()
+    seconds = builds.wait(_build.SOURCES)
+    builds.pool.shutdown()
     return seconds
 
 
@@ -4861,23 +5212,32 @@ def run_phases(card: str, children: list, host_child: dict) -> int:
 
     from repro_torch.kernels import _build
 
-    build_s = build_all()
-    phase("build", seconds=f"{build_s:.2f}", sources=",".join(_build.SOURCES),
-          card=json.dumps(card), torch=torch.__version__,
-          cuda=torch.version.cuda)
+    builds = Builds()
+    build_s = builds.wait(ENGINE_SOURCES)
+    phase("build", sources=",".join(ENGINE_SOURCES),
+          seconds=f"{build_s:.2f}", card=json.dumps(card),
+          torch=torch.__version__, cuda=torch.version.cuda)
     # f32 products in full f32: the plain versions are the yardstick.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = check_kernels(torch.device("cuda"))
-    attn_errs = check_attention()
-    rwkv_errs = check_rwkv()
-    mamba_errs = check_mamba()
     res, launches, ref, counts, phold_loop_s = run_phold("cuda")
     run_phold_fused("cuda", res, ref, counts)
     del ref
-    poc_switch = run_poc("cuda")
-    run_mmc("cuda")
+    build_s = builds.wait(_build.SOURCES)
+    builds.pool.shutdown()
+    phase("build", sources=",".join(_build.SOURCES),
+          seconds=f"{build_s:.2f}")
+    attn_errs = check_attention()
+    rwkv_errs = check_rwkv()
+    mamba_errs = check_mamba()
+    poc_runs = run_poc("cuda")
+    poc_switch = poc_runs["switch"]
+    mmc_runs = run_mmc("cuda")
     admit = run_serving_admission("cuda")
+    captured_sim = run_captured("cuda", res, counts, phold_loop_s, poc_runs,
+                                mmc_runs)
+    del poc_runs, mmc_runs
     run_overflow("cuda", res, phold_loop_s, counts)
     run_resume("cuda", res, phold_loop_s, counts)
     run_faults("cuda")
@@ -4915,6 +5275,7 @@ def run_phases(card: str, children: list, host_child: dict) -> int:
                               mla_launches)
     kernels += time_rwkv(rwkv_launches, rwkv_errs)
     kernels += time_mamba(jamba_launches, mamba_errs)
+    profile_captured(captured_sim)
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -191,11 +191,21 @@ class DenseCodec:
         code = torch.zeros((), dtype=torch.int32, device=device)
         for i in range(self.max_len - 1, -1, -1):
             code = torch.where(i < length, code * self.base + types[i], code)
-        offs = torch.tensor(
-            [self.offset(k) if k >= 1 else 0 for k in range(self.max_len + 1)],
-            dtype=torch.int32, device=device,
-        )
-        return offs[length.long()] + code
+        # The offset table is copied to the device once: a copy from
+        # host memory cannot be captured in a CUDA graph.
+        key = (self.num_types, self.max_len, device)
+        offs = _OFFSETS.get(key)
+        if offs is None:
+            offs = _OFFSETS[key] = torch.tensor(
+                [self.offset(k) if k >= 1 else 0
+                 for k in range(self.max_len + 1)],
+                dtype=torch.int32, device=device)
+        at = length.long().reshape(1)
+        return offs.index_select(0, at).reshape(()) + code
+
+
+# (num_types, max_len, device) -> DenseCodec's length-group offsets.
+_OFFSETS: dict = {}
 
 
 def make_codec(kind: str, num_types: int, max_len: int):

@@ -24,9 +24,9 @@ never falls back to eager.  Each word gets a code object of its own,
 so Dynamo's per-code cache holds one entry a word.
 
 **Device dispatchers** (the on-device engine): JAX selects the branch
-on the device with ``lax.switch``.  Eager PyTorch has no device-side
-switch, so the engine reads the window's types and length to the host
-once per super-step and the dispatcher runs the selected Python code:
+on the device with ``lax.switch``.  The engine's eager loop reads the
+window's types and length to the host once per super-step and the
+dispatcher runs the selected Python code:
 
 * :func:`build_switch_dispatcher` — one composed branch per dense
   codec word, indexed by the host-side word code;
@@ -40,19 +40,18 @@ All three run the identical handler sequence with the identical emit
 layout, so they are bit-identical to each other and to the JAX modes of
 the same names.
 
-How the fused slot is chosen on this stack: the engine already holds
-the window's word code on the host (it read the window's types and
-length once), so the slot is a host lookup in ``hot_slot_table`` and
-fused dispatch costs no device read beyond what ``switch`` costs.  A
-selection on the device (the slot as a tensor, the branches behind a
-device-side predicate) is what a captured CUDA graph would need, since
-a graph cannot take a host branch per step; that is for the captured
-loop (ROADMAP A5), which can also take the ``masked`` path with no
-read of the word at all.  In eager PyTorch a hot branch runs the same
-aten calls as the ``switch`` branch of its word: nothing compiles
-across the handlers on the device backend, so there the paper's
-cross-event scope is not recovered until the hot branches are compiled
-or captured.
+Each dispatcher's ``on_device`` makes the same choice from device
+tensors (the word code, the types, the length), as JAX's
+``_dispatch_window`` does: ``switch`` one
+:func:`~repro_torch.core.capture.select` over the words, ``masked`` one
+a lane over the types (none past ``length``), ``fused`` one over the
+hot slots and the fallback, the slot gathered from a device copy of
+``hot_slot_table``.  The engine's captured loop runs these; captured in
+a CUDA graph each ``select`` is a SWITCH node, so the step reads
+nothing.  The branches still run the same aten calls as the eager
+ones: nothing compiles across a word's handlers on the device backend,
+so there the paper's cross-event scope is not recovered until the
+branches inside the graph are compiled (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -65,6 +64,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.capture import bump, call_handler, select
 from repro_torch.core.codec import DenseCodec, make_codec
 from repro_torch.core.events import (
     ARG_WIDTH,
@@ -72,7 +72,6 @@ from repro_torch.core.events import (
     normalize_handler_result,
 )
 from repro_torch.core.program import normalize_arg
-from repro_torch.core.queue import COUNTS
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +325,7 @@ def _emit_layout(max_len: int, max_emit: int):
 
 def _apply(et, state, emits, i, t, arg, max_emit, emit_width):
     """Run one handler for window lane ``i``, writing its emit rows."""
-    result = et.handler(state, t, arg)
+    result = call_handler(et.name, et.handler, state, t, arg)
     if not et.returns_events:
         return result, emits
     state, new = result
@@ -383,8 +382,15 @@ def build_switch_dispatcher(registry: EventRegistry, codec: DenseCodec, *,
     def dispatch(code: int, state, ts, args):
         return branches[code](state, ts, args)
 
+    def on_device(code, state, ts, args):
+        """The same branch chosen on the device by the i32 ``code``."""
+        return select(code, [
+            lambda c, b=b: b(c[0], ts, args) for b in branches
+        ], (state, empty_emits(ts.device)))
+
     dispatch.num_batches = codec.num_batches
     dispatch.empty_emits = empty_emits
+    dispatch.on_device = on_device
     return dispatch
 
 
@@ -407,6 +413,23 @@ def build_masked_dispatcher(registry: EventRegistry, codec: DenseCodec, *,
                                   max_emit, emit_width)
         return state, emits
 
+    def on_device(state, ts, types, args, length):
+        """The same legs chosen on the device: lane ``i`` selects its
+        type's leg, none past the i32 ``length``."""
+        def leg(i, et):
+            return lambda c: _apply(et, c[0], c[1], i, ts[i], args[i],
+                                    max_emit, emit_width)
+
+        lanes = torch.arange(codec.max_len, device=ts.device)
+        sel = torch.where(lanes < length,
+                          torch.clamp(types, 0, num_types - 1), num_types)
+        carry = (state, empty_emits(ts.device))
+        for i in range(codec.max_len):
+            carry = select(sel[i], [leg(i, registry[ty])
+                                    for ty in range(num_types)], carry)
+        return carry
+
+    dispatch.on_device = on_device
     return dispatch
 
 
@@ -463,15 +486,42 @@ def build_fused_dispatcher(registry: EventRegistry, codec: DenseCodec,
     def dispatch(code: int, state, ts, types, args, length: int):
         slot = int(table[min(max(code, 0), codec.num_batches - 1)])
         if slot < len(hot):
-            COUNTS["fused_hot"] += 1
+            bump("fused_hot")
             return branches[slot](state, ts, args)
-        COUNTS["fused_fallback"] += 1
+        bump("fused_fallback")
         return fallback(state, ts, types, args, length)
+
+    tables: dict = {}
+
+    def on_device(code, state, ts, types, args, length):
+        """The same choice on the device: the slot gathered from a device
+        copy of ``hot_slot_table`` (made on the first call, which must
+        not be captured), then one branch a hot slot and the masked
+        fallback."""
+        dev = ts.device
+        if dev not in tables:
+            tables[dev] = torch.as_tensor(table, device=dev)
+        slot = tables[dev].index_select(0, torch.clamp(
+            code, 0, codec.num_batches - 1).long().reshape(1)).reshape(())
+
+        def hot_branch(b):
+            def run(c):
+                bump("fused_hot")
+                return b(c[0], ts, args)
+            return run
+
+        def fallback_branch(c):
+            bump("fused_fallback")
+            return fallback.on_device(c[0], ts, types, args, length)
+
+        return select(slot, [hot_branch(b) for b in branches]
+                      + [fallback_branch], (state, empty_emits(dev)))
 
     dispatch.hot_words = hot
     dispatch.num_hot = len(hot)
     dispatch.hot_slot_table = table
     dispatch.num_batches = codec.num_batches
+    dispatch.on_device = on_device
     return dispatch
 
 

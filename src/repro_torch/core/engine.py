@@ -14,8 +14,9 @@ in ``{"tiered3", "tiered", "flat", "reference"}``, ``dispatch_mode`` in
 tiered3 only, as in JAX), with the entity-parallel run path.  The
 sharded engine (:mod:`repro_torch.core.sharded`) subclasses it.
 
-JAX compiles the whole run into one ``lax.while_loop``.  Here the loop
-is a Python loop over eager super-steps, each of which:
+JAX compiles the whole run into one ``lax.while_loop``.  Here, with
+``loop="eager"`` (the default, and the spec), the loop is a Python loop
+over eager super-steps, each of which:
 
 1. reads the loop guard (pending events, ``next_time <= t_end``) to the
    host;
@@ -47,6 +48,31 @@ stats carry (``batches``, ``events``, ``emitted``, ``time``,
 ``validate`` / ``overflow="spill"`` enable them) matches the JAX
 engine's field for field; ``batches`` and ``events`` are host ints.
 
+``loop="captured"`` is the counterpart of JAX's jitted loop itself
+(:meth:`DeviceEngine._super_steps_captured`): one super-step, every
+branch of it selected on the device (the queue's rare paths as
+:func:`repro_torch.core.capture.cond`, the dispatch and the run path as
+:func:`~repro_torch.core.capture.select`), the whole body under
+``when(active)`` with the guard (``_guard``'s terms and ``batches <
+max_batches``) recomputed at its end.  On a CUDA device that step is
+captured once as a CUDA graph with conditional nodes and replayed
+``chunk`` times between host reads, each read carrying ``(active,
+batches, events)`` and the capture's counters (the rare paths',
+``run_path``'s, the fused routes' and each body's executions, which
+become ``COUNTS`` and the kernels' ``LAUNCHES``).  ``chunk`` defaults to
+64: on an H100 (700 W), PHOLD at 917,504 LPs replayed 1,958, 1,978 and
+1,986 steps/s at chunks of 32, 64 and 128, and 1,533, 1,492 and 1,690
+beside a slower host (``chip_smoke.py`` phase ``captured`` (a)): no
+chunk size wins beyond the noise, and a larger chunk only adds no-op
+replays after the guard stops.  The graph is kept across runs and
+segments of one signature (carry shapes and ``t_end``, which the
+``window_extract`` launch takes by value).  On the CPU the same step
+runs eagerly with its predicates read on the host
+(``COUNTS["cond_reads"]``).  It takes the single tiered3 queue under
+every dispatch mode, ``validate`` and ``overflow`` in
+``{"drop", "error"}``; spill, fenced runs, the other queues and the
+sharded engine raise :class:`ValueError` (ROADMAP A5).
+
 The robustness modes add no read to a common super-step: every check
 they make is folded into the one guard read.
 
@@ -70,11 +96,24 @@ they make is folded into the one guard read.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.core.capture import (
+    EmulateContext,
+    bump,
+    capture_graph,
+    cond,
+    launch_totals,
+    select,
+    set_launches,
+    signature,
+    step_context,
+    write_back,
+)
 from repro_torch.core.codec import DenseCodec, make_codec
 from repro_torch.core.composer import (
     EagerComposer,
@@ -147,7 +186,14 @@ _KNOBS = {
     "dispatch_mode": ("switch", "masked", "fused"),
     "validate": ("off", "cheap", "full"),
     "overflow": ("drop", "error", "spill"),
+    "loop": ("eager", "captured"),
 }
+
+def captured_refusal(what: str) -> ValueError:
+    """What ``loop="captured"`` does not run yet: ROADMAP A5's list."""
+    return ValueError(
+        f"loop='captured' does not run {what} yet (ROADMAP A5); build "
+        "with loop='eager'")
 
 # Per queue mode: (has_pending, next_time, insert, occupancy).  The
 # guard counts real events (``size`` also counts overflow ghosts): the
@@ -264,6 +310,12 @@ class DeviceEngine:
     to avoid copying its per-LP counters once per event).  ``run(...,
     stats=)`` resumes a previous run's cumulative stats carry: a
     segmented run is bit-identical to an unsegmented one.
+
+    ``loop="captured"`` runs the super-steps as replays of one captured
+    CUDA graph, ``chunk`` steps a host read (see the module docstring);
+    its handlers must not read the host, which raises
+    :class:`repro_torch.core.capture.CaptureError` naming the handler.
+    A failed capture raises; nothing falls back to the eager loop.
     """
 
     registry: EventRegistry
@@ -280,6 +332,9 @@ class DeviceEngine:
     overflow: str = "drop"
     device: object = None
     entity_handlers: dict | None = None
+    loop: str = "eager"
+    # Captured steps a host read (not a field: see the module docstring).
+    chunk = 64
 
     def __post_init__(self):
         self.registry.freeze()
@@ -287,6 +342,11 @@ class DeviceEngine:
             if getattr(self, knob) not in choices:
                 raise ValueError(f"unknown {knob} {getattr(self, knob)!r}; "
                                  f"expected one of {choices}")
+        if self.loop == "captured":
+            if self.queue_mode != "tiered3":
+                raise captured_refusal(f"queue_mode={self.queue_mode!r}")
+            if self.overflow == "spill":
+                raise captured_refusal("overflow='spill'")
         if self.overflow == "spill" and self.queue_mode != "tiered3":
             raise ValueError(
                 "overflow='spill' requires queue_mode='tiered3' (got "
@@ -341,6 +401,17 @@ class DeviceEngine:
                     "must not emit events")
             self._run_branches[ty] = make_masked_run_handler(local)
         self._lanes = torch.arange(self.max_batch_len, device=self.device)
+        # The captured loop: its run-branch table on the device (type ->
+        # index into _run_branches' sorted types, -1 for none) and its
+        # graph, kept across runs and segments of one signature.
+        self._run_table = None
+        if self.loop == "captured":
+            table = np.full((len(self.registry),), -1, np.int32)
+            for i, ty in enumerate(sorted(self._run_branches)):
+                table[ty] = i
+            self._run_table = torch.as_tensor(table, device=self.device)
+        self._captured = None
+        self.captures = 0
 
     @classmethod
     def from_program(cls, program, *, device=None,
@@ -352,7 +423,8 @@ class DeviceEngine:
                      dispatch_mode: str = "switch",
                      hot_words=None,
                      validate: str = "off",
-                     overflow: str = "drop") -> "DeviceEngine":
+                     overflow: str = "drop",
+                     loop: str = "eager") -> "DeviceEngine":
         """The device backend of a frozen SimProgram: its adapted
         registry, its entity-parallel handlers and its Config."""
         cfg = program.config
@@ -365,6 +437,7 @@ class DeviceEngine:
             dispatch_mode=dispatch_mode, hot_words=hot_words,
             validate=validate, overflow=overflow, device=device,
             entity_handlers=program.device_entity_handlers() or None,
+            loop=loop,
         )
 
     def initial_queue(self, events):
@@ -608,6 +681,195 @@ class DeviceEngine:
                           else None)
         return state, queue
 
+    # -- the captured loop ---------------------------------------------------
+    def _dispatch_window_device(self, state, ts, tys, args, length, code):
+        """:meth:`_dispatch_window` with every choice made on the device
+        (``tys``, ``length`` and ``code`` device tensors): JAX's
+        ``lax.cond(is_run, run_path, switch_path)`` as one
+        :func:`~repro_torch.core.capture.select` over the run branches
+        and the dispatch mode's path."""
+        def dispatch(c):
+            if self.dispatch_mode == "masked":
+                return self._dispatch_masked.on_device(c[0], ts, tys, args,
+                                                       length)
+            if self.dispatch_mode == "fused":
+                return self._dispatch_fused.on_device(code, c[0], ts, tys,
+                                                      args, length)
+            return self.dispatch.on_device(code, c[0], ts, args)
+
+        emits = self.dispatch.empty_emits(ts.device)
+        if not self._run_branches:
+            return dispatch((state, emits))
+        n_run = len(self._run_branches)
+        in_window = self._lanes < length
+        branch = self._run_table.index_select(0, torch.clamp(
+            tys[:1], 0, len(self.registry) - 1).long()).reshape(())
+        is_run = ((length > 0) & (branch >= 0)
+                  & torch.all(torch.where(in_window, tys == tys[0], True)))
+
+        def run_path(fn):
+            def go(c):
+                bump("run_path")
+                return (fn(c[0], ts, args, i32_sat(args[:, 0]), in_window),
+                        c[1])
+            return go
+
+        paths = [run_path(self._run_branches[ty])
+                 for ty in sorted(self._run_branches)]
+        return select(torch.where(is_run, branch, n_run), paths + [dispatch],
+                      (state, emits))
+
+    def _active(self, queue, stats, max_batches, t_end):
+        """The captured loop's guard on the device: JAX's ``cond`` (the
+        eager loop's guard read and its ``batches < max_batches``)."""
+        ok = (tiered3_queue_has_pending(queue)
+              & (tiered3_queue_next_time(queue) <= t_end)
+              & (stats["batches"] < max_batches))
+        return self._guard(ok, queue, stats, False, None)
+
+    def _step_captured(self, carry, t_end):
+        """One super-step of the captured loop: the whole body under
+        ``when(active)``, so a step past the end is an exact no-op.
+        ``carry`` holds ``state``, ``queue``, ``stats`` (``batches`` and
+        ``events`` as int64 device scalars), ``active`` and
+        ``max_batches``; returns the next carry."""
+        return cond(carry["active"],
+                    lambda c: self._step_body(c, t_end), carry)
+
+    def _step_body(self, carry, t_end):
+        state, queue = carry["state"], carry["queue"]
+        stats = dict(carry["stats"])
+        queue, ts, tys, args, length = self._extract(queue, t_end, None)
+        code = (self.codec.encode_torch(tys, length)
+                if self.dispatch_mode != "masked" or self._track_word_counts
+                else None)
+        state, emits = self._dispatch_window_device(state, ts, tys, args,
+                                                    length, code)
+        prev_time = stats["time"]
+        queue = tiered3_queue_fill_rows(queue, emits)
+        stats["batches"] = stats["batches"] + 1
+        stats["events"] = stats["events"] + length
+        stats["emitted"] = stats["emitted"] + torch.sum(
+            emits[:, 1] >= 0).to(torch.int32)
+        last = ts.index_select(0, torch.clamp(length - 1, min=0).long()
+                               .reshape(1)).reshape(())
+        stats["time"] = torch.maximum(stats["time"], last)
+        if self._track_word_counts:
+            stats["word_counts"] = stats["word_counts"].index_add(
+                0, code.long().reshape(1),
+                torch.ones(1, dtype=torch.int32, device=ts.device))
+        if self.validate != "off":
+            bits = self._cheap_fault_bits(queue) | torch.where(
+                (length > 0) & (ts[0] < prev_time), FAULT_CLOCK, 0
+            ).to(torch.int32)
+            stats["fault_word"] = stats["fault_word"] | bits
+        return {"state": state, "queue": queue, "stats": stats,
+                "active": self._active(queue, stats, carry["max_batches"],
+                                       t_end),
+                "max_batches": carry["max_batches"]}
+
+    def _super_steps_captured(self, state, queue, stats, max_batches,
+                              t_end):
+        """The captured loop: chunks of ``chunk`` steps, then one host
+        read of ``(active, batches, events)`` and the capture's counters.
+        On a CUDA device the step is one CUDA graph, captured once a
+        signature (:mod:`repro_torch.core.capture`) and replayed; on the
+        CPU the same step runs eagerly with its predicates read on the
+        host.  Updates ``stats`` in place; returns ``(state, queue)``."""
+        dev = self.device
+        carry = {
+            "state": state, "queue": queue,
+            "stats": {k: (torch.tensor(v, dtype=torch.int64, device=dev)
+                          if k in ("batches", "events") else v)
+                      for k, v in stats.items()},
+            "max_batches": torch.tensor(max_batches, dtype=torch.int64,
+                                        device=dev),
+        }
+        carry["active"] = self._active(queue, carry["stats"],
+                                       carry["max_batches"], t_end)
+        if dev.type == "cuda":
+            carry = self._chunks_on_card(carry, t_end)
+        else:
+            carry = self._chunks_emulated(carry, t_end)
+        for k, v in carry["stats"].items():
+            stats[k] = v
+        return carry["state"], carry["queue"]
+
+    def _chunk_read(self, carry, extra=None) -> list:
+        """The chunk's one host read: ``[active, batches, events,
+        *extra]``."""
+        st = carry["stats"]
+        parts = [carry["active"].to(torch.int64).reshape(1),
+                 st["batches"].reshape(1), st["events"].reshape(1)]
+        if extra is not None:
+            parts.append(extra)
+        return host_list(torch.cat(parts))
+
+    def _chunks_emulated(self, carry, t_end):
+        ctx = EmulateContext()
+        while True:
+            with step_context(ctx):
+                for _ in range(self.chunk):
+                    carry = self._step_captured(carry, t_end)
+            vals = self._chunk_read(carry)
+            if not vals[0]:
+                break
+        carry["stats"] = dict(carry["stats"], batches=vals[1],
+                              events=vals[2])
+        return carry
+
+    def _chunks_on_card(self, carry, t_end):
+        key = (t_end, signature(carry))
+        if self._captured is None or self._captured[0] != key:
+            self._captured = None
+            static = tree_map(lambda x: x.clone(), carry)
+            t0 = time.perf_counter()
+            self._warm_up(static, t_end)
+            step = capture_graph(
+                self.device, lambda: self._step_captured(static, t_end))
+            self.capture_seconds = time.perf_counter() - t0
+            self.captures += 1
+            self._captured = (key, static, step)
+        else:
+            _, static, step = self._captured
+            write_back(static, carry)
+        ctx = step.ctx
+        while True:
+            for _ in range(self.chunk):
+                step.replay()
+            vals = self._chunk_read(static, ctx.counters[:ctx.used])
+            ctx.fold(vals[3:], self.chunk)
+            if not vals[0]:
+                break
+        out = tree_map(lambda x: x.clone(), static)
+        out["stats"] = dict(out["stats"], batches=vals[1], events=vals[2])
+        return out
+
+    def _warm_up(self, static, t_end):
+        """Before the capture, on a side stream: one step run eagerly on
+        copies of the carry (device tables and kernel plans are made
+        here, outside any graph, and a handler that reads the host
+        raises), then one relaxed capture of the whole step that is
+        thrown away (every branch's first launches happen there).  The
+        counts both make are taken back."""
+        counts, launches = dict(COUNTS), launch_totals()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            scratch = tree_map(lambda x: x.clone(), static)
+            with step_context(EmulateContext()):
+                # The body even past the end: its tables are needed.
+                self._step_body(scratch, t_end)
+            del scratch
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        capture_graph(self.device,
+                      lambda: self._step_captured(static, t_end),
+                      relaxed=True)
+        COUNTS.clear()
+        COUNTS.update(counts)
+        set_launches(launches)
+
     def run(self, state, queue, *, max_batches: int = 1 << 30,
             t_end: float = float("inf"), stats: dict | None = None):
         """Run until the pending set drains, ``max_batches`` super-steps
@@ -648,8 +910,15 @@ class DeviceEngine:
             stats["fault_word"] = (stats["fault_word"]
                                    | self._cheap_fault_bits(queue))
         syncs0 = COUNTS["host_syncs"]
-        state, queue = self._super_steps(state, queue, stats, max_batches,
-                                         t_end, fenced)
+        if self.loop == "captured":
+            if fenced:
+                raise captured_refusal(
+                    "a fenced run (spill or streamed arrivals)")
+            state, queue = self._super_steps_captured(
+                state, queue, stats, max_batches, t_end)
+        else:
+            state, queue = self._super_steps(state, queue, stats,
+                                             max_batches, t_end, fenced)
         # The reads the super-steps made (the guard's last read included),
         # apart from those of the segment boundaries around them.
         COUNTS["loop_syncs"] += COUNTS["host_syncs"] - syncs0

@@ -492,8 +492,8 @@ class SimProgram:
               front_cap: int | None = None, stage_cap: int | None = None,
               num_runs: int | None = None, dispatch_mode: str = "switch",
               hot_words=None, validate: str = "off",
-              overflow: str = "drop", check: str = "off",
-              state_spec=None, arg_spec=None,
+              overflow: str = "drop", loop: str = "eager",
+              check: str = "off", state_spec=None, arg_spec=None,
               check_causality: bool = False,
               window_slack: float = float("inf"),
               jit_handlers: bool = True) -> "CompiledSim":
@@ -523,6 +523,15 @@ class SimProgram:
         ``window_slack`` (speculative) and ``jit_handlers``: each batch
         word (each handler, unbatched) goes through ``torch.compile``
         unless it is ``False``.
+
+        ``loop`` (device backend): ``"eager"``, the Python loop over
+        eager super-steps, or ``"captured"``, one super-step captured as
+        a CUDA graph and replayed in chunks with one host read a chunk
+        (:meth:`repro_torch.core.engine.DeviceEngine._super_steps_captured`;
+        on the CPU the same step with its branches read on the host).
+        ``"captured"`` takes the single tiered3 queue under every
+        dispatch mode, ``validate`` and ``overflow="drop"``/``"error"``,
+        and raises :class:`ValueError` for the rest.
 
         ``check`` (either backend) runs the static analyzer over the
         model: ``"error"`` raises :class:`AnalysisError` on any
@@ -578,6 +587,7 @@ class SimProgram:
                 "hot_words": hot_words is not None,
                 "validate": validate != "off",
                 "overflow": overflow != "drop",
+                "loop": loop != "eager",
             }
             bad = [k for k, hit in misdirected.items() if hit]
             if bad:
@@ -633,12 +643,19 @@ class SimProgram:
         if shards is not None:
             from repro_torch.core.sharded import ShardedDeviceEngine
 
+            if loop != "eager":
+                from repro_torch.core.engine import captured_refusal
+
+                raise captured_refusal(
+                    f"the sharded engine (placement={placement!r})")
+
             return CompiledSim(self, ShardedDeviceEngine.from_program(
                 self, shards=shards, shard_fn=shard_fn, placement=placement,
                 **kw), check=deferred_check)
         from repro_torch.core.engine import DeviceEngine
 
-        return CompiledSim(self, DeviceEngine.from_program(self, **kw),
+        return CompiledSim(self, DeviceEngine.from_program(self, loop=loop,
+                                                           **kw),
                            check=deferred_check)
 
     def _build_host(self, *, device, scheduler, composer, state_spec,

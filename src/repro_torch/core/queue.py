@@ -19,10 +19,14 @@ values, same ghost and ``dropped`` accounting.
 
 How the JAX control flow maps onto eager PyTorch:
 
-* Every ``lax.cond`` becomes a Python ``if`` on one host read of its
-  predicate (:func:`host_read`).  Each read is counted in
-  ``COUNTS["host_syncs"]``; each rare path counts its firings under its
-  own key, so a run can show which paths it exercised.
+* Every ``lax.cond`` of the tiered3 queue is a
+  :func:`repro_torch.core.capture.cond` (or ``if_else``): in the eager
+  loop a Python ``if`` on one host read of its predicate
+  (:func:`host_read`, counted in ``COUNTS["host_syncs"]``), in the
+  engine's captured loop an IF node of the step's CUDA graph.  Each
+  rare path counts its firings under its own key (:func:`bump`), so a
+  run can show which paths it exercised.  The two-tier queue's conds
+  stay host reads.
 * ``dynamic_slice``/``dynamic_update_slice`` clamp their start the way
   XLA does (:func:`_update_slice`), and every index a gather sees is
   clipped in range, as in the JAX code, so no gather can fault.
@@ -43,27 +47,32 @@ so a flat or reference super-step reads the host only for the engine's
 guard and window.
 
 Queue tensors are never updated in place: every operation returns new
-tensors, as the JAX functions do.
+tensors, as the JAX functions do (a captured cond writes its body's
+results into the queue it was given; see :mod:`repro_torch.core.capture`).
 """
 
 from __future__ import annotations
 
-import collections
 import heapq
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.capture import (  # noqa: F401  (re-exported)
+    COUNTS,
+    bump,
+    cond,
+    host_list,
+    host_read,
+    if_else,
+)
 from repro_torch.core.events import ARG_WIDTH, Event
 
 INF = float("inf")
 I32_MAX = 2**31 - 1
 _I32 = torch.int32
 
-# Rare-path firings and device-to-host reads, by name.  Plain counters:
-# callers reset them (``COUNTS.clear()``) around the run they measure.
-COUNTS: collections.Counter = collections.Counter()
 
 
 class HostEventQueue:
@@ -118,18 +127,6 @@ class HostEventQueue:
 
     def __bool__(self) -> bool:
         return bool(self._heap)
-
-
-def host_read(t: torch.Tensor):
-    """Read a 0-d tensor to the host (one counted device sync)."""
-    COUNTS["host_syncs"] += 1
-    return t.item()
-
-
-def host_list(t: torch.Tensor) -> list:
-    """Read a small 1-d tensor to the host (one counted device sync)."""
-    COUNTS["host_syncs"] += 1
-    return t.tolist()
 
 
 def to_local(x: torch.Tensor) -> torch.Tensor:
@@ -643,17 +640,18 @@ def _merge_runs_into_main(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
     m_last = _at(q.m_times, torch.clamp(tail - 1, 0, P - 1))
     can_append = ((q.main_n == 0) | (bt[0] > m_last)) & (tail + RL <= P)
 
-    if host_read(can_append):
-        COUNTS["merge_append"] += 1
-        q = q._replace(
+    def append(q):
+        bump("merge_append")
+        return q._replace(
             m_times=_update_slice(q.m_times, bt, tail),
             m_types=_update_slice(q.m_types, by, tail),
             m_args=_update_slice(q.m_args, ba, tail),
             m_seqs=_update_slice(q.m_seqs, bs, tail),
             m_head=head,
         )
-    else:
-        COUNTS["merge_compact"] += 1
+
+    def compact(q):
+        bump("merge_compact")
         ct = torch.cat([_ring_unroll(q.m_times, INF, q.m_head, q.main_n), bt])
         cy = torch.cat([_ring_unroll(q.m_types, -1, q.m_head, q.main_n), by])
         ca = torch.cat([_ring_unroll(q.m_args, 0.0, q.m_head, q.main_n), ba])
@@ -662,10 +660,12 @@ def _merge_runs_into_main(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
         # Real elements <= logical capacity <= P, so truncating the
         # sorted concat to P drops only sentinels.
         perm = _lex_order(ct, cs)[:P]
-        q = q._replace(
+        return q._replace(
             m_times=ct[perm], m_types=cy[perm], m_args=ca[perm],
             m_seqs=cs[perm], m_head=torch.zeros_like(q.m_head),
         )
+
+    q = if_else(can_append, append, compact, q)
     return q._replace(
         main_n=q.main_n + run_live,
         r_off=torch.zeros_like(q.r_off),
@@ -676,7 +676,7 @@ def _merge_runs_into_main(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
 def _rotate_main(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
     """Re-center the sorted main ring at a margin of dead slots (one
     gather per column, no sort)."""
-    COUNTS["rotate"] += 1
+    bump("rotate")
     P, S = q.main_phys, q.stage_cap
     margin = torch.clamp(torch.clamp(P - q.main_n - S, min=0),
                          max=max(2 * S, P // 4))
@@ -694,7 +694,7 @@ def _flush_stage_to_run(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
     the suffix after the main tail is appended to the ring's slack, the
     prefix inside the main head window is counting-merged into the ring
     head, and the middle becomes one new sorted run."""
-    COUNTS["flush"] += 1
+    bump("flush")
     S, P = q.stage_cap, q.main_phys
     dev = q.device
     K = max(min(S, 32), S // 4)
@@ -722,15 +722,14 @@ def _flush_stage_to_run(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
     after_tail = sval & ((q.main_n == 0) | (st > m_last))
     n_suf = _i32(torch.sum(after_tail))
 
-    if host_read(n_suf > 0):
-        COUNTS["suffix_append"] += 1
-        if host_read(torch.where(q.main_n > 0, q.m_head, 0)
-                     + q.main_n + S > P):
-            q = _rotate_main(q)
+    def suffix_append(q):
+        bump("suffix_append")
+        q = cond(torch.where(q.main_n > 0, q.m_head, 0) + q.main_n + S > P,
+                 _rotate_main, q)
         head1 = torch.where(q.main_n > 0, q.m_head, 0)
         tail1 = head1 + q.main_n
         bt, by, ba, bs = sub_block(s_total - n_suf, n_suf)
-        q = q._replace(
+        return q._replace(
             m_times=_update_slice(q.m_times, bt, tail1),
             m_types=_update_slice(q.m_types, by, tail1),
             m_args=_update_slice(q.m_args, ba, tail1),
@@ -738,6 +737,8 @@ def _flush_stage_to_run(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
             m_head=head1,
             main_n=q.main_n + n_suf,
         )
+
+    q = cond(n_suf > 0, suffix_append, q)
 
     # --- prefix: strictly inside the head window -> bounded merge -----
     suf_lo = s_total - n_suf
@@ -752,17 +753,16 @@ def _flush_stage_to_run(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
         wy = torch.where(ext_live, _take(q.m_types, ext_idx), -1)
         wa = torch.where(ext_live[:, None], _take(q.m_args, ext_idx), 0.0)
         n_pre_want = _i32(torch.sum(sval & (j_idx < suf_lo) & (st < wt[K])))
-        if host_read((n_pre_want > 0)
-                     & ((head < n_pre_want)
-                        | (head - n_pre_want + KS > P))):
-            q = _rotate_main(q)
+        q = cond((n_pre_want > 0)
+                 & ((head < n_pre_want) | (head - n_pre_want + KS > P)),
+                 _rotate_main, q)
         head = torch.where(q.main_n > 0, q.m_head, 0)
         n_pre = torch.where(
             (head >= n_pre_want) & (head - n_pre_want + KS <= P),
             n_pre_want, 0)
 
-        if host_read(n_pre > 0):
-            COUNTS["head_merge"] += 1
+        def head_merge(q):
+            bump("head_merge")
             is_pre = j_idx < n_pre
             bt = torch.where(is_pre, st, INF)
             bs = torch.where(is_pre, sseq, I32_MAX)
@@ -783,7 +783,7 @@ def _flush_stage_to_run(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
                 merged = _take(torch.cat([wcol, bcol]), src)
                 return _update_slice(col, merged, start)
 
-            q = q._replace(
+            return q._replace(
                 m_times=merge_put(q.m_times, wt, st),
                 m_types=merge_put(q.m_types, wy, sty),
                 m_args=merge_put(q.m_args, wa, sarg),
@@ -792,15 +792,17 @@ def _flush_stage_to_run(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
                 main_n=q.main_n + n_pre,
             )
 
+        q = cond(n_pre > 0, head_merge, q)
+
     # --- middle: whatever neither leg could place -> one sorted run ---
     n_mid = s_total - n_suf - n_pre
-    if host_read(n_mid > 0):
-        COUNTS["to_run"] += 1
-        if host_read(torch.all(q.r_len > q.r_off)):
-            q = _merge_runs_into_main(q)
+
+    def to_run(q):
+        bump("to_run")
+        q = cond(torch.all(q.r_len > q.r_off), _merge_runs_into_main, q)
         slot = _i32(q.r_off >= q.r_len).argmax().reshape(1)
         bt, by, ba, bs = sub_block(n_pre, n_mid)
-        q = q._replace(
+        return q._replace(
             r_times=q.r_times.index_copy(0, slot, bt[None]),
             r_types=q.r_types.index_copy(0, slot, by[None]),
             r_args=q.r_args.index_copy(0, slot, ba[None]),
@@ -808,6 +810,8 @@ def _flush_stage_to_run(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
             r_off=q.r_off.index_copy(0, slot, torch.zeros_like(q.r_off[:1])),
             r_len=q.r_len.index_copy(0, slot, n_mid.reshape(1)),
         )
+
+    q = cond(n_mid > 0, to_run, q)
 
     et, ey, ea, es = _sentinel_cols(S, q.s_args.shape[1], dev)
     return q._replace(s_times=et, s_types=ey, s_args=ea, s_seqs=es,
@@ -826,16 +830,14 @@ def _runs_intersect_refill(q: Tiered3DeviceQueue) -> torch.Tensor:
 def _refill_front3(q: Tiered3DeviceQueue, w: int) -> Tiered3DeviceQueue:
     """Front refill: flush staging first, then the main-only gather or
     the bounded k-way merge with its take capped at ``w``."""
-    if host_read(q.stage_n > 0):
-        q = _flush_stage_to_run(q)
-    if host_read(_runs_intersect_refill(q)):
-        return _refill_kway(q, w)
-    return _refill_main_only(q)
+    q = cond(q.stage_n > 0, _flush_stage_to_run, q)
+    return if_else(_runs_intersect_refill(q),
+                   lambda q: _refill_kway(q, w), _refill_main_only, q)
 
 
 def _refill_main_only(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:
     """Refill from the main ring head alone (no run intersects)."""
-    COUNTS["refill_main_only"] += 1
+    bump("refill_main_only")
     F, P = q.front_cap, q.m_times.shape[0]
     take = torch.minimum(F - q.front_n, q.main_n)
     i_idx = _arange(F, q.device)
@@ -869,7 +871,7 @@ def _refill_kway(q: Tiered3DeviceQueue, w: int | None = None
     first ``w`` live elements of every run plus the main head window,
     lex-ranked all-pairs; each source advances its head offset by the
     number taken."""
-    COUNTS["refill_kway"] += 1
+    bump("refill_kway")
     F, R, S, P = q.front_cap, q.num_runs, q.stage_cap, q.main_phys
     dev = q.device
     W = F if w is None else min(w, F)
@@ -897,7 +899,7 @@ def _refill_kway(q: Tiered3DeviceQueue, w: int | None = None
     ca = torch.cat([ca_r.reshape(R * W, A), ca_m])
     cs = torch.cat([cs_r.reshape(R * W), cs_m])
     src = torch.cat([
-        torch.repeat_interleave(_arange(R, dev), W),
+        _arange(R, dev)[:, None].expand(R, W).reshape(R * W),
         torch.full((W,), R, dtype=_I32, device=dev),
     ])
     valid = torch.cat([rvalid.reshape(R * W), mvalid])
@@ -909,9 +911,10 @@ def _refill_kway(q: Tiered3DeviceQueue, w: int | None = None
     need = torch.clamp(F - q.front_n, max=W)
     take = (_arange(N, dev) < need) & valid
     taken = _i32(torch.sum(take))
-    # Untaken candidates count into bin R + 1 (always in range).
-    counts = _i32(torch.bincount(torch.where(take, src, R + 1).long(),
-                                 minlength=R + 2))
+    # Untaken candidates count into bin R + 1 (always in range).  A
+    # scatter-add, where bincount would read its largest bin to the host.
+    counts = torch.zeros(R + 2, dtype=_I32, device=dev).scatter_add_(
+        0, torch.where(take, src, R + 1).long(), torch.ones_like(src))
 
     main_taken = counts[R]
     main_n = q.main_n - main_taken
@@ -960,10 +963,12 @@ def tiered3_queue_peek_front(q: Tiered3DeviceQueue, k: int, refill=None):
     if k > q.front_cap:
         raise ValueError(
             f"peek width {k} exceeds front tier capacity {q.front_cap}")
+    w = min(q.front_cap, 4 * k)
     if refill is None:
-        refill = host_read(tiered3_queue_refill_flag(q, k))
-    if refill:
-        q = _refill_front3(q, min(q.front_cap, 4 * k))
+        q = cond(tiered3_queue_refill_flag(q, k),
+                 lambda q: _refill_front3(q, w), q)
+    elif refill:
+        q = _refill_front3(q, w)
     return q, q.f_times[:k], q.f_types[:k], q.f_args[:k], q.f_seqs[:k]
 
 
@@ -1114,7 +1119,7 @@ def _tiered3_preflush(q: Tiered3DeviceQueue, R: int,
     :func:`preflush_flag`; ``None`` reads it here."""
     flag = preflush_flag(q, R)
     if flush is None:
-        flush = host_read(flag)
+        return cond(flag, _flush_stage_to_run, q)
     if flush:
         q = _flush_stage_to_run(q)
     return q

@@ -295,6 +295,11 @@ class ShardedDeviceEngine(DeviceEngine):
     placement: str = "serial"
 
     def __post_init__(self):
+        if self.loop == "captured":
+            from repro_torch.core.engine import captured_refusal
+
+            raise captured_refusal(
+                f"the sharded engine (placement={self.placement!r})")
         if self.queue_mode != "tiered3":
             raise ValueError(
                 f"ShardedDeviceEngine requires queue_mode='tiered3' "

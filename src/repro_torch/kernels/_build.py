@@ -27,7 +27,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # Every source of csrc/, by name; chip_smoke.py builds them all at once.
-SOURCES = ("queue_front", "attention", "rwkv6_scan", "mamba_scan")
+SOURCES = ("queue_front", "attention", "rwkv6_scan", "mamba_scan",
+           "graph_cond")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
