@@ -122,7 +122,8 @@ Phases, each printed on its own line:
    seeds start in the host pool (a rebalance at the first boundary), the
    fence (393216.0, 786432) is live in every extract, and the run is
    held bit for bit to phase 4's card run (state, checksum, events,
-   batches, final_time).
+   batches, final_time); then the same spilling run in the captured
+   loop, held to (b) (:func:`_captured_run`).
 5e. resume — the same PHOLD with ``validate="cheap"`` and a checkpoint
    every 1,024 super-steps into a temporary directory; a crash after
    segment 2, then ``resume_from="latest"``, held bit for bit to phase
@@ -140,7 +141,14 @@ Phases, each printed on its own line:
    The segmented runs of 5d-5g launch ``window_extract`` once a
    super-step and ``front_merge`` once a super-step and once an absorbed
    chunk; each prints its host syncs per super-step inside the engine's
-   loop (``loop_syncs``) beside the total.
+   loop (``loop_syncs``) beside the total.  5d (b), 5g (a) and (b) and
+   each of 5h's other queues also run in the captured loop
+   (``loop="captured"``), each held bit for bit to its eager card run:
+   every field of (a)'s check, spilled, ingested, shed, the fault word,
+   the final fence, the engine's counts, the kernels' launches, one
+   capture for the whole run and one loop read a chunk of each segment;
+   each prints its replayed steps/s beside the eager loop's, loop reads
+   a step, captures, capture seconds, steps a segment and peak memory.
 5g2. host — the host backend (``build(backend="host")``): (a) phase 4's
    PHOLD (917,504 LPs, the whole pending set in the host heap) to
    ``until`` ``HOST_UNTIL`` under ``conservative``, ``speculative`` and
@@ -1544,7 +1552,8 @@ def run_serving_admission(device_name: str):
 CAPTURED_COUNTS = ("flush", "refill_kway", "refill_main_only", "to_run",
                    "merge_compact", "merge_append", "head_merge",
                    "suffix_append", "rotate", "run_path", "fused_hot",
-                   "fused_fallback")
+                   "fused_fallback", "flush_append", "flush_merge",
+                   "absorb", "absorb_chunks", "rebalance")
 CAPTURED_PROFILE_STEPS = 64
 CAPTURED_CHUNKS = (32, 64, 128)      # (a)'s chunk sizes, 1,024 steps each
 
@@ -1555,23 +1564,85 @@ def _count_problems(counts, want, label) -> list:
     return [] if got == exp else [f"{label}: counts {got}, eager {exp}"]
 
 
-def _captured_run(label, build, state, ref, ref_counts, **run_kw):
+def _fence_of(res):
+    """A fenced run's final fence ``(bound_t, bound_seq)``, else None."""
+    if "bound_t" not in res.raw:
+        return None
+    return (float(res.raw["bound_t"]), int(res.raw["bound_seq"]))
+
+
+def _captured_run(label, build, state, ref, ref_counts, ref_launches=None,
+                  ref_loop_s=None, **run_kw):
     """Drive a captured build on the card and hold it to an eager card
-    run of the same configuration: every field ``parity_problems``
-    checks, the engine's counts, launches equal to super-steps and one
-    loop read a chunk.  Returns ``(sim, result, counts, card seconds)``."""
+    run of the same configuration (``ref``, with its counts, its
+    launches (default: each queue kernel once a super-step) and its loop
+    seconds): every field ``parity_problems`` checks, the spilled,
+    ingested and shed counts, the fault word, the final fence, the
+    engine's counts, the launches, one capture for the whole run and one
+    loop read a chunk of each segment (a segmented run calls the
+    engine's ``run`` once a segment).  Returns ``(sim, result, counts,
+    card seconds, fields)``, the fields those a phase line prints:
+    replayed steps/s (beside the eager loop's, given ``ref_loop_s``),
+    loop reads a step, captures, capture seconds, steps a segment and
+    peak device memory above what was held before the run."""
+    import torch
+
     sim = build()
+    eng = sim.engine
+    loop_s = time_engine(sim)
+    segments = []
+    timed_run = eng.run
+
+    def counted(*args, stats=None, **kw):
+        entry = 0 if stats is None else stats["batches"]
+        out = timed_run(*args, stats=stats, **kw)
+        segments.append(out[2]["batches"] - entry)
+        return out
+
+    eng.run = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
     res, card_s, launches, counts = drive(sim, state(), **run_kw)
-    problems = (parity_problems(res, ref)
-                + launch_problems(launches, res.batches)
-                + _count_problems(counts, ref_counts, label))
-    chunks = max(1, math.ceil(res.batches / sim.engine.chunk))
-    if counts.get("loop_syncs") != chunks:
-        problems.append(f"{counts.get('loop_syncs')} loop reads, "
-                        f"{chunks} chunks")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20 - base_mb
+    loop_s = loop_s()
+    problems = parity_problems(res, ref)
+    for name in ("spilled", "ingested", "shed", "fault_word"):
+        if getattr(res, name) != getattr(ref, name):
+            problems.append(f"{name}: captured {getattr(res, name)} "
+                            f"eager {getattr(ref, name)}")
+    if _fence_of(res) != _fence_of(ref):
+        problems.append(f"fence {_fence_of(res)}, eager {_fence_of(ref)}")
+    problems += _count_problems(counts, ref_counts, label)
+    problems += (launch_problems(launches, res.batches)
+                 if ref_launches is None
+                 else _launch_want(launches, ref_launches, label))
+    if eng.captures != 1:
+        problems.append(f"{eng.captures} captures in one run, want 1")
+    reads = sum(max(1, math.ceil(n / eng.chunk)) for n in segments)
+    if counts.get("loop_syncs") != reads:
+        problems.append(f"{counts.get('loop_syncs')} loop reads, {reads} "
+                        f"chunks in {len(segments)} segments")
     if problems:
         raise PhaseError(f"captured {label}: " + "; ".join(problems))
-    return sim, res, counts, card_s
+    fields = dict(
+        captured_batches=res.batches,
+        replay_steps_per_s=(
+            f"{res.batches / (loop_s - eng.capture_seconds):.1f}"),
+        captured_loop_syncs_per_step=(
+            f"{counts['loop_syncs'] / res.batches:.6f}"),
+        captured_host_syncs_per_step=(
+            f"{counts['host_syncs'] / res.batches:.6f}"),
+        captures=eng.captures, capture_s=f"{eng.capture_seconds:.3f}",
+        segments=len(segments),
+        steps_per_segment=f"{res.batches / len(segments):.1f}",
+        captured_card_s=f"{card_s:.3f}", captured_loop_s=f"{loop_s:.3f}",
+        captured_peak_mb=f"{peak_mb:.1f}",
+        captured_launches=json.dumps(launches, separators=(",", ":")),
+        captured_bit_identical_to_eager=True)
+    if ref_loop_s is not None:
+        fields["eager_loop_steps_per_s"] = f"{ref.batches / ref_loop_s:.1f}"
+    return sim, res, counts, card_s, fields
 
 
 def _profiled_kernels(fn) -> dict:
@@ -1703,7 +1774,7 @@ def run_captured(device_name: str, phold_res, phold_counts, phold_loop_s,
         ref, ref_s, _, ref_counts = drive(eager, phold_state(),
                                           max_batches=MODES_BATCHES)
         del eager
-        csim, cres, ccounts, c_s = _captured_run(
+        csim, cres, ccounts, c_s, _ = _captured_run(
             f"phold {mode}", phold_build(dispatch_mode=mode, **kw),
             phold_state, ref, ref_counts, max_batches=MODES_BATCHES)
         phase("captured", case=f"b_phold_{mode}", batches=cres.batches,
@@ -1722,7 +1793,7 @@ def run_captured(device_name: str, phold_res, phold_counts, phold_loop_s,
         kw = dict(dispatch_mode=mode)
         if ref.raw["hot_words"] is not None:
             kw["hot_words"] = ref.raw["hot_words"]
-        csim, cres, ccounts, c_s = _captured_run(
+        csim, cres, ccounts, c_s, _ = _captured_run(
             f"poc {mode}", lambda: poc.build_program(
                 16, config=Config(max_batch_len=4)).build(
                     backend="device", device=device_name, loop="captured",
@@ -1744,7 +1815,7 @@ def run_captured(device_name: str, phold_res, phold_counts, phold_loop_s,
             kw = dict(dispatch_mode=mode)
             if ref.raw["hot_words"] is not None:
                 kw["hot_words"] = ref.raw["hot_words"]
-            csim, cres, ccounts, c_s = _captured_run(
+            csim, cres, ccounts, c_s, _ = _captured_run(
                 f"mmc {stations} {mode}", lambda: mmc.build_program(
                     num_stations=stations, t_open=t_open,
                     max_batch_len=mbl, capacity=cap).build(
@@ -1912,12 +1983,21 @@ def run_overflow(device_name: str, phold_res, phold_loop_s,
     if res.spilled != want_spilled:
         problems.append(f"{res.spilled} events in the pool, expected "
                         f"{want_spilled}")
-    fence = (float(res.raw["bound_t"]), int(res.raw["bound_seq"]))
+    fence = _fence_of(res)
     if fence != SPILL_FENCE:
         problems.append(f"fence {fence}, expected {SPILL_FENCE}")
     problems += segment_launch_problems(every, res.batches, counts)
     if problems:
         raise PhaseError("overflow: " + "; ".join(problems))
+    # The same spilling run in the captured loop, held to this one.
+    *_, captured = _captured_run(
+        "overflow", lambda: phold.build_program(
+            num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+            capacity=SPILL_CAPACITY).build(
+                backend="device", device=device_name, overflow="spill",
+                loop="captured"),
+        lambda: phold.initial_state(PHOLD_LPS, device_name), res, counts,
+        every, loop_s, max_batches=PHOLD_BATCHES)
     phase("overflow", lps=PHOLD_LPS, capacity=SPILL_CAPACITY,
           batches=res.batches, events=res.events, spilled=res.spilled,
           dropped=res.dropped, fence=json.dumps(list(fence)),
@@ -1931,7 +2011,7 @@ def run_overflow(device_name: str, phold_res, phold_loop_s,
           rebalances=counts.get("rebalance", 0),
           absorbs=counts.get("absorb", 0),
           launches=json.dumps(every, separators=(",", ":")),
-          bit_identical_to_phold=True)
+          bit_identical_to_phold=True, **captured)
 
 
 def run_resume(device_name: str, phold_res, phold_loop_s,
@@ -2098,10 +2178,13 @@ def run_stream(device_name: str):
             scenarios.initial_state(ADMIT_SLOTS, "cpu"), arrivals=source(),
             until=STREAM_UNTIL)
         cpu_s = time.perf_counter() - t0
+        sim = build(capacity, device_name, **kw)
+        loop_s = time_engine(sim)
         res, card_s, every, counts = drive(
-            build(capacity, device_name, **kw),
-            scenarios.initial_state(ADMIT_SLOTS, device_name),
+            sim, scenarios.initial_state(ADMIT_SLOTS, device_name),
             arrivals=source(), until=STREAM_UNTIL)
+        loop_s = loop_s()
+        del sim
         problems = parity_problems(res, ref) + _outcome_problems(
             res, preseeded)
         problems += segment_launch_problems(every, res.batches, counts)
@@ -2118,6 +2201,13 @@ def run_stream(device_name: str):
             problems.append("the spill pool was never rebalanced")
         if problems:
             raise PhaseError(f"stream {case}: " + "; ".join(problems))
+        # The same streamed run in the captured loop, held to this one.
+        *_, captured = _captured_run(
+            f"stream {case}",
+            lambda: build(capacity, device_name, loop="captured", **kw),
+            lambda: scenarios.initial_state(ADMIT_SLOTS, device_name),
+            res, counts, every, loop_s, arrivals=source(),
+            until=STREAM_UNTIL)
         cards[case] = (res, counts)
         phase("stream", case=case, capacity=capacity,
               overflow=kw.get("overflow", "drop"), requests=ADMIT_REQUESTS,
@@ -2129,9 +2219,11 @@ def run_stream(device_name: str):
               card_s=f"{card_s:.3f}", cpu_s=f"{cpu_s:.3f}",
               preseeded_card_s=f"{pre_s:.3f}",
               card_steps_per_s=f"{res.batches / card_s:.1f}",
+              loop_steps_per_s=f"{res.batches / loop_s:.1f}",
               **_syncs(counts, res.batches),
               launches=json.dumps(every, separators=(",", ":")),
-              bit_identical_to_cpu=True, equals_preseeded=True)
+              bit_identical_to_cpu=True, equals_preseeded=True,
+              **captured)
     return cards["a"]
 
 
@@ -2604,10 +2696,13 @@ def run_phold_built(device_name: str, batches: int, **build_kw):
     if on_card:
         torch.cuda.reset_peak_memory_stats()
         base_mb = torch.cuda.memory_allocated() / 2**20
+        loop_s = time_engine(sim)
     res, card_s, every, counts = drive(
         sim, phold.initial_state(PHOLD_LPS, device_name),
         max_batches=batches)
     if on_card:
+        # The loop's seconds (without the initial queue's build).
+        res.raw["loop_s"] = loop_s()
         # The run's peak device memory above what was held before it:
         # the queues, the state and the loop's temporaries.
         counts["peak_mb"] = round(
@@ -2616,7 +2711,11 @@ def run_phold_built(device_name: str, batches: int, **build_kw):
 
 
 def run_queue_modes(device_name: str, phold_res, phold_counts):
-    """Phase 5h; returns the tiered3 yardstick run and its counts."""
+    """Phase 5h; returns the tiered3 yardstick run and its counts.  Each
+    of the other queues also runs in the captured loop, held to its
+    eager run (:func:`_captured_run`)."""
+    from repro_torch.examples import phold
+
     base, setup_s, card_s, every, counts = run_phold_built(
         device_name, MODES_BATCHES)
     problems = _launch_want(every, {"window_extract": base.batches,
@@ -2651,6 +2750,15 @@ def run_queue_modes(device_name: str, phold_res, phold_counts):
             problems.append("the staging flush never merged")
         if problems:
             raise PhaseError(f"queue_modes {mode}: " + "; ".join(problems))
+        # The same run in the captured loop, held to this one.
+        *_, captured = _captured_run(
+            f"queue_modes {mode}", lambda: phold.build_program(
+                num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+                capacity=PHOLD_CAPACITY).build(
+                    backend="device", device=device_name, queue_mode=mode,
+                    loop="captured"),
+            lambda: phold.initial_state(PHOLD_LPS, device_name), res,
+            counts, every, res.raw["loop_s"], max_batches=batches)
         phase("queue_modes", mode=mode, batches_of=batches,
               checksum=int(res.state["checksum"]),
               rare_paths=json.dumps(
@@ -2658,7 +2766,8 @@ def run_queue_modes(device_name: str, phold_res, phold_counts):
                    if k not in ("host_syncs", "loop_syncs", "peak_mb")},
                   separators=(",", ":")),
               **_steps(res, card_s, counts, every, ref_single, setup_s),
-              bit_identical_to_tiered3=True)
+              loop_steps_per_s=f"{res.batches / res.raw['loop_s']:.1f}",
+              bit_identical_to_tiered3=True, **captured)
         del res
         gc.collect()
     return single

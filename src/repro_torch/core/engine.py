@@ -68,10 +68,18 @@ replays after the guard stops.  The graph is kept across runs and
 segments of one signature (carry shapes and ``t_end``, which the
 ``window_extract`` launch takes by value).  On the CPU the same step
 runs eagerly with its predicates read on the host
-(``COUNTS["cond_reads"]``).  It takes the single tiered3 queue under
-every dispatch mode, ``validate`` and ``overflow`` in
-``{"drop", "error"}``; spill, fenced runs, the other queues and the
-sharded engine raise :class:`ValueError` (ROADMAP A5).
+(``COUNTS["cond_reads"]``), and ``captures`` counts the graphs a card
+would capture.  It takes every configuration of this engine: the four
+queue modes (the two-tier queue's flush and refill as conditional
+nodes; the flat and reference queues have no branch), every dispatch
+mode, ``validate``, and ``overflow`` in ``{"drop", "error", "spill"}``.
+A fenced run (spill, or a streamed run) carries the fence and the spill
+buffer in the step's stats: the guard stops at the fence or at the
+first spill, and the segment loop's boundary work (absorbs, rebalances,
+the new fence, the buffer's drain) stays eager, between runs that
+replay the run's one graph (the boundary writes its results into the
+graph's carry).  Only the sharded engine raises :class:`ValueError`
+(ROADMAP A5).
 
 The robustness modes add no read to a common super-step: every check
 they make is folded into the one guard read.
@@ -190,7 +198,8 @@ _KNOBS = {
 }
 
 def captured_refusal(what: str) -> ValueError:
-    """What ``loop="captured"`` does not run yet: ROADMAP A5's list."""
+    """What ``loop="captured"`` does not run yet (ROADMAP A5): the
+    sharded engine, under either placement."""
     return ValueError(
         f"loop='captured' does not run {what} yet (ROADMAP A5); build "
         "with loop='eager'")
@@ -312,8 +321,11 @@ class DeviceEngine:
     segmented run is bit-identical to an unsegmented one.
 
     ``loop="captured"`` runs the super-steps as replays of one captured
-    CUDA graph, ``chunk`` steps a host read (see the module docstring);
-    its handlers must not read the host, which raises
+    CUDA graph, ``chunk`` steps a host read (see the module docstring),
+    in every queue mode and under every ``dispatch_mode``, ``validate``
+    and ``overflow``; a segmented run (checkpoints, spill, streamed
+    arrivals) replays one graph in all its segments.  Its handlers must
+    not read the host, which raises
     :class:`repro_torch.core.capture.CaptureError` naming the handler.
     A failed capture raises; nothing falls back to the eager loop.
     """
@@ -342,11 +354,6 @@ class DeviceEngine:
             if getattr(self, knob) not in choices:
                 raise ValueError(f"unknown {knob} {getattr(self, knob)!r}; "
                                  f"expected one of {choices}")
-        if self.loop == "captured":
-            if self.queue_mode != "tiered3":
-                raise captured_refusal(f"queue_mode={self.queue_mode!r}")
-            if self.overflow == "spill":
-                raise captured_refusal("overflow='spill'")
         if self.overflow == "spill" and self.queue_mode != "tiered3":
             raise ValueError(
                 "overflow='spill' requires queue_mode='tiered3' (got "
@@ -721,11 +728,14 @@ class DeviceEngine:
 
     def _active(self, queue, stats, max_batches, t_end):
         """The captured loop's guard on the device: JAX's ``cond`` (the
-        eager loop's guard read and its ``batches < max_batches``)."""
-        ok = (tiered3_queue_has_pending(queue)
-              & (tiered3_queue_next_time(queue) <= t_end)
+        eager loop's guard read and its ``batches < max_batches``).  A
+        carry with the fence (``bound_t``) is a fenced run's."""
+        has_pending, next_time, _, _ = _QUEUE_OPS[self.queue_mode]
+        ok = (has_pending(queue) & (next_time(queue) <= t_end)
               & (stats["batches"] < max_batches))
-        return self._guard(ok, queue, stats, False, None)
+        fenced = "bound_t" in stats
+        return self._guard(ok, queue, stats, fenced,
+                           tiered3_queue_next_key(queue) if fenced else None)
 
     def _step_captured(self, carry, t_end):
         """One super-step of the captured loop: the whole body under
@@ -739,14 +749,20 @@ class DeviceEngine:
     def _step_body(self, carry, t_end):
         state, queue = carry["state"], carry["queue"]
         stats = dict(carry["stats"])
-        queue, ts, tys, args, length = self._extract(queue, t_end, None)
+        bound = ((stats["bound_t"], stats["bound_seq"]) if "bound_t" in stats
+                 else None)
+        queue, ts, tys, args, length = self._extract(queue, t_end, bound)
         code = (self.codec.encode_torch(tys, length)
                 if self.dispatch_mode != "masked" or self._track_word_counts
                 else None)
         state, emits = self._dispatch_window_device(state, ts, tys, args,
                                                     length, code)
         prev_time = stats["time"]
-        queue = tiered3_queue_fill_rows(queue, emits)
+        if self.overflow == "spill":
+            queue, delta = self._spill_insert(queue, emits, stats)
+            stats.update(delta)
+        else:
+            queue = _QUEUE_OPS[self.queue_mode][2](queue, emits)
         stats["batches"] = stats["batches"] + 1
         stats["events"] = stats["events"] + length
         stats["emitted"] = stats["emitted"] + torch.sum(
@@ -806,6 +822,13 @@ class DeviceEngine:
         return host_list(torch.cat(parts))
 
     def _chunks_emulated(self, carry, t_end):
+        # ``captures`` counts the graphs a card would capture for these
+        # carries (one a signature, as :meth:`_chunks_on_card` keys it),
+        # so a CPU run shows where a card run would capture again.
+        key = (t_end, signature(carry))
+        if self._captured is None or self._captured[0] != key:
+            self._captured = (key, None, None)
+            self.captures += 1
         ctx = EmulateContext()
         while True:
             with step_context(ctx):
@@ -911,9 +934,6 @@ class DeviceEngine:
                                    | self._cheap_fault_bits(queue))
         syncs0 = COUNTS["host_syncs"]
         if self.loop == "captured":
-            if fenced:
-                raise captured_refusal(
-                    "a fenced run (spill or streamed arrivals)")
             state, queue = self._super_steps_captured(
                 state, queue, stats, max_batches, t_end)
         else:

@@ -26,7 +26,7 @@ How the JAX control flow maps onto eager PyTorch:
   engine's captured loop an IF node of the step's CUDA graph.  Each
   rare path counts its firings under its own key (:func:`bump`), so a
   run can show which paths it exercised.  The two-tier queue's conds
-  stay host reads.
+  are spelled the same way.
 * ``dynamic_slice``/``dynamic_update_slice`` clamp their start the way
   XLA does (:func:`_update_slice`), and every index a gather sees is
   clipped in range, as in the JAX code, so no gather can fault.
@@ -1796,7 +1796,7 @@ def _flush_stage(q: TieredDeviceQueue) -> TieredDeviceQueue:
     row's place among equal-time main rows follows its ``s_evict`` tag:
     an evicted row precedes them (searchsorted-left), a direct row
     follows them (right)."""
-    COUNTS["flush"] += 1
+    bump("flush")
     S, C = q.stage_cap, q.capacity
     dev = q.device
     perm = _small_lex_perm(q.s_times, q.s_seqs)
@@ -1809,17 +1809,18 @@ def _flush_stage(q: TieredDeviceQueue) -> TieredDeviceQueue:
     m_last = _at(q.m_times, torch.clamp(tail - 1, 0, C - 1))
     can_append = (((q.main_n == 0) | (st[0] > m_last))
                   & (tail + S <= C))
-    # A ring smaller than the staging block never appends.
-    if S <= C and host_read(can_append):
-        COUNTS["flush_append"] += 1
-        q = q._replace(
+
+    def append(q):
+        bump("flush_append")
+        return q._replace(
             m_times=_update_slice(q.m_times, st, tail),
             m_types=_update_slice(q.m_types, sty, tail),
             m_args=_update_slice(q.m_args, sarg, tail),
             m_seqs=_update_slice(q.m_seqs, sseq, tail),
             m_head=head)
-    else:
-        COUNTS["flush_merge"] += 1
+
+    def merge_all(q):
+        bump("flush_merge")
         mt = _ring_unroll(q.m_times, INF, q.m_head, q.main_n)
         my = _ring_unroll(q.m_types, -1, q.m_head, q.main_n)
         ma = _ring_unroll(q.m_args, 0.0, q.m_head, q.main_n)
@@ -1842,9 +1843,12 @@ def _flush_stage(q: TieredDeviceQueue) -> TieredDeviceQueue:
         def merge(col, scol):
             return _take(torch.cat([col, scol]), src)
 
-        q = q._replace(m_times=merge(mt, st), m_types=merge(my, sty),
-                       m_args=merge(ma, sarg), m_seqs=merge(ms, sseq),
-                       m_head=torch.zeros_like(q.m_head))
+        return q._replace(m_times=merge(mt, st), m_types=merge(my, sty),
+                          m_args=merge(ma, sarg), m_seqs=merge(ms, sseq),
+                          m_head=torch.zeros_like(q.m_head))
+
+    # A ring smaller than the staging block never appends.
+    q = if_else(can_append, append, merge_all, q) if S <= C else merge_all(q)
     et, ey, ea, es = _sentinel_cols(S, q.s_args.shape[1], dev)
     return q._replace(s_times=et, s_types=ey, s_args=ea, s_seqs=es,
                       s_evict=torch.zeros_like(q.s_evict),
@@ -1855,8 +1859,7 @@ def _flush_stage(q: TieredDeviceQueue) -> TieredDeviceQueue:
 def _refill_front(q: TieredDeviceQueue) -> TieredDeviceQueue:
     """Flush staging (staged keys may precede the main head), then
     append the main head to the front's occupied prefix."""
-    if host_read(q.stage_n > 0):
-        q = _flush_stage(q)
+    q = cond(q.stage_n > 0, _flush_stage, q)
     return _refill_main_only(q)
 
 
@@ -1874,8 +1877,7 @@ def tiered_queue_extract(q: TieredDeviceQueue, max_len: int, lookaheads,
     from repro_torch.kernels.queue_front import window_extract
 
     need_refill = (q.front_n < max_len) & ((q.stage_n > 0) | (q.main_n > 0))
-    if host_read(need_refill):
-        q = _refill_front(q)
+    q = cond(need_refill, _refill_front, q)
     ts, tys, args, length, nt, ny, na, ns = window_extract(
         q.f_times, q.f_types, q.f_args, q.f_seqs, lookaheads, t_cap,
         k=max_len)
@@ -1890,8 +1892,7 @@ def tiered_queue_fill_rows(q: TieredDeviceQueue, rows) -> TieredDeviceQueue:
     could overflow is flushed into main first.  Row layout ``(time,
     type, arg...)``; ``type < 0`` rows are skipped."""
     rows = rows.to(torch.float32)
-    if host_read(preflush_flag(q, rows.shape[0])):
-        q = _flush_stage(q)
+    q = cond(preflush_flag(q, rows.shape[0]), _flush_stage, q)
     seq_r, insert, counters = _default_fill_accounting(q, rows)
     b_time = torch.minimum(_tiered_main_head_time(q), torch.min(q.s_times))
     return _tiered_fill_finish(q, rows, b_time, seq_r, insert, counters)

@@ -38,7 +38,6 @@ from repro_torch.examples import mmc_network as tmmc
 from repro_torch.examples import phold as tphold
 from repro_torch.examples import poc as tpoc
 from repro_torch.kernels import queue_front as tqf
-from repro_torch.stream import PoissonSource
 from repro_torch.testing.faults import storm_program, tiny_phold
 
 from test_torch_engine import ROOT, assert_run_parity
@@ -89,12 +88,14 @@ def assert_same_run(got, want):
     assert len(gl) == len(wl)
     for a, b in zip(gl, wl):
         assert torch.equal(a, b)
-    for name in ("events", "batches", "dropped", "emitted", "pending"):
+    for name in ("events", "batches", "dropped", "emitted", "pending",
+                 "spilled", "ingested", "shed", "fault_word"):
         assert getattr(got, name) == getattr(want, name), name
     assert np.float32(got.final_time) == np.float32(want.final_time)
     np.testing.assert_array_equal(got.word_counts, want.word_counts)
-    g = tq.tiered3_queue_to_arrays(got.raw["final_queue"])
-    w = tq.tiered3_queue_to_arrays(want.raw["final_queue"])
+    g = tq.queue_to_arrays(got.raw["final_queue"])
+    w = tq.queue_to_arrays(want.raw["final_queue"])
+    assert g.keys() == w.keys()
     for name in w:
         np.testing.assert_array_equal(g[name], w[name], err_msg=name)
 
@@ -252,27 +253,16 @@ def test_fault_stops_at_the_same_step(case):
 
 
 @pytest.mark.parametrize("build_kw", [
-    dict(overflow="spill"),
-    dict(queue_mode="tiered"),
-    dict(queue_mode="flat"),
-    dict(queue_mode="reference"),
     dict(shards=2),
     dict(shards=2, placement="devices"),
-], ids=["spill", "tiered", "flat", "reference", "sharded", "devices"])
+], ids=["sharded", "devices"])
 def test_refusals_raise(build_kw):
+    """The sharded engine is the one configuration the captured loop
+    does not run (``tests/test_torch_captured_modes.py`` holds the
+    others)."""
     with pytest.raises(ValueError, match="ROADMAP A5"):
         tiny_phold().build(backend="device", device="cpu",
                            loop="captured", **build_kw)
-
-
-def test_fenced_run_refused():
-    sim = tiny_phold().build(backend="device", device="cpu",
-                             loop="captured")
-    src = PoissonSource(1.5, 16, seed=1, grid=0.25, t0=0.0, type_id=0,
-                        block_size=8)
-    with pytest.raises(ValueError, match="ROADMAP A5"):
-        sim.run(torch.zeros((), dtype=torch.int32), arrivals=src,
-                max_batches=10)
 
 
 def test_only_chunk_reads_inside_the_loop(monkeypatch):
