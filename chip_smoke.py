@@ -102,9 +102,10 @@ Phases, each printed on its own line:
    for bit to phase 4's card run, its rare-path counts equal, each queue
    kernel launched once a super-step (counted from the graph's bodies),
    one loop read a chunk; steps/s at chunks of 32, 64
-   and 128 (1,024 steps each), capture seconds and peak memory beside
-   phase 4's numbers; (b) the same PHOLD under ``masked`` and under
-   ``fused`` (phase 4b's hot set) for 1,024 steps, each held to the
+   and 128 (``MODES_BATCHES`` steps each), capture seconds and peak
+   memory beside phase 4's numbers; (b) the same PHOLD under ``masked``
+   and under ``fused`` (phase 4b's hot set) for ``MODES_BATCHES``
+   steps, each held to the
    eager card run of the same configuration; (c) phase 5's PoC and
    phase 5b's M/M/c runs (both sizes) in the three modes, each held to
    that phase's card run with equal ``run_path`` and fused counts; (d)
@@ -210,7 +211,16 @@ Phases, each printed on its own line:
    absorbed chunk and shard).  Every run of 5h and 5i prints its setup
    seconds, card seconds, super-steps per second, host syncs a
    super-step (loop and total) beside the single queue's and its
-   launches.
+   launches.  Each case of 5i also runs in the captured loop
+   (``loop="captured"``, ``_captured_run``): the sharded super-step,
+   every shard's refill and pre-flush a conditional node of its own,
+   captured once and replayed, held bit for bit to the case's eager
+   run with equal rare-path counts and ``front_merge`` launches (N a
+   super-step inside the graph, plus (d)'s absorbed chunks), one
+   capture a run and one loop read a chunk of each segment; it prints
+   its replayed super-steps/s beside the eager loop's, its capture
+   seconds, the graph's conditional nodes, bodies and counter slots,
+   and its peak memory.
 5j. stacked — 5i (a)'s PHOLD at ``SHARDS`` shards run
    ``STACKED_BATCHES`` super-steps, then stacked
    (``stack_sharded_queue``): the eight ``tiered3_stacked_*`` helpers,
@@ -237,8 +247,17 @@ Phases, each printed on its own line:
    host reads, no more than the serial run's; each case prints its
    backend, ranks and cards, each rank's super-steps/s, seconds, set-up
    seconds, host reads and collectives a super-step, launches and peak
-   memory, and the ratio to the serial run at as many shards.  NCCL at
-   more than one rank needs as many cards and is not run.
+   memory, and the ratio to the serial run at as many shards.  (a) also
+   runs in the captured loop on its NCCL rank, the heads', guards'
+   gathers inside the CUDA graph at its top level: held bit for bit to
+   the eager rank's run and to 5h's tiered3 run, ``front_merge`` once a
+   super-step, 2 collectives a super-step (counted from the replays),
+   one loop read a chunk, its replayed super-steps/s beside the eager
+   rank's.  The ranks of (b) and (c) each also build ``loop=
+   "captured"`` and get the NCCL-only refusal, with no launch: gloo
+   stages CUDA collectives through the host, which a graph cannot
+   capture.  NCCL at more than one rank needs as many cards and is not
+   run.
 5k. wireless — the paper's §IV.A example
    (``repro_torch.examples.wireless_des``): the host run with its batch
    words compiled by Inductor (in a child process started with the
@@ -478,8 +497,10 @@ ANALYSIS_TARGETS = ("repro_torch.examples.phold:make_program",
                     "repro_torch.examples.wireless_des:make_program")
 C3_CASES = [([2**31 - 1, 1], [0, 2, 2, 3]), ([-1, 1], [0, 2, 2, 4]),
             ([-5, 1], [0, 2, 2, 3]), ([4, 1], [0, 2, 2, 3])]
-MODES_BATCHES = 1024
-MODES_REF_BATCHES = 1024
+# 512 since the sharded engine's captured runs joined phases sharded and
+# devices: a slow host took 1,080 s of the 1,200 s limit at 1,024.
+MODES_BATCHES = 512
+MODES_REF_BATCHES = 512
 SHARDS = 4
 FUSED_SHARDS = 2
 STREAM_SHARDS = 2
@@ -1253,12 +1274,34 @@ def parity_problems(res, ref) -> list:
             torch.equal(a.cpu(), b.cpu())
             for a, b in zip(got_leaves, want_leaves)):
         problems.append("state differs")
-    got = q.tiered3_queue_to_arrays(res.raw["final_queue"])
-    want = q.tiered3_queue_to_arrays(ref.raw["final_queue"])
+    got = queue_arrays(res.raw["final_queue"])
+    want = queue_arrays(ref.raw["final_queue"])
+    if got.keys() != want.keys():
+        problems.append(f"final queue fields {sorted(got)} vs {sorted(want)}")
     for name in want:
-        if not np.array_equal(got[name], want[name]):
+        if name in got and not np.array_equal(got[name], want[name]):
             problems.append(f"final queue field {name} differs")
     return problems
+
+
+def queue_arrays(queue) -> dict:
+    """Every field of a final queue as host arrays: a single queue's by
+    name, a sharded queue's every shard's (``shard<i>.<name>``) and its
+    global counters; a placed queue is gathered first (a collective)."""
+    from repro_torch.core import queue as q
+    from repro_torch.core.sharded import ShardedQueue, StackedShardedQueue
+
+    if isinstance(queue, StackedShardedQueue):
+        queue = queue.gathered()
+        queue = ShardedQueue(queue.shards, queue.size, queue.next_seq,
+                             queue.dropped)
+    if not isinstance(queue, ShardedQueue):
+        return q.queue_to_arrays(queue)
+    out = {f"shard{i}.{k}": v for i, shard in enumerate(queue.shards)
+           for k, v in q.queue_to_arrays(shard).items()}
+    out.update({k: getattr(queue, k).cpu().numpy()
+                for k in ("size", "next_seq", "dropped")})
+    return out
 
 
 def launch_problems(launches: dict, batches: int) -> list:
@@ -1555,7 +1598,7 @@ CAPTURED_COUNTS = ("flush", "refill_kway", "refill_main_only", "to_run",
                    "fused_fallback", "flush_append", "flush_merge",
                    "absorb", "absorb_chunks", "rebalance")
 CAPTURED_PROFILE_STEPS = 64
-CAPTURED_CHUNKS = (32, 64, 128)      # (a)'s chunk sizes, 1,024 steps each
+CAPTURED_CHUNKS = (32, 64, 128)      # (a)'s chunk sizes, MODES_BATCHES each
 
 
 def _count_problems(counts, want, label) -> list:
@@ -1583,8 +1626,9 @@ def _captured_run(label, build, state, ref, ref_counts, ref_launches=None,
     engine's ``run`` once a segment).  Returns ``(sim, result, counts,
     card seconds, fields)``, the fields those a phase line prints:
     replayed steps/s (beside the eager loop's, given ``ref_loop_s``),
-    loop reads a step, captures, capture seconds, steps a segment and
-    peak device memory above what was held before the run."""
+    loop reads a step, captures, capture seconds, steps a segment, peak
+    device memory above what was held before the run, and the graph's
+    conditional nodes, bodies and counter slots."""
     import torch
 
     sim = build()
@@ -1639,10 +1683,21 @@ def _captured_run(label, build, state, ref, ref_counts, ref_launches=None,
         captured_card_s=f"{card_s:.3f}", captured_loop_s=f"{loop_s:.3f}",
         captured_peak_mb=f"{peak_mb:.1f}",
         captured_launches=json.dumps(launches, separators=(",", ":")),
-        captured_bit_identical_to_eager=True)
+        **graph_fields(eng), captured_bit_identical_to_eager=True)
     if ref_loop_s is not None:
         fields["eager_loop_steps_per_s"] = f"{ref.batches / ref_loop_s:.1f}"
     return sim, res, counts, card_s, fields
+
+
+def graph_fields(eng) -> dict:
+    """The captured step's graph: its conditional nodes by kind, bodies
+    and counter slots (none in the CPU form, which captures nothing)."""
+    step = eng._captured[2] if eng._captured else None
+    if step is None:
+        return {}
+    return dict(graph_nodes=json.dumps(dict(step.ctx.nodes),
+                                       separators=(",", ":")),
+                graph_bodies=step.ctx.bodies, graph_slots=step.ctx.used)
 
 
 def _profiled_kernels(fn) -> dict:
@@ -1763,7 +1818,7 @@ def run_captured(device_name: str, phold_res, phold_counts, phold_loop_s,
           launches=json.dumps(launches, separators=(",", ":")),
           bit_identical_to_phold=True)
 
-    # (b) masked and fused at 1,024 steps, each held to its eager run.
+    # (b) masked and fused at MODES_BATCHES, each held to its eager run.
     hot = phold_hot_words(phold_res)
     for mode, kw in (("masked", {}), ("fused", dict(hot_words=hot))):
         eager = phold.build_program(
@@ -2775,20 +2830,35 @@ def run_queue_modes(device_name: str, phold_res, phold_counts):
 
 def run_sharded(device_name: str, base, base_counts, hot, admit,
                 stream_a) -> dict:
-    """Phase 5i (a)-(d); returns (a)'s and (b)'s outcomes
-    (:func:`result_arrays`), super-steps/s and counts, the yardsticks of
-    phase devices."""
+    """Phase 5i (a)-(d), each case's eager run beside the same case in
+    the captured loop (:func:`_captured_run`); returns (a)'s and (b)'s
+    eager outcomes (:func:`result_arrays`), super-steps/s and counts,
+    the yardsticks of phase devices."""
+    from repro_torch.examples import phold
     from repro_torch.serving import scenarios
 
+    def phold_build(**kw):
+        return lambda: phold.build_program(
+            num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+            capacity=PHOLD_CAPACITY).build(
+                backend="device", device=device_name, loop="captured", **kw)
+
+    def phold_state():
+        return phold.initial_state(PHOLD_LPS, device_name)
+
     # (a) PHOLD at SHARDS shards, validated, against 5h's tiered3 run.
+    kw_a = dict(shards=SHARDS, validate="cheap")
     res, setup_s, card_s, every, counts = run_phold_built(
-        device_name, MODES_BATCHES, shards=SHARDS, validate="cheap")
+        device_name, MODES_BATCHES, **kw_a)
     problems = rows_problems(res, base) + _launch_want(
         every, {"front_merge": SHARDS * res.batches}, "sharded")
     if res.fault_word != 0:
         problems.append(f"fault word {res.fault_word}")
     if problems:
         raise PhaseError("sharded a: " + "; ".join(problems))
+    *_, captured = _captured_run(
+        "sharded a", phold_build(**kw_a), phold_state, res, counts, every,
+        res.raw["loop_s"], max_batches=MODES_BATCHES)
     phase("sharded", case="a", shards=SHARDS, dispatch_mode="switch",
           validate="cheap", checksum=int(res.state["checksum"]),
           rare_paths=json.dumps(
@@ -2797,14 +2867,17 @@ def run_sharded(device_name: str, base, base_counts, hot, admit,
               separators=(",", ":")),
           **_steps(res, card_s, counts, every, (base, base_counts),
                    setup_s),
-          bit_identical_to_tiered3=True)
+          loop_steps_per_s=f"{res.batches / res.raw['loop_s']:.1f}",
+          bit_identical_to_tiered3=True, **captured)
     serial = {"a": (result_arrays(res), res.batches / card_s, counts)}
     del res
+    gc.collect()
 
     # (b) FUSED_SHARDS shards under fused.
+    kw_b = dict(shards=FUSED_SHARDS, dispatch_mode="fused", hot_words=hot,
+                **FUSED_SHARD_TIERS)
     res, setup_s, card_s, every, counts = run_phold_built(
-        device_name, MODES_BATCHES, shards=FUSED_SHARDS,
-        dispatch_mode="fused", hot_words=hot, **FUSED_SHARD_TIERS)
+        device_name, MODES_BATCHES, **kw_b)
     problems = rows_problems(res, base) + _launch_want(
         every, {"front_merge": FUSED_SHARDS * res.batches}, "sharded fused")
     if counts.get("fused_hot", 0) + counts.get("fused_fallback", 0) \
@@ -2815,6 +2888,9 @@ def run_sharded(device_name: str, base, base_counts, hot, admit,
         problems.append(f"the small tiers' rare paths did not fire: {counts}")
     if problems:
         raise PhaseError("sharded b: " + "; ".join(problems))
+    *_, captured = _captured_run(
+        "sharded b", phold_build(**kw_b), phold_state, res, counts, every,
+        res.raw["loop_s"], max_batches=MODES_BATCHES)
     phase("sharded", case="b", shards=FUSED_SHARDS, dispatch_mode="fused",
           tiers=json.dumps(FUSED_SHARD_TIERS, separators=(",", ":")),
           rare_paths=json.dumps(
@@ -2825,26 +2901,39 @@ def run_sharded(device_name: str, base, base_counts, hot, admit,
           fused_fallback=counts.get("fused_fallback", 0),
           **_steps(res, card_s, counts, every, (base, base_counts),
                    setup_s),
-          bit_identical_to_tiered3=True)
+          loop_steps_per_s=f"{res.batches / res.raw['loop_s']:.1f}",
+          bit_identical_to_tiered3=True, **captured)
     serial["b"] = (result_arrays(res), res.batches / card_s, counts)
     del res
+    gc.collect()
 
     # (c) the closed admission scenario at SHARDS shards.
     t0 = time.perf_counter()
     sim = build_admission(device=device_name, shards=SHARDS)
     setup_s = time.perf_counter() - t0
+    loop_s = time_engine(sim)
     res, card_s, every, counts = drive(
         sim, scenarios.initial_state(ADMIT_SLOTS, device_name),
         max_batches=ADMIT_BATCHES)
+    loop_s = loop_s()
+    del sim
     problems = rows_problems(res, admit) + _launch_want(
         every, {"front_merge": SHARDS * res.batches}, "sharded admission")
     if problems:
         raise PhaseError("sharded c: " + "; ".join(problems))
+    *_, captured = _captured_run(
+        "sharded c", lambda: build_admission(
+            device=device_name, shards=SHARDS, loop="captured"),
+        lambda: scenarios.initial_state(ADMIT_SLOTS, device_name), res,
+        counts, every, loop_s, max_batches=ADMIT_BATCHES)
     phase("sharded", case="c", shards=SHARDS, scenario="admission",
           requests=ADMIT_REQUESTS,
           **_steps(res, card_s, counts, every,
                    (admit, admit.raw["counts"]), setup_s),
-          bit_identical_to_single=True)
+          loop_steps_per_s=f"{res.batches / loop_s:.1f}",
+          bit_identical_to_single=True, **captured)
+    del res
+    gc.collect()
 
     # (d) the open admission stream into STREAM_SHARDS shards.
     single, single_counts = stream_a
@@ -2852,9 +2941,12 @@ def run_sharded(device_name: str, base, base_counts, hot, admit,
     sim = build_open_admission(STREAM_CAPACITY, device_name,
                                shards=STREAM_SHARDS)
     setup_s = time.perf_counter() - t0
+    loop_s = time_engine(sim)
     res, card_s, every, counts = drive(
         sim, scenarios.initial_state(ADMIT_SLOTS, device_name),
         arrivals=stream_source(), until=STREAM_UNTIL)
+    loop_s = loop_s()
+    del sim
     problems = rows_problems(res, single) + _launch_want(
         every, {"front_merge": STREAM_SHARDS * res.batches
                 + counts.get("absorb_chunks", 0)}, "sharded stream")
@@ -2864,12 +2956,19 @@ def run_sharded(device_name: str, base, base_counts, hot, admit,
                             f"{getattr(single, name)}")
     if problems:
         raise PhaseError("sharded d: " + "; ".join(problems))
+    *_, captured = _captured_run(
+        "sharded d", lambda: build_open_admission(
+            STREAM_CAPACITY, device_name, shards=STREAM_SHARDS,
+            loop="captured"),
+        lambda: scenarios.initial_state(ADMIT_SLOTS, device_name), res,
+        counts, every, loop_s, arrivals=stream_source(), until=STREAM_UNTIL)
     phase("sharded", case="d", shards=STREAM_SHARDS, scenario="stream",
           ingested=res.ingested, absorbs=counts.get("absorb", 0),
           absorb_chunks=counts.get("absorb_chunks", 0),
           **_steps(res, card_s, counts, every, (single, single_counts),
                    setup_s),
-          bit_identical_to_single=True)
+          loop_steps_per_s=f"{res.batches / loop_s:.1f}",
+          bit_identical_to_single=True, **captured)
     return serial
 
 
@@ -4124,6 +4223,20 @@ def devices_rank(rank: str, world: str, port: str, case: str, out: str,
             capacity=PHOLD_CAPACITY).build(
                 backend="device", shards=world, placement="devices", **kw)
         setup_s = time.perf_counter() - t0
+        # The captured loop over gloo on a card: refused at build time,
+        # before any launch.
+        reset_launches()
+        try:
+            phold.build_program(
+                num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+                capacity=PHOLD_CAPACITY).build(
+                    backend="device", shards=world, placement="devices",
+                    loop="captured", **kw)
+        except ValueError as err:
+            refusal = str(err)
+        else:
+            refusal = None
+        refusal_launches = sum(read_launches().values())
         state = phold.initial_state(PHOLD_LPS, "cuda")
         # Set up while the parent runs the cases before this one; run
         # when it says so, so that no two cases share the card.
@@ -4139,7 +4252,8 @@ def devices_rank(rank: str, world: str, port: str, case: str, out: str,
         record = dict(rank=rank, device=str(sim.engine.device),
                       batches=res.batches, card_s=card_s, setup_s=setup_s,
                       launches=every, counts=counts,
-                      fault_word=res.fault_word,
+                      fault_word=res.fault_word, refusal=refusal,
+                      refusal_launches=refusal_launches,
                       peak_mb=round(torch.cuda.max_memory_allocated() / 2**20
                                     - base_mb, 1))
         got = result_arrays(res)
@@ -4257,17 +4371,30 @@ def _rank_problems(records: list, want_front: int, serial_loop: int,
                             f" (serial: {serial_loop})")
         problems += [f"{label}: {p}" for p in
                      _devices_collectives(r["counts"], b, validate)]
+        if not (r["refusal"] and "'gloo'" in r["refusal"]
+                and "NCCL" in r["refusal"]):
+            problems.append(f"{label}: loop='captured' over gloo gave "
+                            f"{r['refusal']!r}, not the NCCL-only refusal")
+        if r["refusal_launches"]:
+            problems.append(f"{label}: {r['refusal_launches']} launches "
+                            "before the refusal")
     return problems
 
 
 def devices_one_rank(base, base_counts) -> dict:
     """Phase devices (a): ``shards=1, placement="devices"`` in this
     process over an NCCL group of one rank, beside the serial engine at
-    one shard, each held to phase queue_modes' tiered3 run."""
+    one shard, each held to phase queue_modes' tiered3 run; then the
+    same rank in the captured loop (its gathers inside the CUDA graph),
+    held to the eager rank's run (:func:`_captured_run`) and to the
+    tiered3 run, with as many collectives as the eager rank's: the run
+    ends on a chunk's end."""
     import socket
 
     import torch
     import torch.distributed as dist
+
+    from repro_torch.examples import phold
 
     serial, _, serial_s, _, serial_counts = run_phold_built(
         "cuda", MODES_BATCHES, shards=1)
@@ -4295,6 +4422,22 @@ def devices_one_rank(base, base_counts) -> dict:
                             "super-steps")
         fields = _steps(res, card_s, counts, every, (base, base_counts),
                         setup_s)
+        if problems:
+            raise PhaseError("devices a: " + "; ".join(problems))
+        _, capt, c_counts, _, captured = _captured_run(
+            "devices a", lambda: phold.build_program(
+                num_lps=PHOLD_LPS, t_stop=PHOLD_T_STOP, max_batch_len=4,
+                capacity=PHOLD_CAPACITY).build(
+                    backend="device", device="cuda", shards=1,
+                    placement="devices", loop="captured"),
+            lambda: phold.initial_state(PHOLD_LPS, "cuda"), res, counts,
+            every, res.raw["loop_s"], max_batches=MODES_BATCHES)
+        problems += rows_problems(capt, base)
+        if c_counts.get("collectives") != counts.get("collectives"):
+            problems.append(f"captured: {c_counts.get('collectives')} "
+                            f"collectives, eager {counts.get('collectives')}")
+        if not capt.raw["final_queue"].placed:
+            problems.append("the captured run's final queue is not placed")
     finally:
         dist.destroy_process_group()
     if problems:
@@ -4302,7 +4445,10 @@ def devices_one_rank(base, base_counts) -> dict:
     return dict(fields, collectives_per_step=(
         f"{counts['collectives'] / res.batches:.4f}"),
         ratio_to_serial=f"{serial_s / card_s:.4f}",
-        serial_steps_per_s=f"{res.batches / serial_s:.1f}")
+        serial_steps_per_s=f"{res.batches / serial_s:.1f}",
+        loop_steps_per_s=f"{res.batches / res.raw['loop_s']:.1f}",
+        captured_collectives_per_step=(
+            f"{c_counts['collectives'] / capt.batches:.4f}"), **captured)
 
 
 def devices_case(ranks: dict, want: dict, serial_steps: float,
@@ -4334,6 +4480,7 @@ def devices_case(ranks: dict, want: dict, serial_steps: float,
           batches=b, **extra, **_rank_fields(records, serial_steps),
           serial_steps_per_s=f"{serial_steps:.1f}",
           bit_identical_to_serial=True,
+          captured_refused_over_gloo=True,
           nccl_multi_rank="not run: NCCL at N > 1 needs N cards")
 
 

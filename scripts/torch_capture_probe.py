@@ -2,7 +2,7 @@
 """What this host's PyTorch can capture into a CUDA graph with
 conditional nodes, as the device engine's captured loop needs them.
 
-    python3 scripts/torch_capture_probe.py [--json PATH]
+    python3 scripts/torch_capture_probe.py [--json PATH] [--only NAME]
 
 Each check captures a small graph with
 ``repro_torch.core.capture.capture_graph`` (``torch.cuda.graph`` with
@@ -32,6 +32,15 @@ replays it, and prints one line ``CHECK name ok=... detail``:
   and of a 48-op body, taken and untaken (CUDA events, 200 replays);
   and of a SWITCH node over 2, 16 and 128 bodies of 20 ops, one taken,
   with the host's ms a ``replay()`` call beside it;
+* ``nccl``: a one-rank NCCL group in this process, its communicator
+  warmed with a barrier; ``all_gather_rows`` (the list form of
+  ``all_gather``, as the sharded engine's ``placement="devices"``
+  gathers) captured at the graph's top level and inside an IF body,
+  each replayed against the same gather made eagerly, with the IF
+  taken and untaken, and the collectives counted from the replays; in
+  the ``thread_local`` capture mode (the engine's for a devices step:
+  NCCL's watchdog thread queries events meanwhile), which must pass,
+  and in the ``global`` mode, reported;
 * ``sync_ops``: which of ``bincount``, ``repeat_interleave`` with an
   int, ``nonzero`` and an index by a 0-d tensor a capture refuses (each
   in a child process of its own: a refused capture may leave the
@@ -62,16 +71,16 @@ def report(name: str, ok: bool, **detail) -> None:
           + " ".join(f"{k}={v}" for k, v in detail.items()), flush=True)
 
 
-def capture(fn, relaxed=False):
+def capture(fn, mode="global"):
     """``fn`` captured into a new graph through
     :func:`repro_torch.core.capture.capture_graph` (conditional nodes
-    from ``csrc/graph_cond.cu``); returns the ``CapturedStep``, which
-    must outlive the graph's replays."""
+    from ``csrc/graph_cond.cu``) in the capture mode ``mode``; returns
+    the ``CapturedStep``, which must outlive the graph's replays."""
     import torch
 
     from repro_torch.core import capture as cap
 
-    return cap.capture_graph(torch.device("cuda", 0), fn, relaxed=relaxed)
+    return cap.capture_graph(torch.device("cuda", 0), fn, mode=mode)
 
 
 def if_body(pred):
@@ -322,6 +331,76 @@ def check_switch():
            nodes=json.dumps(dict(g.ctx.nodes)))
 
 
+def check_nccl():
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import queue as tq
+    from repro_torch.core.capture import cond
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    out, oks = {}, {}
+    try:
+        group = dist.group.WORLD
+        # thread_local first (the mode the engine captures a devices
+        # step in): a global capture that NCCL's watchdog breaks may
+        # leave the process unusable.
+        for mode in ("thread_local", "global"):
+            try:
+                oks[mode], out[mode] = _nccl_case(torch, dist, tq, cond,
+                                                  group, mode)
+            except Exception as err:  # report the mode, go on
+                oks[mode] = False
+                out[mode] = f"{type(err).__name__}: {err}"[:300]
+    finally:
+        dist.destroy_process_group()
+    report("nccl", oks["thread_local"],
+           **{mode: json.dumps(v) for mode, v in out.items()})
+
+
+def _nccl_case(torch, dist, tq, cond, group, mode):
+    """One rank's ``all_gather_rows`` captured in ``mode`` at the top
+    level and in an IF body, each right after a barrier (NCCL's
+    watchdog then holds a work to query while the capture runs)."""
+    dist.barrier(device_ids=[torch.cuda.current_device()])
+    x = torch.arange(12, dtype=torch.int32, device="cuda").reshape(3, 4)
+    top = torch.zeros_like(x)
+    inner = torch.zeros_like(x)
+    pred = torch.ones((), dtype=torch.bool, device="cuda")
+    want = tq.all_gather_rows(x, group)
+
+    def step():
+        top.copy_(tq.all_gather_rows(x, group))
+        cond(pred, lambda c: tq.all_gather_rows(x, group) + 1, inner)
+
+    tq.COUNTS.clear()
+    g = capture(step, mode=mode)
+    got = []
+    for p in (True, False, True):
+        x.add_(100)
+        pred.fill_(p)
+        g.replay()
+        torch.cuda.synchronize()
+        got.append((bool(torch.equal(top, x)),
+                    bool(torch.equal(inner, x + 1)) if p else None))
+    counts = g.ctx.counters[:g.ctx.used].tolist()
+    g.ctx.fold(counts, replays=3)
+    folded = tq.COUNTS.get("collectives", 0)
+    ok = (bool(torch.equal(want.cpu(), torch.arange(12).reshape(3, 4)
+                           .to(torch.int32)))
+          and all(a for a, _ in got)
+          and [b for _, b in got if b is not None] == [True, True]
+          and folded == 5)
+    return ok, dict(replays=got, collectives=folded,
+                    nodes=dict(g.ctx.nodes))
+
+
 def _replay_ms(graph, replays=200) -> float:
     import torch
 
@@ -457,6 +536,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write the results to this file")
+    ap.add_argument("--only", action="append",
+                    help="run only this check (repeatable)")
     ap.add_argument("--sync-op", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.sync_op:
@@ -476,9 +557,10 @@ def main() -> int:
     for name, fn in (("api", check_api), ("if_node", check_if_node),
                      ("nested", check_nested), ("alloc", check_alloc),
                      ("ctypes", check_ctypes), ("loop", check_loop),
-                     ("switch", check_switch),
+                     ("switch", check_switch), ("nccl", check_nccl),
                      ("timing", check_timing), ("sync_ops", check_sync_ops)):
-        check(name, fn)
+        if args.only is None or name in args.only:
+            check(name, fn)
     if args.json:
         pathlib.Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.json).write_text(json.dumps(RESULTS, indent=1))

@@ -74,6 +74,10 @@ _KERNEL_MODULES = tuple(f"repro_torch.kernels.{name}" for name in (
 MAX_SLOTS = 4096
 MAX_DEPTH = 16
 
+# ``torch.cuda.graph``'s capture_error_mode -> cudaStreamCaptureMode, the
+# mode a capture's conditional bodies are captured in too.
+CAPTURE_MODES = {"global": 0, "thread_local": 1, "relaxed": 2}
+
 
 class CaptureError(RuntimeError):
     """A step could not be captured (or, on the CPU, would not be)."""
@@ -351,12 +355,12 @@ class CaptureContext:
     thread, since the graph's own pool takes only its capture stream.
     """
 
-    def __init__(self, device: torch.device, *, relaxed: bool = False):
+    def __init__(self, device: torch.device, *, mode: str = "global"):
         device = torch.device(device)
         if device.index is None:
             device = torch.device(device.type, torch.cuda.current_device())
         self.device = device
-        self.relaxed = relaxed
+        self.mode = mode
         if not hasattr(torch._C, "_cuda_beginAllocateCurrentThreadToPool"):
             raise CaptureError(
                 "this PyTorch cannot route allocations to a memory pool by "
@@ -446,7 +450,7 @@ class CaptureContext:
         lib = _lib()
         stream = self._stream(self.depth)
         status = lib.graph_body_begin(stream.cuda_stream, graph,
-                                      int(self.relaxed))
+                                      CAPTURE_MODES[self.mode])
         if status != 0:
             raise CaptureError(f"graph_body_begin failed: cudaError {status}")
         self.bodies += 1
@@ -579,12 +583,13 @@ class CapturedStep:
 
 
 def capture_graph(device: torch.device, fn, *,
-                  relaxed: bool = False) -> CapturedStep:
+                  mode: str = "global") -> CapturedStep:
     """Capture ``fn()`` (which records through :func:`when`,
-    :func:`cond` and :func:`select`) into a new CUDA graph.  A failed
-    capture raises the error that broke it; nothing falls back to the
-    eager loop."""
-    ctx = CaptureContext(device, relaxed=relaxed)
+    :func:`cond` and :func:`select`) into a new CUDA graph, in the
+    capture mode ``mode`` (:data:`CAPTURE_MODES`).  A failed capture
+    raises the error that broke it; nothing falls back to the eager
+    loop."""
+    ctx = CaptureContext(device, mode=mode)
     graph = torch.cuda.CUDAGraph()
     first = []
 
@@ -597,8 +602,7 @@ def capture_graph(device: torch.device, fn, *,
                 raise
 
     try:
-        with torch.cuda.graph(graph, capture_error_mode=(
-                "relaxed" if relaxed else "global")):
+        with torch.cuda.graph(graph, capture_error_mode=mode):
             ctx.record(body)
     except BaseException as err:
         if first and first[0] is not err:

@@ -78,8 +78,11 @@ buffer in the step's stats: the guard stops at the fence or at the
 first spill, and the segment loop's boundary work (absorbs, rebalances,
 the new fence, the buffer's drain) stays eager, between runs that
 replay the run's one graph (the boundary writes its results into the
-graph's carry).  Only the sharded engine raises :class:`ValueError`
-(ROADMAP A5).
+graph's carry).  The sharded engine (:mod:`repro_torch.core.sharded`)
+supplies its own step, guard and carry through the same loop
+(:meth:`DeviceEngine._carry_queue`, :meth:`_active`, :meth:`_step_body`)
+under both placements; its one refusal is ``placement="devices"`` on a
+CUDA device over a group that is not NCCL's.
 
 The robustness modes add no read to a common super-step: every check
 they make is folded into the one guard read.
@@ -196,13 +199,6 @@ _KNOBS = {
     "overflow": ("drop", "error", "spill"),
     "loop": ("eager", "captured"),
 }
-
-def captured_refusal(what: str) -> ValueError:
-    """What ``loop="captured"`` does not run yet (ROADMAP A5): the
-    sharded engine, under either placement."""
-    return ValueError(
-        f"loop='captured' does not run {what} yet (ROADMAP A5); build "
-        "with loop='eager'")
 
 # Per queue mode: (has_pending, next_time, insert, occupancy).  The
 # guard counts real events (``size`` also counts overflow ghosts): the
@@ -323,9 +319,9 @@ class DeviceEngine:
     ``loop="captured"`` runs the super-steps as replays of one captured
     CUDA graph, ``chunk`` steps a host read (see the module docstring),
     in every queue mode and under every ``dispatch_mode``, ``validate``
-    and ``overflow``; a segmented run (checkpoints, spill, streamed
-    arrivals) replays one graph in all its segments.  Its handlers must
-    not read the host, which raises
+    and ``overflow``, and in the sharded engine; a segmented run
+    (checkpoints, spill, streamed arrivals) replays one graph in all its
+    segments.  Its handlers must not read the host, which raises
     :class:`repro_torch.core.capture.CaptureError` naming the handler.
     A failed capture raises; nothing falls back to the eager loop.
     """
@@ -347,6 +343,9 @@ class DeviceEngine:
     loop: str = "eager"
     # Captured steps a host read (not a field: see the module docstring).
     chunk = 64
+    # The step's capture mode (``capture.CAPTURE_MODES``): "global"
+    # refuses an unsafe CUDA call from any thread while it captures.
+    capture_mode = "global"
 
     def __post_init__(self):
         self.registry.freeze()
@@ -752,9 +751,7 @@ class DeviceEngine:
         bound = ((stats["bound_t"], stats["bound_seq"]) if "bound_t" in stats
                  else None)
         queue, ts, tys, args, length = self._extract(queue, t_end, bound)
-        code = (self.codec.encode_torch(tys, length)
-                if self.dispatch_mode != "masked" or self._track_word_counts
-                else None)
+        code = self._code_device(tys, length)
         state, emits = self._dispatch_window_device(state, ts, tys, args,
                                                     length, code)
         prev_time = stats["time"]
@@ -763,6 +760,25 @@ class DeviceEngine:
             stats.update(delta)
         else:
             queue = _QUEUE_OPS[self.queue_mode][2](queue, emits)
+        self._account_device(stats, ts, emits, length, code, prev_time,
+                             self._cheap_fault_bits(queue)
+                             if self.validate != "off" else None)
+        return {"state": state, "queue": queue, "stats": stats,
+                "active": self._active(queue, stats, carry["max_batches"],
+                                       t_end),
+                "max_batches": carry["max_batches"]}
+
+    def _code_device(self, tys, length):
+        """The window's word code on the device, where the dispatch or
+        the word histogram needs it."""
+        if self.dispatch_mode != "masked" or self._track_word_counts:
+            return self.codec.encode_torch(tys, length)
+        return None
+
+    def _account_device(self, stats, ts, emits, length, code, prev_time,
+                        bits=None):
+        """:meth:`_account` with ``length`` and ``code`` device tensors
+        and ``batches``/``events`` device scalars (in place)."""
         stats["batches"] = stats["batches"] + 1
         stats["events"] = stats["events"] + length
         stats["emitted"] = stats["emitted"] + torch.sum(
@@ -774,15 +790,11 @@ class DeviceEngine:
             stats["word_counts"] = stats["word_counts"].index_add(
                 0, code.long().reshape(1),
                 torch.ones(1, dtype=torch.int32, device=ts.device))
-        if self.validate != "off":
-            bits = self._cheap_fault_bits(queue) | torch.where(
+        if bits is not None:
+            bits = bits | torch.where(
                 (length > 0) & (ts[0] < prev_time), FAULT_CLOCK, 0
             ).to(torch.int32)
             stats["fault_word"] = stats["fault_word"] | bits
-        return {"state": state, "queue": queue, "stats": stats,
-                "active": self._active(queue, stats, carry["max_batches"],
-                                       t_end),
-                "max_batches": carry["max_batches"]}
 
     def _super_steps_captured(self, state, queue, stats, max_batches,
                               t_end):
@@ -794,14 +806,15 @@ class DeviceEngine:
         host.  Updates ``stats`` in place; returns ``(state, queue)``."""
         dev = self.device
         carry = {
-            "state": state, "queue": queue,
+            "state": state,
             "stats": {k: (torch.tensor(v, dtype=torch.int64, device=dev)
                           if k in ("batches", "events") else v)
                       for k, v in stats.items()},
             "max_batches": torch.tensor(max_batches, dtype=torch.int64,
                                         device=dev),
         }
-        carry["active"] = self._active(queue, carry["stats"],
+        carry["queue"] = self._carry_queue(queue, carry["stats"])
+        carry["active"] = self._active(carry["queue"], carry["stats"],
                                        carry["max_batches"], t_end)
         if dev.type == "cuda":
             carry = self._chunks_on_card(carry, t_end)
@@ -809,7 +822,17 @@ class DeviceEngine:
             carry = self._chunks_emulated(carry, t_end)
         for k, v in carry["stats"].items():
             stats[k] = v
-        return carry["state"], carry["queue"]
+        return carry["state"], self._queue_of_carry(carry["queue"])
+
+    def _carry_queue(self, queue, stats):
+        """The queue as the captured step carries it (the sharded
+        engine's devices placement carries more); ``stats`` is the
+        carry's."""
+        return queue
+
+    def _queue_of_carry(self, queue):
+        """The queue :meth:`run` returns, from the carry's form."""
+        return queue
 
     def _chunk_read(self, carry, extra=None) -> list:
         """The chunk's one host read: ``[active, batches, events,
@@ -849,7 +872,8 @@ class DeviceEngine:
             t0 = time.perf_counter()
             self._warm_up(static, t_end)
             step = capture_graph(
-                self.device, lambda: self._step_captured(static, t_end))
+                self.device, lambda: self._step_captured(static, t_end),
+                mode=self.capture_mode)
             self.capture_seconds = time.perf_counter() - t0
             self.captures += 1
             self._captured = (key, static, step)
@@ -888,7 +912,7 @@ class DeviceEngine:
         torch.cuda.synchronize(self.device)
         capture_graph(self.device,
                       lambda: self._step_captured(static, t_end),
-                      relaxed=True)
+                      mode="relaxed")
         COUNTS.clear()
         COUNTS.update(counts)
         set_launches(launches)

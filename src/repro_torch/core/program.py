@@ -643,15 +643,9 @@ class SimProgram:
         if shards is not None:
             from repro_torch.core.sharded import ShardedDeviceEngine
 
-            if loop != "eager":
-                from repro_torch.core.engine import captured_refusal
-
-                raise captured_refusal(
-                    f"the sharded engine (placement={placement!r})")
-
             return CompiledSim(self, ShardedDeviceEngine.from_program(
                 self, shards=shards, shard_fn=shard_fn, placement=placement,
-                **kw), check=deferred_check)
+                loop=loop, **kw), check=deferred_check)
         from repro_torch.core.engine import DeviceEngine
 
         return CompiledSim(self, DeviceEngine.from_program(self, loop=loop,

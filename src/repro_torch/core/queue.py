@@ -137,13 +137,14 @@ def to_local(x: torch.Tensor) -> torch.Tensor:
 
 def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``t`` of ``group``, concatenated along dim 0 in rank
-    order (one counted collective, ``COUNTS["collectives"]``): the
+    order (one counted collective, ``COUNTS["collectives"]``, through
+    :func:`bump`, so that a captured step counts it each replay): the
     list form of ``all_gather``, which NCCL and gloo both take for CUDA
     tensors.  Every rank of ``group`` must call it with a tensor of the
     same shape and dtype."""
     import torch.distributed as dist
 
-    COUNTS["collectives"] += 1
+    bump("collectives")
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)

@@ -1,5 +1,6 @@
 """Sharded device engine: lookahead-synchronized multi-queue execution
-(PyTorch port, ``placement="serial"``).
+(PyTorch port), under ``placement="serial"`` and ``"devices"``, with the
+eager or the captured loop.
 
 Counterpart of :mod:`repro.core.sharded`.  PARSIR-style conservative
 PDES (PAPERS.md) partitions the pending set across ``shards`` per-shard
@@ -79,6 +80,36 @@ So a common super-step reads the host four times a rank, as the serial
 path does, and makes two collectives (three validated), counted in
 ``COUNTS["collectives"]``.  A failed collective is not caught.  The
 state is replicated: every rank holds the whole model state.
+
+``loop="captured"`` (:mod:`repro_torch.core.capture`) runs either
+placement as the single queue's captured loop does: one super-step
+captured as a CUDA graph and replayed ``chunk`` times a host read.
+
+* Serial: JAX's ``while_loop`` body, unrolled per shard, every choice
+  on the device.  Each shard's refill and pre-flush are conditional
+  nodes of their own (``refill=None``, ``flush=None``, where the eager
+  loop reads the N flags in one host read); the merged window is
+  encoded and dispatched on the device
+  (:meth:`ShardedDeviceEngine._merged_step` with ``on_device``); the
+  guard is JAX's ``cond`` over the shards.
+* Devices: JAX's ``while_loop`` inside its ``shard_map``.  The carry
+  holds the rank's squeezed shard, the replicated counters and the
+  gathered guard values (JAX's ``(local_q, g, aux)``).  A replay is the
+  peek under ``when(active)``, the heads' gather, the merged step, pop
+  and fill under ``when(active)``, the fault words' gather when
+  validating, the guards' gather and the new ``active``: every
+  collective at the graph's top level, outside every conditional node,
+  so every rank replays the same gathers.  A replay past the end gathers
+  unchanged buffers that nothing reads; the gathers count each replay
+  (2, 3 validated), as many as the eager loop's when a run ends on a
+  chunk's end.  On a CUDA device the group must be NCCL's
+  (:func:`check_captured_backend`): gloo stages a CUDA collective
+  through the host, which a graph cannot capture.  On the CPU the
+  step's CPU form runs over any backend.
+
+Segmented runs (checkpoints, streamed arrivals) keep their boundary work
+eager (``absorb_rows``, ``place_queue`` on resume, the new fence) and
+write its results into the one graph's carry.
 """
 
 from __future__ import annotations
@@ -90,6 +121,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import validate as _validate
+from repro_torch.core.capture import capturing, cond, write_back
 from repro_torch.core.engine import DeviceEngine
 from repro_torch.core.events import ARG_WIDTH
 from repro_torch.core.queue import (
@@ -288,18 +320,15 @@ class ShardedDeviceEngine(DeviceEngine):
     ``shards`` ranks (:func:`repro_torch.launch.mesh.make_shard_mesh`);
     every rank builds the engine and calls each of its methods alike.
     ``device=None`` is then the rank's card
-    (:func:`~repro_torch.launch.mesh.shard_device`)."""
+    (:func:`~repro_torch.launch.mesh.shard_device`).  ``loop="captured"``
+    runs under either placement (module docstring); on a card the
+    devices placement's group must be NCCL's."""
 
     shards: int = 2
     shard_fn: Callable | None = None
     placement: str = "serial"
 
     def __post_init__(self):
-        if self.loop == "captured":
-            from repro_torch.core.engine import captured_refusal
-
-            raise captured_refusal(
-                f"the sharded engine (placement={self.placement!r})")
         if self.queue_mode != "tiered3":
             raise ValueError(
                 f"ShardedDeviceEngine requires queue_mode='tiered3' "
@@ -324,7 +353,21 @@ class ShardedDeviceEngine(DeviceEngine):
             self.device = shard_device(self.device)
             self._rank = self._mesh.get_local_rank("shards")
             self._group = self._mesh.get_group("shards")
+            if self.loop == "captured":
+                import torch.distributed as dist
+
+                check_captured_backend(self.device,
+                                       dist.get_backend(self._group))
+                # NCCL's watchdog thread queries its events while the
+                # step is captured: only this thread's calls are held
+                # to the capture's rules.
+                self.capture_mode = "thread_local"
         super().__post_init__()
+        # Each head's shard, shard-major (made here: repeat_interleave
+        # is refused inside a captured step).
+        self._csrc = torch.repeat_interleave(
+            torch.arange(self.shards, dtype=torch.int32, device=self.device),
+            self.max_batch_len)
 
     @classmethod
     def from_program(cls, program, *, shards: int = 2,
@@ -338,7 +381,8 @@ class ShardedDeviceEngine(DeviceEngine):
                      dispatch_mode: str = "switch",
                      hot_words=None,
                      validate: str = "off",
-                     overflow: str = "drop") -> "ShardedDeviceEngine":
+                     overflow: str = "drop",
+                     loop: str = "eager") -> "ShardedDeviceEngine":
         """The sharded device backend of a frozen SimProgram."""
         cfg = program.config
         return cls(
@@ -351,6 +395,7 @@ class ShardedDeviceEngine(DeviceEngine):
             validate=validate, overflow=overflow, device=device,
             entity_handlers=program.device_entity_handlers() or None,
             shards=shards, shard_fn=shard_fn, placement=placement,
+            loop=loop,
         )
 
     # -- routing ------------------------------------------------------------
@@ -472,16 +517,21 @@ class ShardedDeviceEngine(DeviceEngine):
             size=size, next_seq=next_seq, dropped=dropped)
 
     # -- the loops ----------------------------------------------------------
-    def _merged_step(self, state, heads, csrc, g, stats, t_end, fenced):
+    def _merged_step(self, state, heads, csrc, g, stats, t_end, fenced, *,
+                     on_device=False):
         """The global part of a super-step, alike under both placements:
         the merge of the shards' ``N·k`` heads (``heads``: times, types,
         args and seqs, shard-major; ``csrc`` their shards) and the exact
-        global window (one host read), the dispatch, and the global seq
-        and overflow accounting against the counters ``g``.  Returns
-        ``(state, emits, ts, n, code, popped, routed, seq_r, g')``:
-        ``popped`` the shard of each taken candidate (else -1), ``routed``
-        the destination of each inserted row (else -1), ``g'`` the
-        counters after the super-step."""
+        global window, the dispatch, and the global seq and overflow
+        accounting against the counters ``g``.  The eager loop reads the
+        window to the host once and dispatches there; ``on_device`` (the
+        captured step) encodes and dispatches on the device
+        (:meth:`_dispatch_window_device`).  Returns ``(state, emits, ts,
+        n, code, popped, routed, seq_r, g')``: ``n`` the window's length
+        (a host int, or a device scalar ``on_device``), ``popped`` the
+        shard of each taken candidate (else -1), ``routed`` the
+        destination of each inserted row (else -1), ``g'`` the counters
+        after the super-step."""
         k = self.max_batch_len
         T = len(self.registry)
         cts, ctys, cargs, cseqs = heads
@@ -503,13 +553,19 @@ class ShardedDeviceEngine(DeviceEngine):
         ts = torch.where(take, ts_c, 0.0)
         tys = torch.where(take, tys_c, 0)
         args = torch.where(take[:, None], args_c, 0.0)
-        window = host_list(torch.cat([tys, length.reshape(1)]))
-        n = window[-1]
-        code = self.codec.encode(window[:n]) if n else 0
 
         # 4. dispatch: the parent's path.
-        state, emits = self._dispatch_window(state, ts, args, window[:k], n,
-                                             code)
+        if on_device:
+            n = length
+            code = self._code_device(tys, length)
+            state, emits = self._dispatch_window_device(state, ts, tys, args,
+                                                        length, code)
+        else:
+            window = host_list(torch.cat([tys, length.reshape(1)]))
+            n = window[-1]
+            code = self.codec.encode(window[:n]) if n else 0
+            state, emits = self._dispatch_window(state, ts, args, window[:k],
+                                                 n, code)
 
         # 5. global seq and overflow accounting (the insert-time size is
         # post-extract, as in the single queue), then the routing.
@@ -526,34 +582,35 @@ class ShardedDeviceEngine(DeviceEngine):
                 _Counters(size_mid + num_valid, g.next_seq + num_valid,
                           g.dropped + (num_valid - num_insert)))
 
+    def _serial_guard(self, qs, fenced):
+        """The serial loop's guard terms over the shards ``qs``:
+        ``(pending, next_time, next_key)``, the key (the global head
+        ``(time, seq)``) only when ``fenced``."""
+        pending = torch.any(torch.stack(
+            [tiered3_queue_has_pending(q) for q in qs]))
+        next_t = torch.min(torch.stack(
+            [tiered3_queue_next_time(q) for q in qs]))
+        next_key = None
+        if fenced:
+            keys = [tiered3_queue_next_key(q) for q in qs]
+            kt = torch.stack([t for t, _ in keys])
+            ks = torch.stack([s for _, s in keys])
+            nk_t = torch.min(kt)
+            next_key = (nk_t, torch.min(torch.where(kt == nk_t, ks,
+                                                    I32_MAX)))
+        return pending, next_t, next_key
+
     def _super_steps(self, state, sq, stats, max_batches, t_end, fenced):
         if self._mesh is not None:
             return self._super_steps_devices(state, sq, stats, max_batches,
                                              t_end, fenced)
-        if isinstance(sq, StackedShardedQueue):
-            # JAX runs a stacked queue only under its devices placement.
-            raise ValueError(
-                "a StackedShardedQueue runs under placement='devices'; "
-                "run the tuple-of-shards ShardedQueue on this engine")
+        _refuse_stacked(sq)
         k = self.max_batch_len
-        N = self.shards
         validate_on = self.validate != "off"
-        csrc = torch.repeat_interleave(
-            torch.arange(N, dtype=torch.int32, device=self.device), k)
         while stats["batches"] < max_batches:
             qs = list(sq.shards)
-            ok = (torch.any(torch.stack(
-                [tiered3_queue_has_pending(q) for q in qs]))
-                & (torch.min(torch.stack(
-                    [tiered3_queue_next_time(q) for q in qs])) <= t_end))
-            next_key = None
-            if fenced:
-                keys = [tiered3_queue_next_key(q) for q in qs]
-                kt = torch.stack([t for t, _ in keys])
-                ks = torch.stack([s for _, s in keys])
-                nk_t = torch.min(kt)
-                next_key = (nk_t, torch.min(torch.where(kt == nk_t, ks,
-                                                        I32_MAX)))
+            pending, next_t, next_key = self._serial_guard(qs, fenced)
+            ok = pending & (next_t <= t_end)
             if not host_read(self._guard(ok, sq, stats, fenced, next_key)):
                 break
 
@@ -567,8 +624,8 @@ class ShardedDeviceEngine(DeviceEngine):
                           for j in range(1, 5))
             prev_time = stats["time"]
             (state, emits, ts, n, code, popped, routed, seq_r,
-             g) = self._merged_step(state, heads, csrc, sq, stats, t_end,
-                                    fenced)
+             g) = self._merged_step(state, heads, self._csrc, sq, stats,
+                                    t_end, fenced)
 
             # 3. pop each shard's taken prefix.
             qs = [tiered3_queue_pop_prefix(
@@ -587,6 +644,135 @@ class ShardedDeviceEngine(DeviceEngine):
                           self._cheap_fault_bits(sq) if validate_on
                           else None)
         return state, sq
+
+    # -- the captured loop --------------------------------------------------
+    def _carry_queue(self, queue, stats):
+        """Serial: the tuple-of-shards queue.  Devices (JAX's
+        ``shard_map`` carry ``(local_q, g, aux)``): this rank's squeezed
+        shard ``q``, the replicated counters ``g`` and the guard values
+        ``aux`` of one gather."""
+        if self._mesh is None:
+            _refuse_stacked(queue)
+            return queue
+        stq = self.place_queue(queue)
+        q = _squeeze(stq.q)
+        return {"q": q,
+                "g": _Counters(to_local(stq.size), to_local(stq.next_seq),
+                               to_local(stq.dropped)),
+                "aux": self._gather_guards(q, "bound_t" in stats)}
+
+    def _queue_of_carry(self, queue):
+        if self._mesh is None:
+            return queue
+        return _place_local(queue["q"], *queue["g"], self._mesh)
+
+    def _active(self, queue, stats, max_batches, t_end):
+        """JAX's ``cond`` on the device: the serial loop's guard over
+        the shards, or the devices placement's over the gathered
+        ``aux`` (replicated, so every rank leaves on the same read)."""
+        fenced = "bound_t" in stats
+        if self._mesh is None:
+            pending, next_t, next_key = self._serial_guard(queue.shards,
+                                                           fenced)
+            counters = queue
+        else:
+            aux = queue["aux"]
+            pending, next_t, next_key = (aux["pending"], aux["next_t"],
+                                         aux.get("key"))
+            counters = queue["g"]
+        ok = (pending & (next_t <= t_end)
+              & (stats["batches"] < max_batches))
+        return self._guard(ok, counters, stats, fenced, next_key)
+
+    def _step_body(self, carry, t_end):
+        if self._mesh is not None:
+            return self._rank_step(carry, t_end, torch.ones(
+                (), dtype=torch.bool, device=self.device))
+        # JAX's unrolled per-shard body: each shard's refill and
+        # pre-flush are conditional nodes of their own (refill=None,
+        # flush=None).
+        k = self.max_batch_len
+        state, sq = carry["state"], carry["queue"]
+        stats = dict(carry["stats"])
+        fenced = "bound_t" in stats
+        peeked = [tiered3_queue_peek_front(q, k) for q in sq.shards]
+        qs = [p[0] for p in peeked]
+        heads = tuple(torch.cat([p[j] for p in peeked]) for j in range(1, 5))
+        prev_time = stats["time"]
+        (state, emits, ts, length, code, popped, routed, seq_r,
+         g) = self._merged_step(state, heads, self._csrc, sq, stats, t_end,
+                                fenced, on_device=True)
+        qs = [tiered3_queue_pop_prefix(
+                  q, torch.sum(popped == i).to(torch.int32), k)
+              for i, q in enumerate(qs)]
+        qs = [tiered3_queue_fill_rows_tagged(q, emits, seq_r, routed == i)
+              for i, q in enumerate(qs)]
+        sq = ShardedQueue(tuple(qs), *g)
+        self._account_device(stats, ts, emits, length, code, prev_time,
+                             self._cheap_fault_bits(sq)
+                             if self.validate != "off" else None)
+        return {"state": state, "queue": sq, "stats": stats,
+                "active": self._active(sq, stats, carry["max_batches"],
+                                       t_end),
+                "max_batches": carry["max_batches"]}
+
+    def _step_captured(self, carry, t_end):
+        if self._mesh is None:
+            return super()._step_captured(carry, t_end)
+        return self._rank_step(carry, t_end, carry["active"])
+
+    def _rank_step(self, carry, t_end, active):
+        """One captured super-step of this rank (JAX's ``_run_devices``
+        body), every collective at the graph's top level, outside every
+        conditional node: the peek under ``when(active)``, the heads'
+        gather, the merged step, pop and fill under ``when(active)``,
+        the fault words' gather when validating, the guards' gather and
+        the new ``active``.  ``active`` is replicated, so every rank
+        replays the same gathers; past the end they gather unchanged
+        buffers that nothing reads, and the step is an exact no-op."""
+        k = self.max_batch_len
+        my = self._rank
+        fenced = "bound_t" in carry["stats"]
+        cq = carry["queue"]
+        q = cond(active, lambda q: tiered3_queue_peek_front(q, k)[0],
+                 cq["q"])
+        heads = self._gather_heads(q.f_times[:k], q.f_types[:k],
+                                   q.f_args[:k], q.f_seqs[:k])
+
+        def body(c):
+            q, g = c["queue"]["q"], c["queue"]["g"]
+            stats = dict(c["stats"])
+            prev_time = stats["time"]
+            (state, emits, ts, length, code, popped, routed, seq_r,
+             g) = self._merged_step(c["state"], heads, self._csrc, g, stats,
+                                    t_end, fenced, on_device=True)
+            q = tiered3_queue_pop_prefix(
+                q, torch.sum(popped == my).to(torch.int32), k)
+            q = tiered3_queue_fill_rows_tagged(q, emits, seq_r, routed == my)
+            # The clock bit here; the queue's bits after the gather.
+            self._account_device(
+                stats, ts, emits, length, code, prev_time,
+                torch.zeros((), dtype=torch.int32, device=ts.device)
+                if self.validate != "off" else None)
+            return dict(c, state=state, stats=stats,
+                        queue=dict(c["queue"], q=q, g=g))
+
+        c = cond(active, body, dict(carry, queue=dict(cq, q=q)))
+        q, g = c["queue"]["q"], c["queue"]["g"]
+        stats = dict(c["stats"])
+        if self.validate != "off":
+            bits = _validate.rank_fault_bits([q], g.size, g.dropped,
+                                             self._group)
+            stats["fault_word"] = torch.where(
+                active, stats["fault_word"] | bits, stats["fault_word"])
+        queue = dict(c["queue"], aux=self._gather_guards(q, fenced))
+        out = dict(c, queue=queue, stats=stats,
+                   active=active & self._active(queue, stats,
+                                                carry["max_batches"], t_end))
+        if capturing():
+            write_back(carry, out)
+            return carry
+        return out
 
     # -- the loop, placement="devices" --------------------------------------
     def _gather_guards(self, q, fenced) -> dict:
@@ -633,9 +819,6 @@ class ShardedDeviceEngine(DeviceEngine):
         q = _squeeze(stq.q)
         g = _Counters(to_local(stq.size), to_local(stq.next_seq),
                       to_local(stq.dropped))
-        csrc = torch.repeat_interleave(
-            torch.arange(self.shards, dtype=torch.int32, device=self.device),
-            k)
         aux = self._gather_guards(q, fenced)
         while stats["batches"] < max_batches:
             ok = aux["pending"] & (aux["next_t"] <= t_end)
@@ -648,8 +831,8 @@ class ShardedDeviceEngine(DeviceEngine):
                 q, k, refill=host_read(tiered3_queue_refill_flag(q, k)))
             prev_time = stats["time"]
             (state, emits, ts, n, code, popped, routed, seq_r,
-             g) = self._merged_step(state, self._gather_heads(*heads), csrc,
-                                    g, stats, t_end, fenced)
+             g) = self._merged_step(state, self._gather_heads(*heads),
+                                    self._csrc, g, stats, t_end, fenced)
 
             # 3. pop my taken prefix; 6. fill the rows routed to me, after
             # my pre-flush read.
@@ -664,6 +847,33 @@ class ShardedDeviceEngine(DeviceEngine):
                           if validate_on else None)
             aux = self._gather_guards(q, fenced)
         return state, _place_local(q, *g, self._mesh)
+
+
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def check_captured_backend(device, backend: str) -> None:
+    """``loop="captured"`` under ``placement="devices"`` on a CUDA
+    device needs an NCCL group: gloo (or any other backend) stages a
+    CUDA collective through the host, which a CUDA graph cannot
+    capture.  Raises :class:`ValueError` naming ``backend``; on the CPU
+    any backend runs the captured loop's CPU form."""
+    if _on_card(device) and backend != "nccl":
+        raise ValueError(
+            "loop='captured' with placement='devices' on a CUDA device "
+            f"needs an NCCL process group, got backend {backend!r}: it "
+            "stages CUDA collectives through the host, and a CUDA graph "
+            "cannot capture that (build with loop='eager', or run the "
+            "ranks over NCCL, one card a rank)")
+
+
+def _refuse_stacked(queue) -> None:
+    if isinstance(queue, StackedShardedQueue):
+        # JAX runs a stacked queue only under its devices placement.
+        raise ValueError(
+            "a StackedShardedQueue runs under placement='devices'; "
+            "run the tuple-of-shards ShardedQueue on this engine")
 
 
 def _squeeze(q: Tiered3DeviceQueue) -> Tiered3DeviceQueue:

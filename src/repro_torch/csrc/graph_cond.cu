@@ -19,8 +19,9 @@
 //     to bodies[0..].  n == 0: an IF node on the 0-d bool at `value`
 //     (one body).  n >= 1: a SWITCH node on the int32 at `value` with n
 //     bodies; a value outside [0, n) runs none.
-//   graph_body_begin(body_stream, body, relaxed) / graph_body_end(...)
-//     capture the stream `body_stream` into one body graph; nodes
+//   graph_body_begin(body_stream, body, mode) / graph_body_end(...)
+//     capture the stream `body_stream` into one body graph, in the
+//     cudaStreamCaptureMode `mode` of the graph's own capture; nodes
 //     captured there run only when the node selects that body.
 //   graph_stream_create / graph_stream_destroy
 //     the body streams, one a nesting level.
@@ -109,10 +110,10 @@ extern "C" int graph_cond_begin(void* parent_stream, const void* value,
       parent, &node, 1, cudaStreamSetCaptureDependencies);
 }
 
-extern "C" int graph_body_begin(void* body_stream, void* body, int relaxed) {
+extern "C" int graph_body_begin(void* body_stream, void* body, int mode) {
   return (int)cudaStreamBeginCaptureToGraph(
       (cudaStream_t)body_stream, (cudaGraph_t)body, nullptr, nullptr, 0,
-      relaxed ? cudaStreamCaptureModeRelaxed : cudaStreamCaptureModeGlobal);
+      (cudaStreamCaptureMode)mode);
 }
 
 extern "C" int graph_body_end(void* body_stream) {

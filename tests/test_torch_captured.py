@@ -33,12 +33,13 @@ from repro_torch.core import capture
 from repro_torch.core import engine as tengine
 from repro_torch.core import program as tprogram
 from repro_torch.core import queue as tq
+from repro_torch.core import sharded as tsharded
 from repro_torch.core.validate import FAULT_OVERFLOW, FAULT_TIME_NONFINITE
 from repro_torch.examples import mmc_network as tmmc
 from repro_torch.examples import phold as tphold
 from repro_torch.examples import poc as tpoc
 from repro_torch.kernels import queue_front as tqf
-from repro_torch.testing.faults import storm_program, tiny_phold
+from repro_torch.testing.faults import storm_program
 
 from test_torch_engine import ROOT, assert_run_parity
 
@@ -252,17 +253,16 @@ def test_fault_stops_at_the_same_step(case):
     assert raised["eager"][1] > 0
 
 
-@pytest.mark.parametrize("build_kw", [
-    dict(shards=2),
-    dict(shards=2, placement="devices"),
-], ids=["sharded", "devices"])
-def test_refusals_raise(build_kw):
-    """The sharded engine is the one configuration the captured loop
-    does not run (``tests/test_torch_captured_modes.py`` holds the
-    others)."""
-    with pytest.raises(ValueError, match="ROADMAP A5"):
-        tiny_phold().build(backend="device", device="cpu",
-                           loop="captured", **build_kw)
+@pytest.mark.parametrize("backend", ["gloo", "mpi"])
+def test_devices_capture_on_a_card_needs_nccl(backend):
+    """The captured loop's one refusal: the sharded engine's
+    ``placement="devices"`` on a CUDA device over a group that is not
+    NCCL's, named in the message (``tests/test_torch_devices.py`` drives
+    it through a gloo rank's build)."""
+    with pytest.raises(ValueError, match=f"backend '{backend}'"):
+        tsharded.check_captured_backend(torch.device("cuda"), backend)
+    tsharded.check_captured_backend(torch.device("cuda"), "nccl")
+    tsharded.check_captured_backend(torch.device("cpu"), backend)
 
 
 def test_only_chunk_reads_inside_the_loop(monkeypatch):

@@ -19,9 +19,20 @@ leaves, events, batches, dropped, emitted, final_time, word_counts and
 the flat residual queue with its global counters.  A common super-step
 reads the host four times a rank and makes two collectives (three
 validated), counted in ``COUNTS``.  JAX's devices placement runs the
-churn at seed 0; its state and its final stacked queue, carried into the
-port with ``queue_from_arrays``, are held to the ranks' bit for bit.
-Tolerance: exact.
+churn at seeds 0 and 3; its state and its final stacked queue, carried
+into the port with ``queue_from_arrays``, are held to the ranks' bit for
+bit.
+
+The captured loop (``loop="captured"``, JAX's ``while_loop`` inside its
+``shard_map``) runs the churn at seeds 0 and 3, held to the eager
+devices run, the serial run and JAX's; a fault emitted into one rank's
+shard, caught on every rank at the eager loop's step; the checkpointed
+run crashed and resumed through ``place_queue`` in one capture; the
+``+stream`` entry; and its reads and collectives: one loop read a chunk
+(``CHUNK`` steps), and 2 collectives a replay (3 validated), so as many
+as the eager run's when the run ends on a chunk's end.  On a CUDA
+device it needs NCCL: the build-time refusal over gloo is driven here
+with a stand-in device check.  Tolerance: exact.
 """
 
 import datetime
@@ -52,6 +63,9 @@ DEVICES_ENTRIES = {
 PHOLD = dict(num_lps=24, t_stop=30.0, capacity=256)
 TIERS = dict(front_cap=16, stage_cap=8, num_runs=2)
 EVERY = 8
+CHUNK = 16       # the captured loop's steps a host read, small: runs end
+                 # mid-chunk
+JAX_SEEDS = (0, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -136,14 +150,16 @@ def _held_to(run, refs, msg):
         assert_flat_equal(got, flat_of(q0), f"{msg} {label}")
 
 
-def _churn(seed, rank, out):
+def _churn(seed, rank, out, loop="eager"):
     import torch
 
     from _torch_churn import engine, run_engine, seed_events
     from repro_torch.core import queue as tq
 
     events = seed_events(seed, 48, 12)
-    run = run_engine(engine(4, placement="devices"), events)
+    eng = engine(4, placement="devices", loop=loop)
+    eng.chunk = CHUNK
+    run = run_engine(eng, events)
     q = run[1]
     assert q.placed and q.q.f_times.to_local().shape[0] == 1
     whole = q.gathered()
@@ -153,8 +169,14 @@ def _churn(seed, rank, out):
         serial.append(run_engine(engine(4), events))
         return serial[0]
 
-    _held_to(run, {"single": lambda: run_engine(engine(0), events),
-                   "serial": serial_run}, f"seed {seed}")
+    refs = {"single": lambda: run_engine(engine(0), events),
+            "serial": serial_run}
+    if loop == "captured":
+        assert eng.captures == 1
+        s0, q0, st0 = run_engine(engine(4, placement="devices"), events)
+        eager = (s0, q0.gathered(), st0)
+        refs["eager devices"] = lambda: eager
+    _held_to(run, refs, f"seed {seed} {loop}")
     if rank != 0:
         return
     for i, shard in enumerate(serial[0][1].shards):
@@ -163,9 +185,10 @@ def _churn(seed, rank, out):
         for field in a._fields:
             np.testing.assert_array_equal(getattr(a, field),
                                           getattr(b, field))
-    if seed == 0:
+    if seed in JAX_SEEDS:
         s, _, st = run
-        np.savez(os.path.join(out, "churn0.npz"),
+        name = f"churn{seed}" + ("_captured" if loop == "captured" else "")
+        np.savez(os.path.join(out, f"{name}.npz"),
                  count=int(s["count"]), checksum=int(s["checksum"]),
                  **{f"stats.{k}": np.asarray(torch.as_tensor(st[k]))
                     for k in ("batches", "events", "dropped", "time",
@@ -182,6 +205,199 @@ def case_churn_0(rank, out):
 
 def case_churn_3(rank, out):
     _churn(3, rank, out)
+
+
+def case_captured_churn_0(rank, out):
+    _churn(0, rank, out, "captured")
+
+
+def case_captured_churn_3(rank, out):
+    _churn(3, rank, out, "captured")
+
+
+def _poison_program(t_poison: float):
+    """``tests/test_torch_captured.py``'s eight hops, the first at or past
+    ``t_poison`` emitting at -inf into the shard of its hop id."""
+    import math
+
+    import torch
+
+    from repro_torch.api import ARG_WIDTH, Config, SimProgram
+
+    prog = SimProgram("poison", config=Config(max_batch_len=4, capacity=64,
+                                              max_emit=1))
+
+    @prog.handler("HOP", lookahead=1.0, emits=True)
+    def hop(state, t, arg):
+        e = torch.zeros((1, 2 + ARG_WIDTH), dtype=torch.float32,
+                        device=t.device)
+        e[0, 0] = torch.where(t >= t_poison, -math.inf, 1.0)
+        e[0, 2] = arg[0]
+        return state + 1, e
+
+    for i in range(8):
+        prog.schedule(0.5 * i, "HOP", arg=[float(i)])
+    return prog
+
+
+def case_captured_fault(rank, out):
+    """A non-finite time emitted into one rank's shard mid-run: the
+    validated captured loop stops every rank at the eager loop's step,
+    with its word."""
+    import torch
+
+    from repro_torch.core.validate import (
+        FAULT_TIME_NONFINITE,
+        EngineFaultError,
+    )
+
+    raised = {}
+    for loop in ("eager", "captured"):
+        sim = _poison_program(9.0).build(
+            device="cpu", shards=4, placement="devices", validate="cheap",
+            loop=loop)
+        sim.engine.chunk = CHUNK
+        try:
+            sim.run(torch.zeros((), dtype=torch.int32))
+        except EngineFaultError as err:
+            raised[loop] = (err.fault_word, err.fault_step)
+        else:
+            raise AssertionError(f"{loop}: the fault was not caught")
+    assert raised["captured"] == raised["eager"], raised
+    assert raised["eager"][0] & FAULT_TIME_NONFINITE
+    assert raised["eager"][1] > 0
+    _agree([np.asarray(raised["captured"])], "captured fault")
+
+
+def case_captured_resume(rank, out):
+    """The captured devices run checkpointed every ``EVERY`` super-steps
+    (mid-chunk), crashed after two segments and resumed through
+    ``place_queue`` in the same engine: equal to its straight run and to
+    the eager devices run, in one capture."""
+    from repro_torch.examples import phold as tphold
+    from repro_torch.testing.faults import SimulatedCrash
+
+    def sim(**kw):
+        return tphold.build_program(**PHOLD).build(
+            device="cpu", shards=4, placement="devices", **TIERS, **kw)
+
+    def crash(seg, state, queue, stats):
+        if seg == 2:
+            raise SimulatedCrash("injected crash at segment 2")
+
+    eager = sim().run(tphold.initial_state(24))
+    devices = sim(loop="captured")
+    devices.engine.chunk = CHUNK
+    straight = devices.run(tphold.initial_state(24))
+    ckpt = os.path.join(out, "captured_resume")
+    try:
+        devices.run(tphold.initial_state(24), checkpoint_every=EVERY,
+                    checkpoint_dir=ckpt, _segment_hook=crash)
+    except SimulatedCrash:
+        pass
+    else:
+        raise AssertionError("the crash never fired")
+    resumed = devices.run(tphold.initial_state(24), checkpoint_every=EVERY,
+                          checkpoint_dir=ckpt, resume_from="latest")
+    assert devices.engine.captures == 1
+    _result_equal(resumed, {"straight": straight}, "captured resumed")
+    _result_equal(straight, {"eager": eager}, "captured straight")
+
+
+def case_captured_stream(rank, out):
+    """``device/tiered3-4shard-devices+stream`` in the captured loop,
+    against the eager devices run and the serial run."""
+    from repro_torch.api import Config
+    from repro_torch.serving import scenarios as tsc
+    from repro_torch.stream import PoissonSource
+
+    def run(**kw):
+        prog = tsc.build_open_admission_program(
+            num_slots=4, num_requests=40, max_decode=5,
+            config=Config(max_batch_len=3, capacity=256, max_emit=2))
+        sim = prog.build(device="cpu", **kw)
+        sim.engine.chunk = CHUNK
+        return sim.run(
+            tsc.initial_state(4), arrivals=PoissonSource(
+                1.5, 40, seed=42, grid=0.25, t0=0.0, type_id=0,
+                block_size=16))
+
+    kw = DEVICES_ENTRIES["device/tiered3-4shard-devices+stream"]
+    res = run(loop="captured", **kw)
+    eager = run(**kw)
+    assert res.ingested == 40 and res.shed == 0
+    _result_equal(res, {"eager": eager, "serial": lambda: run(shards=4)},
+                  "captured stream")
+
+
+def case_captured_syncs(rank, out):
+    """PHOLD with every event in the fronts, captured: one loop read a
+    chunk a rank; 2 collectives a replay (3 validated), so as many as
+    the eager run's when the run ends on a chunk's end, and 2 (3) more
+    for each replay past the end of the last chunk."""
+    from repro_torch.core import queue as tq
+    from repro_torch.examples import phold as tphold
+
+    chunk = 4
+    for validate, per_step in (("off", 2), ("cheap", 3)):
+        for batches in (12, 14):
+            counts = {}
+            for loop in ("eager", "captured"):
+                prog = tphold.build_program(num_lps=16, t_stop=1e6,
+                                            capacity=1024)
+                sim = prog.build(device="cpu", shards=4, placement="devices",
+                                 validate=validate, loop=loop)
+                sim.engine.chunk = chunk
+                tq.COUNTS.clear()
+                res = sim.run(tphold.initial_state(16), max_batches=batches)
+                counts[loop] = dict(tq.COUNTS)
+                assert res.batches == batches
+            c, e = counts["captured"], counts["eager"]
+            chunks = -(-batches // chunk)
+            assert c["loop_syncs"] == chunks, c
+            assert c["collectives"] == e["collectives"] + per_step * (
+                chunks * chunk - batches), (validate, batches, c, e)
+            assert e["loop_syncs"] == 4 * batches, e
+
+
+def case_nccl_only(rank, out):
+    """On a CUDA device the captured devices placement needs NCCL: with
+    the device check standing in for a card, a gloo group's build raises
+    naming its backend, before any launch."""
+    from repro_torch.core import sharded as tsharded
+    from repro_torch.examples import phold as tphold
+    from repro_torch.kernels import queue_front as tqf
+
+    tqf.reset_launches()
+    real = tsharded._on_card
+    tsharded._on_card = lambda device: True
+    try:
+        try:
+            tphold.build_program(**PHOLD).build(
+                device="cpu", shards=4, placement="devices",
+                loop="captured")
+        except ValueError as err:
+            assert "'gloo'" in str(err) and "NCCL" in str(err), err
+        else:
+            raise AssertionError("gloo on a card was not refused")
+        # The eager loop takes any backend.
+        tphold.build_program(**PHOLD).build(device="cpu", shards=4,
+                                            placement="devices")
+        # Past the check (as over NCCL), the step is captured in the
+        # thread_local mode: NCCL's watchdog thread queries its events
+        # meanwhile.
+        check = tsharded.check_captured_backend
+        tsharded.check_captured_backend = lambda device, backend: None
+        try:
+            sim = tphold.build_program(**PHOLD).build(
+                device="cpu", shards=4, placement="devices",
+                loop="captured")
+            assert sim.engine.capture_mode == "thread_local"
+        finally:
+            tsharded.check_captured_backend = check
+    finally:
+        tsharded._on_card = real
+    assert not any(tqf.LAUNCHES.values()), tqf.LAUNCHES
 
 
 def case_validated(rank, out):
@@ -390,9 +606,10 @@ def _rank(rank: int, port: int, out: str) -> None:
 # ---------------------------------------------------------------------------
 
 def _write_jax(path: str) -> None:
-    """JAX's churn at seed 0 on 4 forced host devices
+    """JAX's churn at each of :data:`JAX_SEEDS` on 4 forced host devices
     (``test_sharded_engine._engine(4, placement="devices")``): its state,
-    stats and final stacked queue, and ``_parity``'s devices entries."""
+    stats and final stacked queue, and ``_parity``'s devices entries;
+    seed 0's at ``path``, seed 3's beside it (:func:`_jax_path`)."""
     import jax
 
     import _parity
@@ -400,20 +617,27 @@ def _write_jax(path: str) -> None:
 
     assert len(jax.devices()) == 4
     eng = jshard._engine(4, placement="devices")
-    events = jshard._seed_events(0, 48, 12)
-    s, q, st = eng.run(jshard._state0(), eng.initial_queue(events),
-                       max_batches=48)
     entries = {k: v for k, v in {**_parity.ALL_BACKENDS,
                                  **_parity.STREAM_BACKENDS}.items()
                if v.get("placement") == "devices"}
-    np.savez(path, count=int(s["count"]), checksum=int(s["checksum"]),
-             entries=json.dumps(entries, sort_keys=True),
-             **{f"stats.{k}": np.asarray(st[k])
-                for k in ("batches", "events", "dropped", "time",
-                          "word_counts")},
-             **{f"q.{k}": np.asarray(v) for k, v in zip(q.q._fields, q.q)},
-             **{f"g.{k}": int(getattr(q, k))
-                for k in ("size", "next_seq", "dropped")})
+    for seed in JAX_SEEDS:
+        events = jshard._seed_events(seed, 48, 12)
+        s, q, st = eng.run(jshard._state0(), eng.initial_queue(events),
+                           max_batches=48)
+        np.savez(_jax_path(path, seed), count=int(s["count"]),
+                 checksum=int(s["checksum"]),
+                 entries=json.dumps(entries, sort_keys=True),
+                 **{f"stats.{k}": np.asarray(st[k])
+                    for k in ("batches", "events", "dropped", "time",
+                              "word_counts")},
+                 **{f"q.{k}": np.asarray(v)
+                    for k, v in zip(q.q._fields, q.q)},
+                 **{f"g.{k}": int(getattr(q, k))
+                    for k in ("size", "next_seq", "dropped")})
+
+
+def _jax_path(path: str, seed: int) -> str:
+    return path if seed == 0 else path.replace(".npz", f"{seed}.npz")
 
 
 # ---------------------------------------------------------------------------
@@ -506,6 +730,48 @@ def test_churn_matches_jax_devices_placement(ranks):
     """JAX's shard_map'd churn at seed 0 against the ranks': state,
     stats and the final stacked queue, carried into the port with
     ``queue_from_arrays``, field by field and as a flat view."""
+    _, out = ranks
+    _assert_matches_jax(*(np.load(os.path.join(out, name))
+                          for name in ("churn0.npz", "jax.npz")))
+
+
+@pytest.mark.parametrize("seed", JAX_SEEDS)
+def test_captured_churn_matches_jax_devices_placement(ranks, seed):
+    """The captured churn against JAX's ``while_loop`` inside its
+    ``shard_map``, as :func:`test_churn_matches_jax_devices_placement`
+    holds the eager one."""
+    _, out = ranks
+    _assert_matches_jax(
+        np.load(os.path.join(out, f"churn{seed}_captured.npz")),
+        np.load(_jax_path(os.path.join(out, "jax.npz"), seed)))
+
+
+@pytest.mark.parametrize("case", ["captured_churn_0", "captured_churn_3"])
+def test_captured_churn_matches_eager_serial_and_single(ranks, case):
+    _every_rank_ok(ranks, case)
+
+
+def test_captured_fault_on_one_rank_caught_on_every_rank(ranks):
+    _every_rank_ok(ranks, "captured_fault")
+
+
+def test_captured_checkpointed_run_resumes_in_one_capture(ranks):
+    _every_rank_ok(ranks, "captured_resume")
+
+
+def test_captured_stream_entry(ranks):
+    _every_rank_ok(ranks, "captured_stream")
+
+
+def test_captured_reads_and_collectives(ranks):
+    _every_rank_ok(ranks, "captured_syncs")
+
+
+def test_captured_on_a_card_needs_nccl(ranks):
+    _every_rank_ok(ranks, "nccl_only")
+
+
+def _assert_matches_jax(got, want):
     import torch
 
     from repro_torch.core.queue import Tiered3DeviceQueue, queue_from_arrays
@@ -514,9 +780,6 @@ def test_churn_matches_jax_devices_placement(ranks):
         sharded_queue_to_flat,
     )
 
-    _, out = ranks
-    got, want = (np.load(os.path.join(out, name))
-                 for name in ("churn0.npz", "jax.npz"))
     assert json.loads(str(want["entries"])) == DEVICES_ENTRIES
     for key in ("count", "checksum", "stats.batches", "stats.events",
                 "stats.dropped", "stats.time", "stats.word_counts"):
